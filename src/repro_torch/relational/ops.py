@@ -1,0 +1,323 @@
+"""Distributed relational operators on DTables (sequential, one op each).
+
+Each operator = (repartition via hash shuffle) + (per-shard local op), all
+inside one per-shard function so a BSP round is one ``SPMD.run``
+dispatch.  Operators return (result DTable, stats) where stats carry
+``sent`` (tuples communicated — the paper's cost unit), ``dropped``
+(capacity overflows; nonzero => the driver must retry with bigger caps)
+and ``padded`` (dense all_to_all slots the wire shipped, known from ``p``
+and each exchange's ``c_out``, so accounted host-side).
+
+The fused round path lives in ``batched``; these are the operators the
+materialization stage and the capacity manager call directly.
+"""
+from __future__ import annotations
+
+from typing import Dict, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from .localops import (
+    get_local_backend,
+    local_dedup_mask,
+    local_join,
+    local_join_count,
+    local_project,
+)
+from .shuffle import exchange, exchange_counts, exchange_multi, padded_slots, pow2
+from .spmd import SPMD
+from .table import DTable, schema_join
+from .wire import count_wire_bytes, dense_wire_bytes
+
+
+class Overflow(Exception):
+    """A reducer exceeded its capacity — the paper's 'abort'."""
+
+
+def _stats(sent, dropped, ubytes=None):
+    out = {"sent": sent, "dropped": dropped}
+    if ubytes is not None:
+        out["ubytes"] = ubytes
+    return out
+
+
+def _to_int(v) -> int:
+    if isinstance(v, torch.Tensor):
+        return int(v.sum().item())
+    return int(np.asarray(v).sum())
+
+
+def agg_stats(stats, padded: int = 0, wire_bytes: int = 0) -> Dict[str, int]:
+    out = {k: _to_int(v) for k, v in stats.items()}
+    out.setdefault("padded", int(padded))
+    out.setdefault("wire_bytes", int(wire_bytes))
+    out.setdefault("ubytes", 0)
+    return out
+
+
+def _caps_from_counts(o, r) -> Tuple[int, int]:
+    return pow2(max(1, int(o.max()))), pow2(max(1, int(r.max())))
+
+
+# ------------------------------------------------------ count-only pre-pass
+def _exchange_count_pair_shard(
+    ad, av, bd, bv, seed, *, cols_a, cols_b, p, dedup_a, dedup_b, backend
+):
+    """Both sides of a two-table exchange counted in ONE program."""
+    be = get_local_backend(backend)
+    va, vb = av, bv
+    if dedup_a:
+        ka, va = local_project(ad, av, cols_a, dedup=True)
+        da = be.dests(ka, va, tuple(range(len(cols_a))), p, seed)
+    else:
+        da = be.dests(ad, va, cols_a, p, seed)
+    if dedup_b:
+        kb, vb = local_project(bd, bv, cols_b, dedup=True)
+        db = be.dests(kb, vb, tuple(range(len(cols_b))), p, seed)
+    else:
+        db = be.dests(bd, vb, cols_b, p, seed)
+    return exchange_counts(da, p), exchange_counts(db, p)
+
+
+def measure_exchange_pair(
+    spmd: SPMD, a: DTable, b: DTable, attrs_a: Sequence[str],
+    attrs_b: Sequence[str], *, seed: int,
+    dedup: Tuple[bool, bool] = (False, False), backend: str = "torch",
+) -> Tuple[Tuple[int, int], Tuple[int, int]]:
+    """Count-only pre-pass for BOTH sides of a join exchange in one
+    dispatch.  Returns ``(c_out, cap_recv)`` pairs ordered (a, b)."""
+    (oa, ra), (ob, rb) = spmd.run(
+        _exchange_count_pair_shard,
+        a.data, a.valid, b.data, b.valid, spmd.seeds(seed),
+        cols_a=a.cols(attrs_a), cols_b=b.cols(attrs_b),
+        p=spmd.p, dedup_a=dedup[0], dedup_b=dedup[1],
+        backend=backend, measure=True,
+    )
+    ca, cra = _caps_from_counts(oa.cpu(), ra.cpu())
+    cb, crb = _caps_from_counts(ob.cpu(), rb.cpu())
+    return (ca, cb), (cra, crb)
+
+
+def _exchange_count_pairs_shard(*args, entries, p, backend):
+    """SEVERAL two-table exchanges counted in ONE program; ``args`` packs
+    (a_data, a_valid, b_data, b_valid, seed) per entry."""
+    out = []
+    for i, (cols_a, cols_b, dedup_a, dedup_b) in enumerate(entries):
+        ad, av, bd, bv, seed = args[5 * i: 5 * i + 5]
+        out.append(
+            _exchange_count_pair_shard(
+                ad, av, bd, bv, seed, cols_a=cols_a, cols_b=cols_b, p=p,
+                dedup_a=dedup_a, dedup_b=dedup_b, backend=backend,
+            )
+        )
+    return tuple(out)
+
+
+def measure_exchange_pairs(spmd: SPMD, items, *, backend: str = "torch"):
+    """Count-only pre-pass for SEVERAL two-table exchanges in one dispatch
+    and one host sync.  ``items`` are (a, b, attrs_a, attrs_b, seed,
+    (dedup_a, dedup_b)); returns the per-item ((c_out_a, c_out_b),
+    (cap_recv_a, cap_recv_b))."""
+    arrays = []
+    entries = []
+    for a, b, attrs_a, attrs_b, seed, dedup in items:
+        arrays += [a.data, a.valid, b.data, b.valid, spmd.seeds(seed)]
+        entries.append(
+            (a.cols(attrs_a), b.cols(attrs_b), bool(dedup[0]), bool(dedup[1]))
+        )
+    res = spmd.run(
+        _exchange_count_pairs_shard, *arrays,
+        entries=tuple(entries), p=spmd.p, backend=backend, measure=True,
+    )
+    out = []
+    for (oa, ra), (ob, rb) in res:
+        ca, cra = _caps_from_counts(oa.cpu(), ra.cpu())
+        cb, crb = _caps_from_counts(ob.cpu(), rb.cpu())
+        out.append(((ca, cb), (cra, crb)))
+    return out
+
+
+# ----------------------------------------------------------------------- join
+def _join_shard(
+    a_data, a_valid, b_data, b_valid, seed, *,
+    a_key, b_key, b_keep, p, c_out_a, c_out_b, cap_a, cap_b, out_cap, backend,
+):
+    be = get_local_backend(backend)
+    da = be.dests(a_data, a_valid, a_key, p, seed)
+    a2, a2v, sent_a, dsa, dra = exchange(a_data, a_valid, da, p=p, c_out=c_out_a, cap_recv=cap_a)
+    db = be.dests(b_data, b_valid, b_key, p, seed)
+    b2, b2v, sent_b, dsb, drb = exchange(b_data, b_valid, db, p=p, c_out=c_out_b, cap_recv=cap_b)
+    # key columns are unchanged by the shuffle: join on a_key/b_key directly
+    out, out_v, over = local_join(a2, a2v, b2, b2v, a_key, b_key, b_keep, out_cap, backend)
+    ub = 4 * (a_data.shape[-1] * sent_a + b_data.shape[-1] * sent_b)
+    return out, out_v, _stats(sent_a + sent_b, dsa + dra + dsb + drb + over, ubytes=ub)
+
+
+def _cross_join_shard(
+    a_data, a_valid, b_data, b_valid, *, b_keep, p, c_out_b, cap_b, out_cap, backend,
+):
+    """Attribute-disjoint join: A stays put, B broadcasts to every reducer
+    (comm = p * |B|), then an empty-key local join expands A_shard x B."""
+    n = b_data.shape[-2]
+    dests = torch.arange(p, dtype=torch.int32, device=b_data.device).expand(p, n, p)
+    b2, b2v, sent_b, dsb, drb = exchange_multi(
+        b_data, b_valid, dests, p=p, c_out=c_out_b, cap_recv=cap_b
+    )
+    out, out_v, over = local_join(
+        a_data, a_valid, b2, b2v, (), (), b_keep, out_cap, backend
+    )
+    return out, out_v, _stats(
+        sent_b, dsb + drb + over, ubytes=4 * b_data.shape[-1] * sent_b
+    )
+
+
+def dist_join(
+    spmd: SPMD, a: DTable, b: DTable, *, seed: int, out_cap: int,
+    c_out: Optional[Tuple[int, int]] = None,
+    cap_recv: Optional[Tuple[int, int]] = None,
+    calibrate: bool = False, backend: str = "torch",
+) -> Tuple[DTable, Dict]:
+    """Hash join of a and b on their shared attributes (co-partitioning).
+    With NO shared attributes this is a broadcast cross join.
+
+    ``calibrate=True``: when the shuffle capacities are not given, run the
+    count-only pre-pass per side and use the tight pow2 capacities."""
+    shared = [x for x in a.schema if x in b.schema]
+    a_key = a.cols(shared)
+    b_key = b.cols(shared)
+    b_keep = tuple(i for i, x in enumerate(b.schema) if x not in set(a.schema))
+    out_schema = schema_join(a.schema, b.schema)
+    p = spmd.p
+    count_pad = 0
+    count_bytes = 0
+    if calibrate and shared and c_out is None and cap_recv is None:
+        c_out, cap_recv = measure_exchange_pair(
+            spmd, a, b, shared, shared, seed=seed, backend=backend
+        )
+        count_pad = 2 * p * p  # the two (p,)-int count vectors
+        count_bytes = count_wire_bytes(p, 2)
+    c_out = c_out or (a.cap, b.cap)           # safe: one shard sends all
+    cap_recv = cap_recv or (p * a.cap, p * b.cap)  # safe: one shard gets all
+    if not shared:
+        od, ov, stats = spmd.run(
+            _cross_join_shard,
+            a.data, a.valid, b.data, b.valid,
+            b_keep=b_keep, p=p, c_out_b=c_out[1], cap_b=cap_recv[1],
+            out_cap=out_cap, backend=backend,
+        )
+        return DTable(od, ov, out_schema), agg_stats(
+            stats,
+            padded_slots(p, c_out[1], b.arity),
+            wire_bytes=dense_wire_bytes(p, c_out[1], b.arity),
+        )
+    od, ov, stats = spmd.run(
+        _join_shard,
+        a.data, a.valid, b.data, b.valid, spmd.seeds(seed),
+        a_key=a_key, b_key=b_key, b_keep=b_keep, p=p,
+        c_out_a=c_out[0], c_out_b=c_out[1],
+        cap_a=cap_recv[0], cap_b=cap_recv[1],
+        out_cap=out_cap, backend=backend,
+    )
+    return DTable(od, ov, out_schema), agg_stats(
+        stats,
+        padded_slots(p, c_out[0], a.arity)
+        + padded_slots(p, c_out[1], b.arity)
+        + count_pad,
+        wire_bytes=dense_wire_bytes(p, c_out[0], a.arity)
+        + dense_wire_bytes(p, c_out[1], b.arity)
+        + count_bytes,
+    )
+
+
+# ---------------------------------------------------------------------- dedup
+def _dedup_shard(data, valid, seed, *, cols, p, c_out, cap_recv, backend):
+    dest = get_local_backend(backend).dests(data, valid, cols, p, seed)
+    d2, v2, sent, ds, dr = exchange(data, valid, dest, p=p, c_out=c_out, cap_recv=cap_recv)
+    mask = local_dedup_mask(d2, v2, cols)
+    d2 = torch.where(mask.unsqueeze(-1), d2, 0)
+    return d2, mask, _stats(sent, ds + dr, ubytes=4 * data.shape[-1] * sent)
+
+
+def dist_dedup(
+    spmd: SPMD, t: DTable, *, seed: int,
+    c_out: Optional[int] = None, cap_recv: Optional[int] = None,
+    backend: str = "torch",
+) -> Tuple[DTable, Dict]:
+    p = spmd.p
+    c_out = c_out or t.cap
+    cap_recv = cap_recv or p * t.cap
+    cols = tuple(range(len(t.schema)))
+    d, v, stats = spmd.run(
+        _dedup_shard, t.data, t.valid, spmd.seeds(seed),
+        cols=cols, p=p, c_out=c_out, cap_recv=cap_recv, backend=backend,
+    )
+    return DTable(d, v, t.schema), agg_stats(
+        stats,
+        padded_slots(p, c_out, t.arity),
+        wire_bytes=dense_wire_bytes(p, c_out, t.arity),
+    )
+
+
+# ------------------------------------------------------ join output counting
+def _join_count_shard(
+    a_data, a_valid, b_data, b_valid, seed, *,
+    a_key, b_key, p, c_out_a, c_out_b, cap_a, cap_b, backend,
+):
+    """Shuffle ONLY the key projections with the join's hash plan and count
+    the exact per-shard join output (capacity planning, no payload moved)."""
+    be = get_local_backend(backend)
+    ak, akv = local_project(a_data, a_valid, a_key, dedup=False)
+    kc = tuple(range(len(a_key)))
+    da = be.dests(ak, akv, kc, p, seed)
+    a2, a2v, *_ = exchange(ak, akv, da, p=p, c_out=c_out_a, cap_recv=cap_a)
+    bk, bkv = local_project(b_data, b_valid, b_key, dedup=False)
+    db = be.dests(bk, bkv, kc, p, seed)
+    b2, b2v, *_ = exchange(bk, bkv, db, p=p, c_out=c_out_b, cap_recv=cap_b)
+    return local_join_count(a2, a2v, b2, b2v, kc, kc, backend)
+
+
+def dist_join_count(
+    spmd: SPMD, a: DTable, b: DTable, *, seed: int, backend: str = "torch"
+) -> np.ndarray:
+    """Exact per-shard output size of ``dist_join(a, b, seed=seed)`` with
+    default receive capacities — (p,) array.  Used by the capacity
+    manager to pre-size a blown join's retry instead of guessing."""
+    shared = [x for x in a.schema if x in b.schema]
+    p = spmd.p
+    counts = spmd.run(
+        _join_count_shard,
+        a.data, a.valid, b.data, b.valid, spmd.seeds(seed),
+        a_key=a.cols(shared), b_key=b.cols(shared), p=p,
+        c_out_a=a.cap, c_out_b=b.cap, cap_a=p * a.cap, cap_b=p * b.cap,
+        backend=backend, measure=True,
+    )
+    return counts.cpu().numpy()
+
+
+# -------------------------------------------------------------------- project
+def _project_shard(data, valid, *, cols, dedup):
+    return local_project(data, valid, cols, dedup)
+
+
+def dist_project(
+    spmd: SPMD, t: DTable, attrs: Sequence[str], *, dedup: bool = False
+) -> Tuple[DTable, Dict]:
+    """Shard-local projection (no communication); stats are zero."""
+    d, v = spmd.run(_project_shard, t.data, t.valid, cols=t.cols(attrs), dedup=dedup)
+    return DTable(d, v, tuple(attrs)), {
+        "sent": 0, "dropped": 0, "padded": 0, "wire_bytes": 0, "ubytes": 0,
+    }
+
+
+def check_no_drop(
+    stats: Dict[str, int], op: str = "?", cap: Optional[int] = None
+) -> None:
+    """Raise ``Overflow`` if the operator dropped tuples."""
+    if stats.get("dropped", 0):
+        at = f" at capacity {cap}" if cap is not None else ""
+        raise Overflow(
+            f"{op}: {stats['dropped']} tuples dropped{at} (capacity abort; "
+            f"sent={stats.get('sent', '?')}) — retry with a larger capacity "
+            "or enable the count-calibrated shuffle pre-pass"
+        )
