@@ -1,34 +1,46 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port of GYM on one CUDA card.
 
-    python3 chip_smoke.py [--seed N] [--reps N]
+    python3 chip_smoke.py [--seed N] [--reps N] [--phases gym,lm]
 
 Run from the root of a checkout on a machine with a CUDA card (sm_90a,
 an H100) and the CUDA toolkit.  In order it:
 
 1. prints the card's name and power limit (``nvidia-smi``);
-2. builds the Hopper kernels from ``src/repro_torch/csrc`` and prints the
-   build time;
-3. holds each CUDA kernel exactly equal to its plain PyTorch version on
-   the card at edge cases (n=0, all-INT32_MAX keys, -1 probes, p=7 and
-   p=8, a top-bit seed);
-4. drives the port's main path — default ``gym()`` (hash engine, DYM-d,
-   fused, calibrated, dense wire) with the ``'cuda'`` backend — on S_8,
-   C_8 and TC_9 at the ``benchmarks/bench_shuffle.py`` sizes and at a
-   real size (about 2^20 tuples per relation at p=8, 8-9 M input tuples
-   per query, made with vectorized numpy from ``--seed``).  Each run's
-   rows, schema and ledger must equal a run with the ``'torch'`` backend
-   (the plain versions) on the card, the real-size row sets must equal an
-   independent numpy join, and every kernel must have launched;
-5. times each kernel at the largest inputs the main path gave it (CUDA
-   events, L2 flushed before each launch) beside its plain version, one
-   PyTorch library call where one computes the same function, and its
-   memory bound.
+2. builds the Hopper kernels from ``src/repro_torch/csrc`` (one ``nvcc``
+   per source, all at once) and prints the build time and ptxas's
+   register and spill report;
+3. holds each gym CUDA kernel exactly equal to its plain PyTorch version
+   on the card at edge cases (n=0, all-INT32_MAX keys, -1 probes, p=7 and
+   p=8, a top-bit seed), and the flash attention kernel within stated
+   tolerances of its plain version over head widths, dtypes, GQA groups,
+   masks, softcaps and ragged shapes, with fully masked rows exactly 0;
+4. (phase ``gym``) drives the port's join path — default ``gym()`` (hash
+   engine, DYM-d, fused, calibrated, dense wire) with the ``'cuda'``
+   backend — on S_8, C_8 and TC_9 at the ``benchmarks/bench_shuffle.py``
+   sizes and at a real size (about 2^20 tuples per relation at p=8, 8-9 M
+   input tuples per query, made with vectorized numpy from ``--seed``).
+   Each run's rows, schema and ledger must equal a run with the
+   ``'torch'`` backend (the plain versions) on the card, the real-size
+   row sets must equal an independent numpy join, and every gym kernel
+   must have launched;
+5. (phase ``lm``) drives the port's LM serving path — ``generate`` over
+   ``DecoderLM.prefill`` and ``decode_step`` — on gemma2-9b at full width
+   and depth in bf16 with random weights from ``--seed``: a batch of two
+   4608-token prompts, 16 greedy tokens, the ``'cuda'`` backend.  The
+   flash kernel must launch exactly 42 times per ``generate`` (once per
+   layer, in prefill), and the per-step logits must agree with a
+   teacher-forced replay through the ``'torch'`` backend on the card;
+6. times each kernel at the largest inputs its path gave it (CUDA events,
+   L2 flushed before each launch) beside its plain version, one PyTorch
+   library call where one computes the same function, and its bound.
 
-The second-to-last line is one JSON object describing the kernels; the
-last line is ``{"ok": true, "device": {...}}``.  Any failed check raises
-and the exit code is nonzero.  Without a CUDA card the script exits
-nonzero before printing anything.
+TF32 is off for matrix products and cuDNN (set explicitly below), so f32
+products on the card run in full f32.  The second-to-last line is one
+JSON object describing the kernels; the last line is
+``{"ok": true, "device": {...}}``.  Any failed check raises and the exit
+code is nonzero.  Without a CUDA card the script exits nonzero before
+printing anything.
 """
 from __future__ import annotations
 
@@ -45,19 +57,35 @@ import numpy as np
 HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(HERE, "src"))
 
-# H100 SXM peaks (NVIDIA data sheet): HBM bandwidth, and the 32-bit
-# non-tensor-core rate as the integer-operation ceiling
+# H100 SXM peaks (NVIDIA data sheet): HBM bandwidth, the 32-bit
+# non-tensor-core rate as the integer-operation ceiling, and the dense
+# bf16 tensor-core rate
 HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 67e12
+BF16_FLOPS_PER_S = 989e12
 I32MAX = 2**31 - 1
 
-SOURCE = "src/repro_torch/csrc/gym_kernels.cu"
+GYM_SOURCE = "src/repro_torch/csrc/gym_kernels.cu"
+FLASH_SOURCE = "src/repro_torch/csrc/flash_attention.cu"
+GYM_KERNELS = ("hash_partition", "semijoin_probe", "sorted_probe_ranges")
 KERNELS = {
     # kernel name -> the TPU kernel (file:line of its body) it replaces
     "hash_partition": "src/repro/kernels/hash_partition.py:49",
     "semijoin_probe": "src/repro/kernels/semijoin_probe.py:33",
     "sorted_probe_ranges": "src/repro/kernels/sorted_probe.py:40",
+    "flash_attention": "src/repro/kernels/flash_attention.py:34",
 }
+# the LM serving phase: gemma2-9b at full width and depth
+LM_ARCH, LM_BATCH, LM_PROMPT, LM_STEPS = "gemma2-9b", 2, 4608, 16
+# flash kernel vs its plain version: f32 both accumulate in f32 and differ
+# in summation order only; bf16 both round an f32 result once, and a
+# value on a rounding boundary may land one or two bf16 ulps apart
+# (2**-7 relative each), so the bound is absolute at |o| <= 1, relative above
+FLASH_TOL = {"float32": 1e-4, "bfloat16": 3e-2}
+# LM logits, 'cuda' backend vs teacher-forced 'torch' backend: the two
+# prefills differ only in attention's summation order, whose bf16
+# roundings then travel through 42 layers of bf16 activations
+LM_LOGIT_REL_TOL = 5e-2
 
 
 class SmokeFailure(AssertionError):
@@ -304,7 +332,7 @@ def kernel_timing(torch, K, ref, recorded, launches, reps):
         )
         check(r["max_abs_err"] == 0, f"{r['name']} disagrees with its plain version")
         recs.append({
-            "name": r["name"], "route": "cuda", "source": SOURCE,
+            "name": r["name"], "route": "cuda", "source": GYM_SOURCE,
             "replaces": KERNELS[r["name"]], "launches": launches[r["name"]],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": bound, "bound_by": "bytes" if t_bytes >= t_ops else "operations",
@@ -351,7 +379,7 @@ def main_path(torch, seed: int, sizes=("bench", "real")):
     from repro_torch.kernels import ops as K
 
     summary = {}
-    totals = {k: 0 for k in KERNELS}
+    totals = {k: 0 for k in GYM_KERNELS}
     for size in sizes:
         t0 = time.perf_counter()
         fams = families(seed, real=(size == "real"))
@@ -360,10 +388,11 @@ def main_path(torch, seed: int, sizes=("bench", "real")):
         for fam, (q, g, data) in fams.items():
             K.reset_launch_counts()
             rows, schema, led, cold = run_gym(torch, gym_mod, q, g, data, "cuda")
-            per_run = K.launch_counts()
+            per_run = {k: K.launch_counts()[k] for k in GYM_KERNELS}
+            check(K.launch_counts()["flash_attention"] == 0, "gym launched flash_attention")
             rows2, schema2, led2, warm = run_gym(torch, gym_mod, q, g, data, "cuda")
-            for k, v in K.launch_counts().items():
-                totals[k] += v
+            for k in GYM_KERNELS:
+                totals[k] += K.launch_counts()[k]
             K.reset_launch_counts()
             trows, tschema, tled, tsec = run_gym(torch, gym_mod, q, g, data, "torch")
             check(sum(K.launch_counts().values()) == 0, "'torch' backend launched a kernel")
@@ -450,16 +479,335 @@ def profile_queries(torch, seed: int, fams, out_dir: str) -> None:
             print(f"  {name[:70]:70s} device_ms={us / 1e3:.3f}", flush=True)
 
 
+# ------------------------------------------------------- flash attention
+def _visible(torch, sq, sk, causal, window, dev):
+    rows = torch.arange(sq, device=dev)[:, None]
+    cols = torch.arange(sk, device=dev)[None, :]
+    vis = torch.ones((sq, sk), dtype=torch.bool, device=dev)
+    if causal:
+        vis &= cols <= rows
+    if window > 0:
+        vis &= cols > rows - window
+    return vis
+
+
+def _flash_err(got, want) -> float:
+    """max |got - want| / max(1, |want|): absolute at |o| <= 1, relative above."""
+    g, w = got.float(), want.float()
+    return float(((g - w).abs() / w.abs().clamp(min=1.0)).max()) if w.numel() else 0.0
+
+
+def flash_edge_checks(torch, dev):
+    """The flash kernel against its plain version on the card, within
+    ``FLASH_TOL``: head widths 16/64/128/256 (and 80, padded), f32 and
+    bf16, GQA groups 1/2/8, causal or not, window 0 or > 0, softcap 0 or
+    50, Sq != Skv, Skv not a multiple of the 64-key tile, Skv = 1, and
+    fully masked rows, which must be exactly 0."""
+    import itertools
+
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import ref
+
+    rng = np.random.default_rng(11)
+    worst = {"float32": 0.0, "bfloat16": 0.0}
+    n = 0
+
+    def run(dtype, b, h, kvh, sq, sk, d, causal, window, softcap):
+        nonlocal n
+        dt = getattr(torch, dtype)
+        # q scaled by 4 so that the scores reach the softcap's bend
+        q = torch.from_numpy(4 * rng.standard_normal((b, h, sq, d))).to(dev, dt)
+        k = torch.from_numpy(rng.standard_normal((b, kvh, sk, d))).to(dev, dt)
+        v = torch.from_numpy(rng.standard_normal((b, kvh, sk, d))).to(dev, dt)
+        kw = dict(causal=causal, window=window, softcap=softcap)
+        got = FA.flash_attention(q, k, v, **kw)
+        want = FA.flash_attention_plain(q, k, v, **kw)
+        torch.cuda.synchronize()
+        what = f"flash_attention {dtype} b{b} h{h}/{kvh} sq{sq} sk{sk} d{d} {kw}"
+        check(got.dtype == dt and got.shape == q.shape, f"{what}: dtype/shape")
+        check(bool(torch.isfinite(got).all()), f"{what}: non-finite output")
+        err = _flash_err(got, want)
+        check(err <= FLASH_TOL[dtype], f"{what}: err {err} > {FLASH_TOL[dtype]}")
+        dead = ~_visible(torch, sq, sk, causal, window, dev).any(dim=1)
+        check(bool((got[:, :, dead] == 0).all()), f"{what}: a fully masked row is not 0")
+        worst[dtype] = max(worst[dtype], err)
+        n += 1
+        return got
+
+    for d, dtype, g, causal, window, softcap in itertools.product(
+        (16, 64, 128, 256), ("float32", "bfloat16"), (1, 2, 8), (True, False),
+        (0, 37), (0.0, 50.0),
+    ):
+        run(dtype, 2, 8, 8 // g, 130, 130, d, causal, window, softcap)
+    for d, dtype in itertools.product((16, 64, 128, 256, 80), ("float32", "bfloat16")):
+        run(dtype, 1, 4, 2, 70, 200, d, True, 0, 50.0)     # Sq < Skv, top-left causal
+        run(dtype, 1, 4, 2, 200, 70, d, False, 33, 0.0)    # Sq > Skv, window
+        run(dtype, 2, 4, 1, 129, 1, d, False, 0, 0.0)      # Skv = 1
+        for causal in (True, False):                       # rows 23.. see no key
+            got = run(dtype, 1, 2, 1, 128, 16, d, causal, 8, 0.0)
+            check(bool((got[:, :, 23:] == 0).all()), "masked rows 23.. are not 0")
+    # and once against the dense oracle
+    q = torch.from_numpy(rng.standard_normal((2, 8, 150, 64))).to(dev, torch.float32)
+    k = torch.from_numpy(rng.standard_normal((2, 2, 150, 64))).to(dev, torch.float32)
+    err = _flash_err(FA.flash_attention(q, k, k, causal=True, window=40, softcap=50.0),
+                     ref.attention_ref(q, k, k, causal=True, window=40, softcap=50.0))
+    check(err <= FLASH_TOL["float32"], f"flash_attention vs attention_ref: {err}")
+    torch.cuda.synchronize()
+    return n + 1, worst
+
+
+class FlashRecorder:
+    """Wraps the flash wrapper to keep clones of the first call of a
+    global (window 0) layer; the wrapped call still launches the kernel."""
+
+    def __init__(self, mod):
+        self.mod = mod
+        self.orig = mod.flash_attention
+        self.best = None
+        mod.flash_attention = self
+
+    def __call__(self, q, k, v, **kw):
+        if self.best is None and not kw.get("window"):
+            self.best = (q.clone(), k.clone(), v.clone(), dict(kw))
+        return self.orig(q, k, v, **kw)
+
+    def restore(self):
+        self.mod.flash_attention = self.orig
+
+
+def lm_phase(torch, seed: int, profile_dir: str = ""):
+    """gemma2-9b serving through ``generate`` with the 'cuda' backend, held
+    to a teacher-forced replay through the 'torch' backend on the card.
+    With ``profile_dir``, one more warm prefill and decode are profiled."""
+    from repro_torch.configs import get_config, get_model
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import ops as K
+    from repro_torch.serve import generate
+
+    torch.cuda.empty_cache()
+    cfg = get_config(LM_ARCH)
+    n_layers = len(cfg.blocks())
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    model = get_model(cfg, "cuda", generator=gen)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    check(model.use_cuda, "LM model is not on the 'cuda' backend")
+    prompt_np = np.random.default_rng(seed).integers(0, cfg.vocab, (LM_BATCH, LM_PROMPT))
+    prompt = torch.from_numpy(prompt_np).to("cuda")
+    s_cache = LM_PROMPT + LM_STEPS + 1
+    print(f"lm {cfg.name}: {n_layers} layers, d_model {cfg.d_model}, {n_params} params "
+          f"({cfg.dtype}), init_s={init_s:.3f}; batch {LM_BATCH} x prompt {LM_PROMPT}, "
+          f"s_cache {s_cache}, {LM_STEPS} greedy steps", flush=True)
+
+    runs = []
+    rec = FlashRecorder(FA)
+    try:
+        for name in ("cold", "warm"):
+            torch.cuda.reset_peak_memory_stats()
+            stats = {}
+            K.reset_launch_counts()
+            toks, logits = generate(model, prompt, steps=LM_STEPS, s_cache=s_cache,
+                                    return_logits=True, stats=stats)
+            counts = K.launch_counts()
+            peak = torch.cuda.max_memory_allocated()
+            check(counts["flash_attention"] == n_layers,
+                  f"lm {name}: flash_attention launched {counts['flash_attention']} times, "
+                  f"not {n_layers}")
+            check(all(counts[k] == 0 for k in GYM_KERNELS), f"lm {name}: gym kernel launched")
+            runs.append(dict(name=name, toks=toks, logits=logits, stats=stats, peak=peak,
+                             launches=counts["flash_attention"]))
+    finally:
+        rec.restore()
+    cold, warm = runs
+    toks, logits = cold["toks"], cold["logits"]
+    check(toks.shape == (LM_BATCH, LM_STEPS) and logits.shape == (LM_BATCH, LM_STEPS, cfg.vocab),
+          "lm: output shapes")
+    check(bool(torch.isfinite(logits).all()), "lm: non-finite logits")
+    check(torch.equal(toks, logits.argmax(-1)), "lm: greedy tokens are not the argmax")
+
+    # teacher-forced replay through the plain attention on the card
+    model.backend = "torch"
+    K.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    lg, caches = model.prefill({"tokens": prompt}, s_cache=s_cache)
+    ref_logits = [lg]
+    for i in range(LM_STEPS - 1):
+        lg, caches = model.decode_step(caches, toks[:, i])
+        ref_logits.append(lg)
+    ref_logits = torch.stack(ref_logits, dim=1)
+    torch.cuda.synchronize()
+    torch_s = time.perf_counter() - t0
+    model.backend = None
+    check(sum(K.launch_counts().values()) == 0, "lm: the 'torch' backend launched a kernel")
+    del caches
+    delta = float((logits - ref_logits).abs().max())
+    scale = float(ref_logits.abs().max())
+    check(delta <= LM_LOGIT_REL_TOL * scale,
+          f"lm: max |dlogit| {delta} > {LM_LOGIT_REL_TOL} * max |logit| {scale}")
+    top2 = ref_logits.topk(2, dim=-1).values
+    decided = (top2[..., 0] - top2[..., 1]) > 2 * delta
+    same = ref_logits.argmax(-1) == toks
+    check(bool(same[decided].all()), "lm: argmax differs where the margin exceeds 2 max |dlogit|")
+    steps_per_gen = LM_STEPS - 1
+    out = {}
+    for r in runs:
+        st = r["stats"]
+        total = st["prefill_s"] + st["decode_s"]
+        m = out[r["name"]] = dict(
+            prefill_s=st["prefill_s"], decode_ms_per_step=1e3 * st["decode_s"] / steps_per_gen,
+            decode_ms_per_token=1e3 * st["decode_s"] / (steps_per_gen * LM_BATCH),
+            tokens_per_s=LM_BATCH * LM_STEPS / total,
+            prefill_tokens_per_s=LM_BATCH * LM_PROMPT / st["prefill_s"],
+            peak_bytes=r["peak"], flash_launches=r["launches"],
+        )
+        print(
+            f"lm generate {r['name']}: prefill_s={st['prefill_s']:.4f} "
+            f"decode_s={st['decode_s']:.4f} decode_ms_per_step={m['decode_ms_per_step']:.3f} "
+            f"decode_ms_per_token={m['decode_ms_per_token']:.3f} "
+            f"tokens_per_s={m['tokens_per_s']:.2f} "
+            f"prefill_tokens_per_s={m['prefill_tokens_per_s']:.1f} "
+            f"max_memory_allocated={r['peak']} flash_launches={r['launches']}",
+            flush=True,
+        )
+    print(
+        f"lm cuda vs torch backend (teacher-forced; the torch backend took {torch_s:.3f} s): "
+        f"max|dlogit|={delta:.6g} max|logit|={scale:.6g} ratio={delta / scale:.3g} "
+        f"(bound {LM_LOGIT_REL_TOL}); argmax equal on {int(same.sum())}/{same.numel()} "
+        f"steps, margin > 2 max|dlogit| on {int(decided.sum())}; warm tokens == cold: "
+        f"{bool(torch.equal(warm['toks'], toks))}; tokens[0][:8]={toks[0, :8].tolist()}",
+        flush=True,
+    )
+    check(rec.best is not None, "lm: no global-layer flash call was recorded")
+    if profile_dir:
+        profile_lm(torch, model, prompt, s_cache, profile_dir)
+    del model, logits, ref_logits, runs, cold, warm
+    torch.cuda.empty_cache()
+    return out, rec.best, n_layers
+
+
+def profile_lm(torch, model, prompt, s_cache: int, out_dir: str) -> None:
+    """``torch.profiler`` over one warm prefill and, apart, over the decode
+    steps of one ``generate``: host seconds, the device's busy share, and
+    the top device work by name (operator tables go to ``out_dir``)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    os.makedirs(out_dir, exist_ok=True)
+    logits, caches = model.prefill({"tokens": prompt}, s_cache=s_cache)
+    tok = logits.argmax(-1)
+    windows = {}
+    for name in ("prefill", "decode"):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            if name == "prefill":
+                model.prefill({"tokens": prompt}, s_cache=s_cache)
+            else:
+                for _ in range(LM_STEPS - 1):
+                    logits, caches = model.decode_step(caches, tok)
+                    tok = logits.argmax(-1)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        windows[name] = (prof, wall)
+    for name, (prof, wall) in windows.items():
+        dev_events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        kern = {}
+        for e in dev_events:
+            kern[e.name] = kern.get(e.name, 0.0) + e.time_range.elapsed_us()
+        busy_s = sum(kern.values()) / 1e6
+        with open(os.path.join(out_dir, f"profile_lm_{name}.txt"), "w") as f:
+            f.write(prof.key_averages().table(sort_by="self_device_time_total", row_limit=40))
+        print(f"profile lm {name} (warm, profiled): wall_s={wall:.4f} device_busy_s={busy_s:.4f} "
+              f"device_busy_share={busy_s / wall:.4f} device_ops={len(dev_events)}", flush=True)
+        for kname, us in sorted(kern.items(), key=lambda kv: -kv[1])[:8]:
+            print(f"  {kname[:90]:90s} device_ms={us / 1e3:.3f}", flush=True)
+
+
+def visible_pairs(sq: int, sk: int, causal: bool, window: int) -> int:
+    """(query, key) pairs the masks leave visible: the work this call needs."""
+    rows = np.arange(sq, dtype=np.int64)
+    hi = np.minimum(sk, rows + 1) if causal else np.full(sq, sk, np.int64)
+    lo = np.maximum(0, rows - window + 1) if window > 0 else np.zeros(sq, np.int64)
+    return int(np.maximum(0, hi - lo).sum())
+
+
+def flash_timing(torch, recorded, launches, reps):
+    """Time the flash kernel at its recorded main-path call beside its plain
+    version and SDPA (a yardstick only: it computes no softcap)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as FA
+
+    q, k, v, kw = recorded
+    dev = q.device
+    flush = torch.empty(128 * 2**20 // 4, dtype=torch.int32, device=dev)  # > 50 MB L2
+    got = FA.flash_attention(q, k, v, **kw)
+    want = FA.flash_attention_plain(q, k, v, **kw)
+    err = float((got.float() - want.float()).abs().max())
+    rel = _flash_err(got, want)
+    check(rel <= FLASH_TOL[str(q.dtype).split(".")[-1]], f"flash at main-path shapes: {rel}")
+    del got, want
+    b, h, sq, d = q.shape
+    kvh, sk = k.shape[1], k.shape[2]
+    ms = time_cold(torch, lambda: FA.flash_attention(q, k, v, **kw), reps, flush)
+    plain_ms = time_cold(torch, lambda: FA.flash_attention_plain(q, k, v, **kw),
+                         max(3, reps // 10), flush)
+    causal = bool(kw.get("causal"))
+    try:
+        def lib():
+            F.scaled_dot_product_attention(q, k, v, is_causal=causal, enable_gqa=True)
+        lib()
+        lib_note = "SDPA enable_gqa=True, no softcap"
+    except TypeError:  # a torch without enable_gqa: repeat the kv heads outside the timing
+        kr, vr = (t.repeat_interleave(h // kvh, dim=1) for t in (k, v))
+
+        def lib():
+            F.scaled_dot_product_attention(q, kr, vr, is_causal=causal)
+        lib_note = "SDPA on repeated kv heads, no softcap"
+    library_ms = time_cold(torch, lib, reps, flush)
+    pairs = visible_pairs(sq, sk, causal, int(kw.get("window") or 0))
+    flops = 4 * b * h * d * pairs
+    nbytes = (q.numel() * 2 + k.numel() + v.numel()) * q.element_size()
+    t_ops = flops / BF16_FLOPS_PER_S * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    bound = max(t_ops, t_bytes)
+    print(
+        f"kernel flash_attention: q {tuple(q.shape)} k/v {tuple(k.shape)} {q.dtype} {kw} "
+        f"kernel_ms={ms:.5f} plain_ms={plain_ms:.5f} library_ms={library_ms:.5f} ({lib_note}) "
+        f"bound_ms={bound:.6f} ({'operations' if t_ops >= t_bytes else 'bytes'}: {flops} flop "
+        f"over {pairs} visible pairs, {nbytes} B) share_of_bound={bound / ms:.4f} "
+        f"achieved_tflops={flops / ms / 1e9:.2f} max_abs_err={err:.6g} launches={launches}",
+        flush=True,
+    )
+    return {
+        "name": "flash_attention", "route": "cuda", "source": FLASH_SOURCE,
+        "replaces": KERNELS["flash_attention"], "launches": launches,
+        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+        "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+        "library_ms": library_ms,
+    }
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--reps", type=int, default=30)
+    ap.add_argument("--phases", default="gym,lm",
+                    help="comma-separated main paths to drive: gym (the join path), "
+                         "lm (gemma2-9b serving)")
     ap.add_argument("--sizes", default="bench,real",
-                    help="comma-separated main-path sizes to drive: bench, real")
+                    help="comma-separated gym sizes to drive: bench, real")
     ap.add_argument("--profile", default="",
-                    help="comma-separated families (S_8,C_8,TC_9) to profile at real size")
+                    help="comma-separated families (S_8,C_8,TC_9) to profile at real size, "
+                         "and lm to profile the LM serving path")
     ap.add_argument("--profile-out", default=os.path.join(HERE, "chiprun_out", "profile"))
     args = ap.parse_args(argv)
+    phases = set(args.phases.split(","))
 
     import torch
 
@@ -473,6 +821,10 @@ def main(argv=None) -> int:
     from repro_torch.kernels import semijoin_probe as SP
     from repro_torch.kernels import sorted_probe as SO
 
+    # full-f32 products on the card: no TF32 in matrix products or cuDNN
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60,
@@ -484,30 +836,45 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     lib_path = build.compile_library()
     build.load()
-    print(f"build: {lib_path.name} nvcc_s={build.build_seconds:.2f} "
-          f"total_s={time.perf_counter() - t0:.2f}", flush=True)
+    print(f"build: {lib_path.name} from {len(build.sources())} sources, "
+          f"nvcc_s={build.build_seconds:.2f} total_s={time.perf_counter() - t0:.2f}", flush=True)
+    for line in build.build_log.splitlines():
+        if "Compiling entry" in line or "registers" in line or "spill" in line:
+            print(f"  ptxas: {line.strip()[:160]}")
 
     dev = torch.device("cuda")
+    t0 = time.perf_counter()
     n = kernel_edge_checks(torch, K, ref, dev)
-    print(f"kernel edge cases: {n} checks, every CUDA kernel == its plain version", flush=True)
+    print(f"kernel edge cases: {n} checks, every gym CUDA kernel == its plain version", flush=True)
+    n, worst = flash_edge_checks(torch, dev)
+    print(f"flash_attention edge cases: {n} checks within {FLASH_TOL} of the plain version "
+          f"(worst |d|/max(1,|o|): {worst}), fully masked rows exactly 0; "
+          f"edge phase {time.perf_counter() - t0:.1f} s", flush=True)
 
-    recorders = {
-        "hash_partition": Recorder(torch, HP, "hash_partition"),
-        "semijoin_probe": Recorder(torch, SP, "semijoin_probe"),
-        "sorted_probe_ranges": Recorder(torch, SO, "sorted_probe_ranges"),
-    }
-    K.reset_launch_counts()
-    try:
-        summary, launches = main_path(torch, args.seed, tuple(args.sizes.split(",")))
-    finally:
-        for r in recorders.values():
-            r.restore()
-    print(f"main path launches (cuda gym runs): {launches}", flush=True)
-    check(all(v > 0 for v in launches.values()), f"a kernel never launched: {launches}")
-    recorded = {k: r.best for k, r in recorders.items()}
-    kernels = kernel_timing(torch, K, ref, recorded, launches, args.reps)
-    if args.profile:
-        profile_queries(torch, args.seed, args.profile.split(","), args.profile_out)
+    kernels = []
+    if "gym" in phases:
+        recorders = {
+            "hash_partition": Recorder(torch, HP, "hash_partition"),
+            "semijoin_probe": Recorder(torch, SP, "semijoin_probe"),
+            "sorted_probe_ranges": Recorder(torch, SO, "sorted_probe_ranges"),
+        }
+        K.reset_launch_counts()
+        try:
+            summary, launches = main_path(torch, args.seed, tuple(args.sizes.split(",")))
+        finally:
+            for r in recorders.values():
+                r.restore()
+        print(f"main path launches (cuda gym runs): {launches}", flush=True)
+        check(all(v > 0 for v in launches.values()), f"a kernel never launched: {launches}")
+        recorded = {k: r.best for k, r in recorders.items()}
+        kernels += kernel_timing(torch, K, ref, recorded, launches, args.reps)
+        fams = [f for f in args.profile.split(",") if f and f != "lm"]
+        if fams:
+            profile_queries(torch, args.seed, fams, args.profile_out)
+    if "lm" in phases:
+        lm, flash_call, per_generate = lm_phase(
+            torch, args.seed, args.profile_out if "lm" in args.profile.split(",") else "")
+        kernels.append(flash_timing(torch, flash_call, per_generate, args.reps))
     torch.cuda.synchronize()
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,0 +1,16 @@
+"""smollm-360m [dense] — llama-arch small [hf:HuggingFaceTB/SmolLM; hf].
+
+Also the ~100M-class end-to-end training example family (reduced)."""
+from ..models.common import ArchConfig
+
+CONFIG = ArchConfig(
+    name="smollm-360m",
+    family="dense",
+    n_layers=32,
+    d_model=960,
+    n_heads=15,
+    n_kv_heads=5,
+    d_ff=2560,
+    vocab=49152,
+    tie_embeddings=True,
+)

@@ -2,8 +2,9 @@
 
 ``use_cuda`` picks the CUDA kernel (which needs CUDA tensors and raises on
 CPU ones) or the plain PyTorch version (any device); ``None`` follows the
-tensors' device.  ``launch_counts`` / ``reset_launch_counts`` read and
-clear the kernels' launch counters, which count kernel launches only.
+tensors' device.  There is no fallback: a failed build or launch raises.
+``launch_counts`` / ``reset_launch_counts`` read and clear the kernels'
+launch counters, which count kernel launches only.
 """
 from __future__ import annotations
 
@@ -11,6 +12,7 @@ from typing import Dict, Optional
 
 import torch
 
+from . import flash_attention as _fa
 from . import hash_partition as _hp
 from . import ref
 from . import semijoin_probe as _sp
@@ -57,11 +59,43 @@ def hash_partition(
     return ref.hash_partition_ref(keys, valid, p, seeds)
 
 
+def attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    causal: bool = True,
+    window: int = 0,
+    softcap: float = 0.0,
+    scale: Optional[float] = None,
+    use_cuda: Optional[bool] = None,
+    impl: Optional[str] = None,
+) -> torch.Tensor:
+    """Attention of q ``(B,H,Sq,D)`` over k/v ``(B,KVH,Skv,D)``: the flash
+    kernel, or its plain version, per ``use_cuda``.  ``impl='chunked'``,
+    the reference's XLA scan for long training sequences, is not ported."""
+    if impl == "chunked":
+        raise NotImplementedError(
+            "attention impl='chunked' is not ported yet (ROADMAP queue A, "
+            "item 'LM training': kernels/chunked.py)"
+        )
+    if impl is not None:
+        raise ValueError(f"attention: unknown impl {impl!r}")
+    if _want_cuda(q, use_cuda, "attention"):
+        return _fa.flash_attention(
+            q, k, v, causal=causal, window=window, softcap=softcap, scale=scale
+        )
+    return ref.flash_attention_ref(
+        q, k, v, causal=causal, window=window, softcap=softcap, scale=scale
+    )
+
+
 def launch_counts() -> Dict[str, int]:
     return {
         "hash_partition": _hp.launches,
         "semijoin_probe": _sp.launches,
         "sorted_probe_ranges": _so.launches,
+        "flash_attention": _fa.launches,
     }
 
 
@@ -69,3 +103,4 @@ def reset_launch_counts() -> None:
     _hp.launches = 0
     _sp.launches = 0
     _so.launches = 0
+    _fa.launches = 0

@@ -1,0 +1,71 @@
+"""Serving command line: init a model from a seed, prefill a batch of prompts,
+decode N tokens, report tokens/s (counterpart of
+``repro/launch/serve.py``).
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma2-9b \\
+        --reduced --device cpu --batch 2 --prompt 16 --steps 8
+
+Without ``--device`` it runs on the CUDA card, and raises without one.
+The prompt is drawn with numpy from ``--seed``; the weights are random,
+from a ``torch.Generator`` seeded with ``--seed``.
+"""
+from __future__ import annotations
+
+import argparse
+from typing import List, Optional
+
+import numpy as np
+import torch
+
+from ..configs import get_config, get_model, reduced_config
+from ..models.common import LATER
+from ..relational.spmd import resolve_device
+from ..serve import generate
+
+
+def main(argv: Optional[List[str]] = None) -> torch.Tensor:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--arch", default="smollm-360m")
+    ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--prompt", type=int, default=16)
+    ap.add_argument("--steps", type=int, default=16)
+    ap.add_argument("--temperature", type=float, default=0.0)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--device", default=None, help="cpu | cuda (default: the CUDA card)")
+    ap.add_argument("--ckpt", default=None, help="restore params from dir (not ported)")
+    args = ap.parse_args(argv)
+    if args.ckpt:
+        raise NotImplementedError(
+            f"--ckpt needs train/checkpoint.py, which is not ported yet ({LATER['train']})"
+        )
+
+    cfg = get_config(args.arch)
+    if args.reduced:
+        cfg = reduced_config(cfg)
+    dev = resolve_device(args.device)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(args.seed)
+    model = get_model(cfg, dev, generator=gen)
+    prompt = np.random.default_rng(args.seed).integers(0, cfg.vocab, (args.batch, args.prompt))
+    stats: dict = {}
+    toks = generate(
+        model, torch.from_numpy(prompt).to(dev), steps=args.steps,
+        temperature=args.temperature, generator=gen, stats=stats,
+    )
+    n = args.batch * args.steps
+    total = stats["prefill_s"] + stats["decode_s"]
+    decode_ms = 1e3 * stats["decode_s"] / max(1, args.steps - 1)
+    print(
+        f"arch={cfg.name} device={dev} backend={'cuda' if model.use_cuda else 'torch'} "
+        f"generated {n} tokens in {total:.3f}s ({n / total:.1f} tok/s): "
+        f"prefill {args.batch}x{args.prompt} in {stats['prefill_s']:.3f}s, "
+        f"decode {decode_ms:.2f} ms/step for {args.batch} sequences"
+    )
+    for row in toks.tolist():
+        print(" ", row)
+    return toks
+
+
+if __name__ == "__main__":
+    main()

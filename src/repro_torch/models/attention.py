@@ -1,0 +1,121 @@
+"""Attention block: GQA, RoPE/M-RoPE, qk-norm, softcap, sliding window
+and KV-cache decode (counterpart of ``repro/models/attention.py``).
+
+Prefill runs through ``kernels.ops.attention``: the Hopper flash kernel
+with the ``'cuda'`` backend, its plain version with ``'torch'``.  Decode
+attends one query per sequence to the cache in plain torch, as the
+reference does outside any Pallas kernel.  Cross-attention waits for the
+Whisper slice.
+"""
+from __future__ import annotations
+
+from typing import Dict, Tuple
+
+import torch
+from torch import nn
+
+from ..kernels import ops as kops
+from .common import ArchConfig, apply_mrope, apply_rope, init_norm, rms_norm, scaled_init
+
+
+def init_attn(gen: torch.Generator, cfg: ArchConfig) -> nn.ParameterDict:
+    d, hd = cfg.d_model, cfg.hd
+    h, kv = cfg.n_heads, cfg.n_kv_heads
+    dt, dev = cfg.torch_dtype, gen.device
+    p = nn.ParameterDict({
+        "wq": scaled_init(gen, (d, h * hd), 0, dt),
+        "wk": scaled_init(gen, (d, kv * hd), 0, dt),
+        "wv": scaled_init(gen, (d, kv * hd), 0, dt),
+        "wo": scaled_init(gen, (h * hd, d), 0, dt),
+        "ln": init_norm(d, dt, dev),
+    })
+    if cfg.qk_norm:
+        p["qn"] = init_norm(hd, dt, dev)
+        p["kn"] = init_norm(hd, dt, dev)
+    return p
+
+
+def _project_qkv(p, x: torch.Tensor, cfg: ArchConfig, pos: torch.Tensor):
+    """x (B,S,D) -> q (B,H,S,hd), k/v (B,KV,S,hd), normed and rotated."""
+    b, s, _ = x.shape
+    h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    q = (x @ p["wq"]).view(b, s, h, hd).transpose(1, 2)
+    k = (x @ p["wk"]).view(b, s, kv, hd).transpose(1, 2)
+    v = (x @ p["wv"]).view(b, s, kv, hd).transpose(1, 2)
+    if cfg.qk_norm:
+        q = rms_norm(q, p["qn"], cfg.norm_eps)
+        k = rms_norm(k, p["kn"], cfg.norm_eps)
+    if cfg.rope == "rope":
+        q = apply_rope(q, pos, cfg.rope_theta)
+        k = apply_rope(k, pos, cfg.rope_theta)
+    elif cfg.rope == "mrope":
+        q = apply_mrope(q, pos, cfg.rope_theta)
+        k = apply_mrope(k, pos, cfg.rope_theta)
+    return q.contiguous(), k.contiguous(), v.contiguous()
+
+
+def attn_prefill(
+    p, x: torch.Tensor, cfg: ArchConfig, *, pos: torch.Tensor, causal: bool = True,
+    window: int = 0, use_cuda: bool = False,
+) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Full-sequence attention x (B,S,D) -> (B,S,D), plus the KV cache
+    ``{"k", "v"}`` (B, KV, S, hd)."""
+    b, s, _ = x.shape
+    xin = rms_norm(x, p["ln"], cfg.norm_eps)
+    q, k, v = _project_qkv(p, xin, cfg, pos)
+    o = kops.attention(
+        q, k, v, causal=causal, window=window, softcap=cfg.attn_softcap,
+        use_cuda=use_cuda,
+    )
+    o = o.transpose(1, 2).reshape(b, s, -1)
+    return x + (o @ p["wo"]).to(x.dtype), {"k": k, "v": v}
+
+
+def attn_forward(
+    p, x: torch.Tensor, cfg: ArchConfig, *, pos: torch.Tensor, causal: bool = True,
+    window: int = 0, use_cuda: bool = False,
+) -> torch.Tensor:
+    """Full-sequence attention (train / prefill) without the cache."""
+    return attn_prefill(
+        p, x, cfg, pos=pos, causal=causal, window=window, use_cuda=use_cuda
+    )[0]
+
+
+def attn_decode(
+    p,
+    x: torch.Tensor,  # (B, 1, D) current token activations
+    cache: Dict[str, torch.Tensor],  # k/v (B, KV, S_cache, hd)
+    cache_len: int,  # valid prefix length
+    cfg: ArchConfig,
+    *,
+    window: int = 0,
+) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """One-token decode: write (k, v) at ``cache_len`` and attend to the
+    prefix.  Unlike the reference, which returns updated copies, the
+    cache tensors are written in place (one row per layer instead of a
+    copy of the whole cache) and returned."""
+    b = x.shape[0]
+    xin = rms_norm(x, p["ln"], cfg.norm_eps)
+    posv = torch.full((b, 1), cache_len, dtype=torch.long, device=x.device)
+    if cfg.rope == "mrope":
+        posv = posv[None].expand(3, b, 1)
+    q, k, v = _project_qkv(p, xin, cfg, posv)
+    kc, vc = cache["k"], cache["v"]
+    kc[:, :, cache_len] = k[:, :, 0].to(kc.dtype)
+    vc[:, :, cache_len] = v[:, :, 0].to(vc.dtype)
+    kvh, s_cache, hd = kc.shape[1], kc.shape[2], kc.shape[3]
+    g = cfg.n_heads // kvh
+    # head h = kv * g + i reads kv-head kv: group the query heads instead
+    # of repeating the cache
+    qg = q.float().view(b, kvh, g, hd)
+    s = (qg @ kc.float().transpose(-1, -2)) * float(cfg.hd) ** -0.5  # (B,KV,g,S)
+    if cfg.attn_softcap > 0.0:
+        s = cfg.attn_softcap * torch.tanh(s / cfg.attn_softcap)
+    idx = torch.arange(s_cache, device=x.device)
+    mask = idx <= cache_len
+    if window and window > 0:
+        mask &= idx > cache_len - window
+    pr = torch.softmax(s.masked_fill(~mask, -1e30), dim=-1)
+    o = (pr @ vc.float()).to(x.dtype)  # (B,KV,g,hd)
+    o = o.reshape(b, 1, -1)
+    return x + (o @ p["wo"]).to(x.dtype), {"k": kc, "v": vc}

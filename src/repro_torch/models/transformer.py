@@ -1,0 +1,201 @@
+"""Decoder LM over a block pattern (counterpart of
+``repro/models/transformer.py``), for the serving path: prefill of a
+prompt batch and one-token decode steps over a KV cache.
+
+One ``Block`` module per layer in ``cfg.blocks()`` order (a Python loop
+takes the place of the reference's ``lax.scan`` over stacked segments).
+Block kinds ``attn`` and ``local`` (sliding window ``cfg.window``) are
+ported; the others raise ``NotImplementedError`` naming their ROADMAP
+item.
+
+The backend follows ``GymConfig.local_backend``: ``'cuda'`` runs prefill
+attention on the Hopper flash kernel and refuses CPU tensors, ``'torch'``
+runs its plain version on any device, and ``None`` means ``'cuda'`` on a
+CUDA device and ``'torch'`` on the CPU.  The device defaults to the CUDA
+card and raises without one; the CPU is used only when asked for.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, List, Optional
+
+import torch
+from torch import nn
+
+from ..relational.spmd import resolve_device
+from .attention import attn_decode, attn_forward, attn_prefill, init_attn
+from .common import LATER, ArchConfig, embed, init_embed, init_norm, rms_norm, unembed
+from .mlp import init_mlp, mlp_forward
+
+BACKENDS = ("torch", "cuda")
+PORTED_KINDS = ("attn", "local")
+
+
+def check_kinds(cfg: ArchConfig) -> None:
+    """Raise for the first block kind of ``cfg`` that is not ported yet."""
+    for kind in cfg.blocks():
+        if kind not in PORTED_KINDS:
+            raise NotImplementedError(
+                f"{cfg.name}: block kind {kind!r} is not ported yet "
+                f"({LATER.get(kind, 'ROADMAP queue A')})"
+            )
+
+
+class Block(nn.Module):
+    """One decoder layer: attention (global or windowed) then the MLP."""
+
+    def __init__(self, kind: str, cfg: ArchConfig, gen: torch.Generator):
+        super().__init__()
+        self.kind = kind
+        self.cfg = cfg
+        self.window = cfg.window if kind == "local" else 0
+        self.attn = init_attn(gen, cfg)
+        self.mlp = init_mlp(gen, cfg)
+
+    def forward(self, x: torch.Tensor, pos: torch.Tensor, use_cuda: bool) -> torch.Tensor:
+        x = attn_forward(
+            self.attn, x, self.cfg, pos=pos, causal=True, window=self.window,
+            use_cuda=use_cuda,
+        )
+        return mlp_forward(self.mlp, x, self.cfg)
+
+    def prefill(self, x, pos, use_cuda: bool):
+        x, cache = attn_prefill(
+            self.attn, x, self.cfg, pos=pos, causal=True, window=self.window,
+            use_cuda=use_cuda,
+        )
+        return mlp_forward(self.mlp, x, self.cfg), cache
+
+    def decode(self, x, cache, cache_len: int):
+        x, cache = attn_decode(self.attn, x, cache, cache_len, self.cfg, window=self.window)
+        return mlp_forward(self.mlp, x, self.cfg), cache
+
+
+class DecoderLM(nn.Module):
+    """Serving surface: ``prefill(batch, s_cache) -> (last logits, caches)``,
+    ``decode_step(caches, tokens) -> (logits, caches)``, ``init_caches``,
+    and ``logits`` for the full forward pass.
+
+    Caches are ``{"layers": [{"k", "v"} (B, KV, s_cache, hd) per layer],
+    "len": int}``; decode writes them in place."""
+
+    def __init__(
+        self,
+        cfg: ArchConfig,
+        device=None,
+        *,
+        backend: Optional[str] = None,
+        generator: Optional[torch.Generator] = None,
+    ):
+        super().__init__()
+        if cfg.encdec:
+            raise NotImplementedError(f"{cfg.name}: enc-dec models are not ported yet ({LATER['whisper']})")
+        check_kinds(cfg)
+        if backend not in (None,) + BACKENDS:
+            raise ValueError(f"backend {backend!r} not in {BACKENDS}")
+        dev = resolve_device(device)
+        self.cfg = cfg
+        self.device = dev
+        #: 'cuda' | 'torch' | None (follow the device); may be switched later
+        self.backend = backend
+        gen = generator
+        if gen is None:
+            gen = torch.Generator(device=dev)
+            gen.manual_seed(0)
+        elif gen.device.type != dev.type:
+            raise ValueError(f"generator on {gen.device}, model on {dev}")
+        self.embed = init_embed(gen, cfg.vocab, cfg.d_model, cfg.torch_dtype)
+        self.final_ln = init_norm(cfg.d_model, cfg.torch_dtype, dev)
+        if not cfg.tie_embeddings:
+            self.unembed = init_embed(gen, cfg.vocab, cfg.d_model, cfg.torch_dtype)
+        self.layers = nn.ModuleList(Block(kind, cfg, gen) for kind in cfg.blocks())
+
+    # ------------------------------------------------------------- helpers
+    @property
+    def use_cuda(self) -> bool:
+        """Whether prefill attention launches the Hopper kernel."""
+        backend = self.backend
+        if backend is None:
+            backend = "cuda" if self.device.type == "cuda" else "torch"
+        if backend not in BACKENDS:
+            raise ValueError(f"backend {backend!r} not in {BACKENDS}")
+        return backend == "cuda"
+
+    def _table(self) -> torch.Tensor:
+        return (self.unembed if not self.cfg.tie_embeddings else self.embed)["table"]
+
+    def _pos(self, pos: Optional[torch.Tensor], b: int, s: int) -> torch.Tensor:
+        if pos is not None:
+            return pos.to(self.device)
+        pos = torch.arange(s, device=self.device)[None].expand(b, s)
+        if self.cfg.rope == "mrope":
+            pos = pos[None].expand(3, b, s)
+        return pos
+
+    def _head(self, x: torch.Tensor) -> torch.Tensor:
+        x = rms_norm(x, self.final_ln, self.cfg.norm_eps)
+        return unembed(x, self._table(), self.cfg.logit_softcap)
+
+    # ------------------------------------------------------------- forward
+    @torch.no_grad()
+    def logits(self, tokens: torch.Tensor, pos: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Full forward pass: tokens (B, S) -> f32 logits (B, S, V)."""
+        b, s = tokens.shape
+        pos = self._pos(pos, b, s)
+        x = embed(tokens.to(self.device), self.embed["table"])
+        for layer in self.layers:
+            x = layer(x, pos, self.use_cuda)
+        return self._head(x)
+
+    # --------------------------------------------------------------- serve
+    @torch.no_grad()
+    def prefill(self, batch: Dict[str, torch.Tensor], s_cache: Optional[int] = None):
+        """Run the prompt; returns (last-token logits (B, V), caches), the
+        caches zero-padded to ``s_cache`` positions with ``len = S``."""
+        tokens = batch["tokens"].to(self.device)
+        b, s = tokens.shape
+        s_cache = s_cache or s
+        if s_cache < s:
+            raise ValueError(f"s_cache {s_cache} < prompt length {s}")
+        pos = self._pos(batch.get("pos"), b, s)
+        use_cuda = self.use_cuda
+        x = embed(tokens, self.embed["table"])
+        caches: List[Dict[str, torch.Tensor]] = []
+        for layer in self.layers:
+            x, c = layer.prefill(x, pos, use_cuda)
+            caches.append({k: _pad_seq(t, s_cache) for k, t in c.items()})
+        logits = self._head(x[:, -1:])
+        return logits[:, 0], {"layers": caches, "len": s}
+
+    def init_caches(self, batch: int, s_cache: int, prefix_len: int) -> Dict[str, Any]:
+        """Zero caches of ``s_cache`` positions claiming a valid prefix of
+        ``prefix_len`` (each layer gets its own tensors)."""
+        cfg = self.cfg
+        shape = (batch, cfg.n_kv_heads, s_cache, cfg.hd)
+        layers = [
+            {k: torch.zeros(shape, dtype=cfg.torch_dtype, device=self.device) for k in ("k", "v")}
+            for _ in self.layers
+        ]
+        return {"layers": layers, "len": int(prefix_len)}
+
+    @torch.no_grad()
+    def decode_step(self, caches: Dict[str, Any], tokens: torch.Tensor):
+        """One token for every sequence: tokens (B,) -> logits (B, V)."""
+        clen = int(caches["len"])
+        if clen >= caches["layers"][0]["k"].shape[2]:
+            raise ValueError(f"cache full: len {clen} of {caches['layers'][0]['k'].shape[2]}")
+        x = embed(tokens.to(self.device)[:, None], self.embed["table"])
+        new: List[Dict[str, torch.Tensor]] = []
+        for layer, cache in zip(self.layers, caches["layers"]):
+            x, c = layer.decode(x, cache, clen)
+            new.append(c)
+        logits = self._head(x)[:, 0]
+        return logits, {"layers": new, "len": clen + 1}
+
+
+def _pad_seq(t: torch.Tensor, s_cache: int) -> torch.Tensor:
+    """(B, KV, S, hd) -> (B, KV, s_cache, hd), zeros after S."""
+    b, kv, s, hd = t.shape
+    out = torch.zeros((b, kv, s_cache, hd), dtype=t.dtype, device=t.device)
+    out[:, :, :s] = t
+    return out
+

@@ -4,9 +4,10 @@ runs on a machine with PyTorch alone:
 
     python -m pytest -q -m cuda tests/test_torch_cuda.py
 
-Each kernel must equal its plain PyTorch version exactly, and the default
-``gym()`` with the ``'cuda'`` backend must equal the ``'torch'`` backend
-in rows and ledger."""
+Each gym kernel must equal its plain PyTorch version exactly, the flash
+attention kernel must agree with its plain version within the f32/bf16
+tolerances stated below, and the default ``gym()`` with the ``'cuda'``
+backend must equal the ``'torch'`` backend in rows and ledger."""
 from __future__ import annotations
 
 import dataclasses
@@ -17,6 +18,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 I32MAX = 2**31 - 1
+GYM_KERNELS = ("hash_partition", "semijoin_probe", "sorted_probe_ranges")
 
 
 @pytest.fixture
@@ -61,7 +63,7 @@ def test_cuda_backend_gym_matches_torch_backend(cuda_device):
     data = chain_data_sparse(8, domain=256, ident=64, extra=192, seed=24)
     K.reset_launch_counts()
     rows, schema, led = gym(q, data, ghd=g, p=8, config=GymConfig(seed=23))
-    assert all(v > 0 for v in K.launch_counts().values())
+    assert all(K.launch_counts()[k] > 0 for k in GYM_KERNELS)
     trows, tschema, tled = gym(
         q, data, ghd=g, p=8, config=GymConfig(seed=23, local_backend="torch"), device="cuda"
     )
@@ -70,3 +72,46 @@ def test_cuda_backend_gym_matches_torch_backend(cuda_device):
     assert [dataclasses.asdict(r) for r in led.records] == [
         dataclasses.asdict(r) for r in tled.records
     ]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_flash_attention_matches_plain_version(cuda_device, dtype):
+    """Tolerance: f32 1e-4 abs (both accumulate in f32, in another
+    order); bf16 3e-2 abs at |o| <= 1, relative above (both round an f32
+    result to bf16 once; a value on a rounding boundary may land one or
+    two ulps apart)."""
+    from repro_torch.kernels import ops as K
+    from repro_torch.kernels.flash_attention import flash_attention, flash_attention_plain
+
+    tol = 1e-4 if dtype == "float32" else 3e-2
+    dt = getattr(torch, dtype)
+    rng = np.random.default_rng(2)
+    # (h, kvh, sq, sk, d, causal, window, softcap)
+    for h, kvh, sq, sk, d, causal, window, softcap in [
+        (8, 8, 130, 130, 64, True, 0, 0.0),
+        (8, 4, 70, 200, 128, True, 0, 50.0),
+        (8, 1, 200, 70, 256, False, 33, 0.0),
+        (4, 2, 129, 1, 16, False, 0, 0.0),
+        (2, 1, 96, 16, 80, False, 8, 50.0),  # padded head width, masked rows
+    ]:
+        q = torch.from_numpy(4 * rng.standard_normal((2, h, sq, d))).to(cuda_device, dt)
+        k = torch.from_numpy(rng.standard_normal((2, kvh, sk, d))).to(cuda_device, dt)
+        v = torch.from_numpy(rng.standard_normal((2, kvh, sk, d))).to(cuda_device, dt)
+        kw = dict(causal=causal, window=window, softcap=softcap)
+        K.reset_launch_counts()
+        got = flash_attention(q, k, v, **kw).float()
+        torch.cuda.synchronize()
+        assert K.launch_counts()["flash_attention"] == 1
+        want = flash_attention_plain(q, k, v, **kw).float()
+        err = ((got - want).abs() / want.abs().clamp(min=1.0)).max().item()
+        assert err <= tol, (h, kvh, sq, sk, d, causal, window, softcap, err)
+        rows = torch.arange(sq, device=cuda_device)[:, None]
+        cols = torch.arange(sk, device=cuda_device)[None, :]
+        vis = torch.ones((sq, sk), dtype=torch.bool, device=cuda_device)
+        if causal:
+            vis &= cols <= rows
+        if window > 0:
+            vis &= cols > rows - window
+        dead = ~vis.any(dim=1)
+        assert torch.all(got[:, :, dead] == 0)

@@ -36,10 +36,14 @@ def test_port_modules_exist():
         "relational/localops.py", "relational/hashing.py", "relational/spmd.py",
         "kernels/hash_partition.py", "kernels/semijoin_probe.py",
         "kernels/sorted_probe.py", "kernels/build.py", "data/synthetic.py",
-        "interop.py",
+        "interop.py", "kernels/flash_attention.py", "kernels/ops.py", "kernels/ref.py",
+        "models/common.py", "models/attention.py", "models/mlp.py",
+        "models/transformer.py", "configs/registry.py", "configs/gemma2_9b.py",
+        "serve/decode.py", "launch/serve.py",
     ):
         assert mod in names, mod
     assert (PKG / "csrc" / "gym_kernels.cu").exists()
+    assert (PKG / "csrc" / "flash_attention.cu").exists()
 
 
 @pytest.mark.parametrize("path", _port_files(), ids=lambda p: str(p.relative_to(ROOT)))
