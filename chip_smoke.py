@@ -8,11 +8,14 @@ an H100) and the CUDA toolkit.  In order it:
 
 1. prints the card's name and power limit (``nvidia-smi``);
 2. builds the Hopper kernels from ``src/repro_torch/csrc`` (one ``nvcc``
-   per source, all at once) and prints the build time and ptxas's
-   register and spill report;
+   per source, all at once) and prints the build time, ptxas's register
+   and spill report, and the count of tensor-core MMA instructions in the
+   flash kernels' SASS (``cuobjdump -sass``; it must not be 0);
 3. holds each gym CUDA kernel exactly equal to its plain PyTorch version
    on the card at edge cases (n=0, all-INT32_MAX keys, -1 probes, p=7 and
-   p=8, a top-bit seed), and the flash attention kernel within stated
+   p=8, a top-bit seed; for the sorted probe also every early out, valid
+   lengths 0, 1 and off the splitter stride, a 2^20-key run of equal keys,
+   n off the tile, 70000 segments), and the flash attention kernel within stated
    tolerances of its plain version over head widths, dtypes, GQA groups,
    masks, softcaps and ragged shapes, with fully masked rows exactly 0;
 4. (phase ``gym``) drives the port's join path — default ``gym()`` (hash
@@ -33,7 +36,9 @@ an H100) and the CUDA toolkit.  In order it:
    teacher-forced replay through the ``'torch'`` backend on the card;
 6. times each kernel at the largest inputs its path gave it (CUDA events,
    L2 flushed before each launch) beside its plain version, one PyTorch
-   library call where one computes the same function, and its bound.
+   library call where one computes the same function, and its bound, and
+   prints the sorted probe's census of that call (the share of probes its
+   early outs answer, the share of padding keys).
 
 TF32 is off for matrix products and cuDNN (set explicitly below), so f32
 products on the card run in full f32.  The second-to-last line is one
@@ -78,13 +83,16 @@ KERNELS = {
 # the LM serving phase: gemma2-9b at full width and depth
 LM_ARCH, LM_BATCH, LM_PROMPT, LM_STEPS = "gemma2-9b", 2, 4608, 16
 # flash kernel vs its plain version: f32 both accumulate in f32 and differ
-# in summation order only; bf16 both round an f32 result once, and a
-# value on a rounding boundary may land one or two bf16 ulps apart
-# (2**-7 relative each), so the bound is absolute at |o| <= 1, relative above
-FLASH_TOL = {"float32": 1e-4, "bfloat16": 3e-2}
+# in summation order only; bf16 both round an f32 result once, a value on
+# a rounding boundary may land one or two bf16 ulps apart (2**-7 relative
+# each), and the kernel's tensor-core product rounds the weights P to bf16
+# (2**-9 relative each); the bf16 bound is two ulps at |o| in [1, 2),
+# absolute at |o| <= 1, relative above
+FLASH_TOL = {"float32": 1e-4, "bfloat16": 1.6e-2}
 # LM logits, 'cuda' backend vs teacher-forced 'torch' backend: the two
-# prefills differ only in attention's summation order, whose bf16
-# roundings then travel through 42 layers of bf16 activations
+# prefills differ only in attention's summation order and the kernel's
+# bf16 weights P, whose roundings then travel through 42 layers of bf16
+# activations
 LM_LOGIT_REL_TOL = 5e-2
 
 
@@ -211,6 +219,98 @@ def kernel_edge_checks(torch, K, ref, dev):
     return n_checks
 
 
+def sorted_probe_edge_checks(torch, K, ref, dev):
+    """The sorted-probe kernel exactly equal to its plain version where its
+    design branches: probes below the first key (-1, INT32_MIN + 1) and
+    above the last valid one; m_eff = 0, 1, fewer than the splitters, and
+    not a multiple of the splitter stride; one run of equal keys filling a
+    2^20-key segment; n off the 1024-probe tile and off 4 (the scalar
+    path); more than 65535 segments (the grid's y limit)."""
+    rng = np.random.default_rng(13)
+    t = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(dev)  # noqa: E731
+
+    def sorted_keys(b, m, meff, hi):
+        k = np.full((b, m), I32MAX, np.int32)
+        for i, e in enumerate(meff):
+            k[i, :e] = np.sort(rng.integers(-50, hi, e))
+        return k
+
+    def probes(b, n, hi):
+        q = rng.integers(-60, hi + 60, (b, n)).astype(np.int32)
+        q[:, ::7] = -1
+        q[:, 3::11] = -(2**31) + 1
+        q[:, 5::13] = I32MAX - 1
+        return q
+
+    n_checks = 0
+
+    def one(q, k, what):
+        nonlocal n_checks
+        tq, tk = t(q), t(k)
+        lo, hi = K.sorted_probe_ranges(tq, tk, use_cuda=True)
+        rlo, rhi = ref.sorted_probe_ranges_ref(tq, tk)
+        check(torch.equal(lo, rlo) and torch.equal(hi, rhi),
+              f"sorted_probe_ranges != plain: {what} q{q.shape} keys{k.shape}")
+        n_checks += 1
+        return lo, hi
+
+    # m_eff 0, 1, < 1024 splitters, a stride that does not divide m_eff
+    k = sorted_keys(4, 4096, [0, 1, 700, 4096], 3000)
+    for n in (4096, 1027, 4099, 3):
+        one(probes(4, n, 3000), k, f"m_eff 0/1/700/4096 n={n}")
+    k = sorted_keys(2, 2**21, [2**20 + 12345, 2**21 - 1], 2**22)
+    one(probes(2, 2**16 + 2, 2**22), k, "m_eff 2^20+12345 and 2^21-1")
+    one(probes(2, 2**16, 2**22), k, "m_eff 2^20+12345 and 2^21-1, n a multiple of the tile")
+    # one run of equal keys filling a whole 2^20-key segment
+    k = np.full((2, 2**20), 5, np.int32)
+    k[1, 2**19:] = I32MAX
+    q = np.tile(np.array([5, 4, 6, -1, 5, I32MAX - 1, -(2**31) + 1], np.int32), (2, 150))
+    lo, hi = one(q, k, "a run of 2^20 equal keys")
+    check(int((hi - lo)[0, 0]) == 2**20 and int((hi - lo)[1, 0]) == 2**19,
+          "sorted_probe_ranges: the equal run's multiplicity")
+    # more segments than a grid's y dimension takes
+    one(probes(70000, 6, 40), sorted_keys(70000, 3, rng.integers(0, 4, 70000), 40),
+        "70000 segments")
+    torch.cuda.synchronize()
+    return n_checks
+
+
+def sorted_probe_census(torch, q, keys):
+    """What the recorded call's data asks of the sorted probe: the share of
+    probes answered by an early out (below the first key or in an empty
+    segment; above the last valid key) and the share of padding keys."""
+    meff = (keys != I32MAX).sum(dim=1)
+    first = keys[:, 0:1]
+    last = keys.gather(1, (meff - 1).clamp(min=0)[:, None].long())
+    below = (q < first) | (meff[:, None] == 0)
+    above = ~below & (q > last)
+    return dict(
+        probes=q.numel(), below_first=float(below.float().mean()),
+        above_last=float(above.float().mean()),
+        searched=float((~below & ~above).float().mean()),
+        valid_keys=int(meff.sum()),
+        padding_keys=1.0 - float(meff.sum()) / max(1, keys.numel()),
+    )
+
+
+def sass_mma_count(lib_path) -> int:
+    """Tensor-core MMA instructions (HGMMA, HMMA) in the flash kernels'
+    SASS, by ``cuobjdump -sass`` of the built library; -1 without it."""
+    exe = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    if not os.path.exists(exe):
+        return -1
+    out = subprocess.run([exe, "-sass", str(lib_path)], capture_output=True, text=True,
+                         timeout=300)
+    check(out.returncode == 0, f"cuobjdump failed: {out.stderr[-2000:]}")
+    n, in_flash = 0, False
+    for line in out.stdout.splitlines():
+        if "Function :" in line:
+            in_flash = "flash_attention" in line
+        elif in_flash and ("HGMMA" in line or "HMMA" in line):
+            n += 1
+    return n
+
+
 class Recorder:
     """Wraps a kernel wrapper to keep (clones of) the largest inputs the
     main path gave it; the wrapped call still launches the kernel."""
@@ -307,9 +407,16 @@ def kernel_timing(torch, K, ref, recorded, launches, reps):
         torch.searchsorted(keys, q, side="left")
         torch.searchsorted(keys, q, side="right")
 
+    census = sorted_probe_census(torch, q, keys)
+    print(f"sorted_probe_ranges census of the recorded call: {census}", flush=True)
     m = keys.shape[1]
-    nbytes = q.numel() * 4 + keys.numel() * 4 + q.numel() * 8
-    ops = q.numel() * 2 * 4 * max(1, m.bit_length())
+    # probes read once, lo and hi written once, the valid keys read once:
+    # the function never needs a padding key
+    nbytes = q.numel() * 12 + census["valid_keys"] * 4
+    # the searches these probes need: a lower bound and a gallop for each
+    # probe no early out answers, a few compares for every probe
+    searched = round(census["searched"] * q.numel())
+    ops = 4 * q.numel() + searched * 2 * 4 * max(1, m.bit_length())
     out.append(dict(
         name="sorted_probe_ranges", shape=f"q {tuple(q.shape)} keys {tuple(keys.shape)}",
         ms=time_cold(torch, lambda: SO.sorted_probe_ranges(q, keys), reps, flush),
@@ -500,9 +607,10 @@ def _flash_err(got, want) -> float:
 def flash_edge_checks(torch, dev):
     """The flash kernel against its plain version on the card, within
     ``FLASH_TOL``: head widths 16/64/128/256 (and 80, padded), f32 and
-    bf16, GQA groups 1/2/8, causal or not, window 0 or > 0, softcap 0 or
-    50, Sq != Skv, Skv not a multiple of the 64-key tile, Skv = 1, and
-    fully masked rows, which must be exactly 0."""
+    bf16, GQA groups 1/2/8, causal or not, window 0, shorter than a tile
+    or longer, softcap 0 or 50, Sq != Skv both ways, Sq and Skv off the
+    bf16 kernel's 128-row block and 64-key tile, Skv = 1, the main path's
+    shape, and fully masked rows, which must be exactly 0."""
     import itertools
 
     from repro_torch.kernels import flash_attention as FA
@@ -546,6 +654,13 @@ def flash_edge_checks(torch, dev):
         for causal in (True, False):                       # rows 23.. see no key
             got = run(dtype, 1, 2, 1, 128, 16, d, causal, 8, 0.0)
             check(bool((got[:, :, 23:] == 0).all()), "masked rows 23.. are not 0")
+    for d in (64, 128, 256):  # bf16 tensor-core path: a window shorter than
+        # a tile, Sq off the 128-row block and Skv off the 64-key tile
+        run("bfloat16", 1, 8, 1, 200, 200, d, True, 5, 50.0)
+        run("bfloat16", 1, 8, 2, 77, 333, d, False, 0, 0.0)
+        run("bfloat16", 1, 4, 4, 333, 77, d, True, 0, 50.0)
+    # the main path's call: gemma2-9b's global layer at 2 x 4608 tokens
+    run("bfloat16", 2, 16, 8, 4608, 4608, 256, True, 0, 50.0)
     # and once against the dense oracle
     q = torch.from_numpy(rng.standard_normal((2, 8, 150, 64))).to(dev, torch.float32)
     k = torch.from_numpy(rng.standard_normal((2, 2, 150, 64))).to(dev, torch.float32)
@@ -843,8 +958,14 @@ def main(argv=None) -> int:
             print(f"  ptxas: {line.strip()[:160]}")
 
     dev = torch.device("cuda")
+    mma = sass_mma_count(lib_path)
+    print(f"flash_attention SASS: {mma} tensor-core MMA instructions (HGMMA/HMMA; -1: no "
+          f"cuobjdump)", flush=True)
+    check(mma != 0, "the flash kernels' SASS holds no tensor-core MMA instruction")
+
     t0 = time.perf_counter()
     n = kernel_edge_checks(torch, K, ref, dev)
+    n += sorted_probe_edge_checks(torch, K, ref, dev)
     print(f"kernel edge cases: {n} checks, every gym CUDA kernel == its plain version", flush=True)
     n, worst = flash_edge_checks(torch, dev)
     print(f"flash_attention edge cases: {n} checks within {FLASH_TOL} of the plain version "

@@ -115,7 +115,8 @@ def load() -> ctypes.CDLL:
     vp, ll, ci, cf = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_float
     lib.gym_hash_partition.argtypes = [vp, vp, vp, vp, ll, ll, ci, ci, vp]
     lib.gym_semijoin_probe.argtypes = [vp, vp, vp, vp, ll, ll, ll, ll, vp]
-    lib.gym_sorted_probe.argtypes = [vp, vp, vp, vp, ll, ll, ll, vp]
+    # q, keys, lo, hi, meff, spl, segments, n, m, ns_cap, stream
+    lib.gym_sorted_probe.argtypes = [vp, vp, vp, vp, vp, vp, ll, ll, ll, ci, vp]
     # q, k, v, o, dtype, B, H, KVH, Sq, Skv, D, scale, causal, window, softcap, stream
     lib.gym_flash_attention.argtypes = [
         vp, vp, vp, vp, ci, ll, ll, ll, ll, ll, ci, cf, ci, ci, cf, vp,

@@ -19,24 +19,29 @@ a row that never sees a key comes out as the mean of V over the masked
 keys, not 0 (a fault of the reference, recorded in ROADMAP C).  The model
 path never meets such a row: prefill is causal with ``Sq == Skv``.
 
-Hopper design (``csrc/flash_attention.cu``): one block per (64-row q
-tile, head, batch) loops over 64-key kv tiles staged in shared memory as
-f32, in place of the TPU's sequential kv grid axis; the running max, sum
-and unnormalised output stay in registers, and tiles wholly above the
-causal diagonal or left of the window are skipped.  At the main path's
-shapes the work is bound by operations (``4*B*H*D`` per visible pair:
-348 GFLOP for B=2, H=16, S=4608, D=256 causal) rather than by its 226 MB
-of q, k, v and o; this first kernel computes with f32 FMAs on the CUDA
-cores, so it sits far from the bf16 tensor-core bound — tensor cores and
-TMA staging are later work.  At D=256 the block's 214 KB of shared memory
-needs the dynamic-shared-memory attribute, which the launcher sets; the
-launcher's return code reports a refused launch.
+Hopper design (``csrc/flash_attention.cu``).  At the main path's shapes
+the work is bound by operations (``4*B*H*D`` per visible pair: 348 GFLOP
+for B=2, H=16, S=4608, D=256 causal; 0.35 ms at the bf16 tensor-core
+peak) rather than by its 226 MB of q, k, v and o, so the bf16 path runs
+both products on the tensor cores: a block of two warpgroups owns 128 q
+rows (64 each), K/V tiles of 64 keys arrive by TMA into a 2-stage ring of
+swizzled shared-memory tiles, ``S = Q K^T`` and ``O += P V`` are ``wgmma``
+with bf16 operands and f32 accumulators, the online softmax runs on the
+accumulator fragment in registers and P stays there, in bf16, as the A
+operand of the second product.  A loop over kv tiles takes the place of
+the TPU's sequential kv grid axis; tiles wholly above the causal diagonal
+or left of the window are never loaded.  The bf16 kernel is compiled for
+D = 64, 128, 256; the f32 path (CUDA-core FMAs, f32 tiles in shared
+memory; TF32 would miss the f32 tolerance) for D = 16, 32, 64, 128, 256.
+The wrapper pads any other D <= 256 with zero columns.  The launcher's
+return code reports a refused launch.
 
-Rounding: for bf16 inputs the kernel and the plain version both read
-the inputs exactly into f32, accumulate in f32 and round once to bf16 at
-the output.  They differ only in summation order (the plain version's
-products are f32 matrix products, with TF32 off on the card; the
-kernel's are sequential FMAs), so an output may land one bf16 ulp apart.
+Rounding: for f32 inputs the kernel and the plain version differ only in
+summation order.  For bf16 inputs both form the scores exactly from the
+bf16 inputs with f32 sums; the kernel then rounds the weights P to bf16
+for the tensor-core product P V (the plain version keeps them in f32),
+a relative error of at most 2**-9 a weight, and both round the f32 output
+once to bf16.
 """
 from __future__ import annotations
 
@@ -48,9 +53,9 @@ import torch.nn.functional as F
 #: kernel launches since the last reset (not counting plain-version calls)
 launches = 0
 
-#: head widths the kernel is compiled for; any other D <= 256 is padded
-#: with zero columns up to the next one (zeros change no score)
-KERNEL_D = (16, 32, 64, 128, 256)
+#: head widths the kernels are compiled for, by dtype; any other D <= 256
+#: is padded with zero columns up to the next one (zeros change no score)
+KERNEL_D = {torch.float32: (16, 32, 64, 128, 256), torch.bfloat16: (64, 128, 256)}
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -150,14 +155,18 @@ def flash_attention(
     _check_shapes(q, k, v)
     b, h, sq, d = q.shape
     kvh, sk = k.shape[1], k.shape[2]
-    if d > KERNEL_D[-1] or d == 0:
-        raise ValueError(f"flash_attention: head width {d} not in 1..{KERNEL_D[-1]}")
+    widths = KERNEL_D[q.dtype]
+    if d > widths[-1] or d == 0:
+        raise ValueError(f"flash_attention: head width {d} not in 1..{widths[-1]}")
     if max(b, h) > 65535 or max(sq, sk) >= 2**31:
         raise ValueError(f"flash_attention: shape {tuple(q.shape)} exceeds the grid")
     scale = float(scale) if scale is not None else float(d) ** -0.5
-    dk = next(x for x in KERNEL_D if x >= d)
+    dk = next(x for x in widths if x >= d)
     if dk != d:
         q, k, v = (F.pad(t, (0, dk - d)) for t in (q, k, v))
+    if any(t.data_ptr() % 16 for t in (q, k, v)):
+        # the bf16 kernel's tensor maps need 16-byte aligned bases
+        q, k, v = (t.clone() if t.data_ptr() % 16 else t for t in (q, k, v))
     out = torch.empty_like(q)
     if out.numel():
         lib = build.load()

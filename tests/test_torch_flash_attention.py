@@ -39,6 +39,11 @@ CASES = [
     (1, 2, 2, 20, 37, 16, False, 0, 2.0, "float32"),     # Skv not a block multiple
     (1, 2, 2, 16, 1, 16, False, 0, 0.0, "float32"),      # Skv = 1
     (1, 4, 2, 40, 40, 16, True, 8, 5.0, "bfloat16"),     # bf16
+    # bf16 at the widths of the tensor-core kernel, Sq and Skv off its
+    # 128-row block and 64-key tile
+    (1, 2, 1, 130, 130, 64, True, 0, 50.0, "bfloat16"),  # group 2, softcap
+    (1, 2, 2, 70, 200, 128, True, 5, 0.0, "bfloat16"),   # Sq < Skv, window < a tile
+    (1, 4, 1, 200, 70, 256, False, 0, 50.0, "bfloat16"), # Sq > Skv, group 4
 ]
 
 
