@@ -15,7 +15,11 @@ an H100) and the CUDA toolkit.  In order it:
    on the card at edge cases (n=0, all-INT32_MAX keys, -1 probes, p=7 and
    p=8, a top-bit seed; for the sorted probe also every early out, valid
    lengths 0, 1 and off the splitter stride, a 2^20-key run of equal keys,
-   n off the tile, 70000 segments), and the flash attention kernel within stated
+   n off the tile, 70000 segments; for the semijoin probe's bitmap path also
+   a bound off 32, probes at 0 and bound - 1, the largest bound that fits
+   one block's shared memory and one bit past it, which must take the hash
+   path, and more segments than SMs, and, in a child process, that a key
+   outside [0, bound) traps), and the flash attention kernel within stated
    tolerances of its plain version over head widths, dtypes, GQA groups,
    masks, softcaps and ragged shapes, with fully masked rows exactly 0;
 4. (phase ``gym``) drives the port's join path — default ``gym()`` (hash
@@ -26,7 +30,8 @@ an H100) and the CUDA toolkit.  In order it:
    Each run's rows, schema and ledger must equal a run with the
    ``'torch'`` backend (the plain versions) on the card, the real-size
    row sets must equal an independent numpy join, and every gym kernel
-   must have launched;
+   must have launched, every ``semijoin_probe`` launch on its bitmap path
+   (the launches are printed per path, ``bitmap`` / ``hash``);
 5. (phase ``lm``) drives the port's LM serving path — ``generate`` over
    ``DecoderLM.prefill`` and ``decode_step`` — on gemma2-9b at full width
    and depth in bf16 with random weights from ``--seed``: a batch of two
@@ -36,9 +41,15 @@ an H100) and the CUDA toolkit.  In order it:
    teacher-forced replay through the ``'torch'`` backend on the card;
 6. times each kernel at the largest inputs its path gave it (CUDA events,
    L2 flushed before each launch) beside its plain version, one PyTorch
-   library call where one computes the same function, and its bound, and
+   library call where one computes the same function, and its bound,
    prints the sorted probe's census of that call (the share of probes its
-   early outs answer, the share of padding keys).
+   early outs answer, the share of padding keys) and the semijoin probe's
+   (the share of -1 probes and of padding keys, the hit rate, the largest
+   valid key + 1 against ``bound``, duplicate keys), times the semijoin
+   probe's hash path at the same call, splits the bitmap path's device
+   time between its two kernels (``torch.profiler``), and prints beside it
+   an elementwise pass over the same probe and mask bytes and the
+   wrapper's host time a call.
 
 TF32 is off for matrix products and cuDNN (set explicitly below), so f32
 products on the card run in full f32.  The second-to-last line is one
@@ -275,6 +286,123 @@ def sorted_probe_edge_checks(torch, K, ref, dev):
     return n_checks
 
 
+def bitmap_edge_checks(torch, K, ref, dev):
+    """The semijoin probe's bitmap path exactly equal to its plain version:
+    a bound off 32 and off the 128-bit row, probes at 0, bound - 1 and -1,
+    an all-padding segment, n = 0 and m = 0, n off 4, more segments than
+    SMs, the largest bound one block's shared memory takes and one bit past
+    it, which must take the hash path.  Each call's path is checked by the
+    launch counts."""
+    from repro_torch.kernels.semijoin_probe import MAX_BITMAP_BITS
+
+    rng = np.random.default_rng(17)
+    t = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(dev)  # noqa: E731
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    n_checks = 0
+    for b, n, m, bound in ((3, 1003, 517, 1520), (5, 4096, 4096, 8192), (4, 0, 300, 300),
+                           (4, 300, 0, 300), (2, 2**16 + 3, 2**13, 2**16 + 3 + 2**13),
+                           (2 * sms + 7, 517, 129, 646), (3, 2**15 + 1, 2**14, MAX_BITMAP_BITS),
+                           (3, 2**15 + 1, 2**14, MAX_BITMAP_BITS + 1)):
+        keys = rng.integers(0, bound, (b, m)).astype(np.int32)
+        keys[:, m // 2:] = I32MAX
+        keys[1] = I32MAX  # an all-padding segment
+        if m > 2:
+            keys[0, :2] = (0, bound - 1)
+            keys[-1, :2] = (bound - 32, bound - 33)
+        q = rng.integers(-1, bound, (b, n)).astype(np.int32)
+        if n > 4:
+            q[:, :4] = (0, bound - 1, -1, bound - 32)
+        q[:, 5::7] = -1
+        tq, tk = t(q), t(keys)
+        K.reset_launch_counts()
+        got = K.semijoin_probe(tq, tk, bound=bound, use_cuda=True)
+        torch.cuda.synchronize()
+        path = "bitmap" if bound <= MAX_BITMAP_BITS else "hash"
+        check(torch.equal(got, ref.semijoin_probe_ref(tq, tk)),
+              f"semijoin_probe {path} path != plain at q{q.shape} keys{keys.shape} bound={bound}")
+        check(K.semijoin_probe_path_counts()[path] == int(b * n > 0),
+              f"semijoin_probe bound={bound}: {K.semijoin_probe_path_counts()}, not the {path} path")
+        n_checks += 1
+    return n_checks
+
+
+TRAP_CHILD = """
+import sys, torch
+sys.path.insert(0, sys.argv[1])
+from repro_torch.kernels import ops as K
+q = torch.arange(-1, 100, dtype=torch.int32, device="cuda").reshape(1, 101)
+keys = torch.tensor([[3, 100, 2**31 - 1]], dtype=torch.int32, device="cuda")
+mask = K.semijoin_probe(q, keys, bound=100)
+torch.cuda.synchronize()
+print("mask", int(mask.sum()))
+"""
+
+
+def bitmap_trap_check() -> str:
+    """A key outside [0, bound) must stop the bitmap build with a trap, not
+    return a mask: run in a child process, whose CUDA context it loses."""
+    proc = subprocess.run([sys.executable, "-c", TRAP_CHILD, os.path.join(HERE, "src")],
+                          capture_output=True, text=True, timeout=300)
+    check(proc.returncode != 0 and "mask" not in proc.stdout,
+          f"semijoin_probe: a key >= bound did not trap: {proc.stdout[-500:]}")
+    check("CUDA error" in proc.stderr,
+          f"semijoin_probe trap child failed otherwise: {proc.stderr[-2000:]}")
+    return proc.stderr.strip().splitlines()[-1][:120]
+
+
+def semijoin_census(torch, q, keys, bound, mask):
+    """What the recorded call's data asks of the semijoin probe: the share
+    of -1 probes, of probes outside [-1, bound) (the promise allows none),
+    of padding keys, the hit rate, the largest valid key + 1 against
+    ``bound``, and the keys that repeat one of their segment."""
+    valid = keys != I32MAX
+    ks = torch.sort(keys, dim=1).values
+    dup = int(((ks[:, 1:] == ks[:, :-1]) & (ks[:, 1:] != I32MAX)).sum()) if keys.shape[1] > 1 else 0
+    return dict(
+        probes=q.numel(), minus_one_probes=float((q == -1).float().mean()),
+        probes_outside=float(((q < -1) | (q >= bound)).float().mean()),
+        valid_keys=int(valid.sum()), padding_keys=1.0 - float(valid.float().mean()),
+        hit_rate=float(mask.float().mean()),
+        valid_key_min=int(torch.where(valid, keys, I32MAX).min()) if keys.numel() else None,
+        valid_key_max_plus_1=int(torch.where(valid, keys, -1).max()) + 1 if keys.numel() else 0,
+        bound=bound, duplicate_keys=dup,
+    )
+
+
+def bitmap_kernel_split(torch, fn, flush, reps: int = 5):
+    """Device ms a call of the bitmap path spends in each of its kernels
+    (``torch.profiler`` over ``reps`` calls, L2 flushed before each)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            flush.zero_()
+            fn()
+        torch.cuda.synchronize()
+    split = {"bitmap_build_kernel": 0.0, "bitmap_probe_kernel": 0.0}
+    for e in prof.events():
+        for name in split:
+            if e.device_type == DeviceType.CUDA and name in e.name:
+                split[name] += e.time_range.elapsed_us() / 1e3 / reps
+    return split
+
+
+def wrapper_host_us(torch, SP, calls: int = 2000) -> float:
+    """Host microseconds a bitmap-path call of the semijoin wrapper takes
+    (at a tiny shape, so that the card keeps up with the launches)."""
+    q = torch.zeros((4, 64), dtype=torch.int32, device="cuda")
+    for _ in range(50):
+        SP.semijoin_probe(q, q, bound=128)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        SP.semijoin_probe(q, q, bound=128)
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / calls * 1e6
+
+
 def sorted_probe_census(torch, q, keys):
     """What the recorded call's data asks of the sorted probe: the share of
     probes answered by an early out (below the first key or in an empty
@@ -313,21 +441,24 @@ def sass_mma_count(lib_path) -> int:
 
 class Recorder:
     """Wraps a kernel wrapper to keep (clones of) the largest inputs the
-    main path gave it; the wrapped call still launches the kernel."""
+    main path gave it, keyword arguments too (the semijoin probe's
+    ``bound``); the wrapped call still launches the kernel."""
 
     def __init__(self, torch, mod, attr):
         self.torch, self.mod, self.attr = torch, mod, attr
         self.orig = getattr(mod, attr)
         self.best = None
+        self.kw = {}
         self.size = -1
         setattr(mod, attr, self)
 
-    def __call__(self, *args):
+    def __call__(self, *args, **kw):
         size = sum(a.numel() for a in args if isinstance(a, self.torch.Tensor))
         if size > self.size:
             self.size = size
             self.best = tuple(a.clone() if isinstance(a, self.torch.Tensor) else a for a in args)
-        return self.orig(*args)
+            self.kw = dict(kw)
+        return self.orig(*args, **kw)
 
     def restore(self):
         setattr(self.mod, self.attr, self.orig)
@@ -351,8 +482,9 @@ def time_cold(torch, fn, reps: int, flush) -> float:
 
 
 def kernel_timing(torch, K, ref, recorded, launches, reps):
-    """Time each kernel at its recorded main-path inputs; compare with its
-    plain version there.  Returns the kernel records of the JSON line."""
+    """Time each kernel at its recorded main-path inputs (``recorded``:
+    name -> (arguments, keyword arguments)); compare with its plain version
+    there.  Returns the kernel records of the JSON line."""
     from repro_torch.kernels import hash_partition as HP
     from repro_torch.kernels import semijoin_probe as SP
     from repro_torch.kernels import sorted_probe as SO
@@ -361,7 +493,7 @@ def kernel_timing(torch, K, ref, recorded, launches, reps):
     flush = torch.empty(128 * 2**20 // 4, dtype=torch.int32, device=dev)  # > 50 MB L2
     out = []
     # -- hash_partition
-    keys, valid, p, seeds = recorded["hash_partition"]
+    keys, valid, p, seeds = recorded["hash_partition"][0]
     b, n, nk = keys.shape
     got = HP.hash_partition(keys, valid, p, seeds)
     want = ref.hash_partition_ref(keys, valid, p, seeds)
@@ -375,10 +507,19 @@ def kernel_timing(torch, K, ref, recorded, launches, reps):
         library_ms=None, max_abs_err=err, nbytes=nbytes, ops=ops,
     ))
     # -- semijoin_probe (library yardstick: torch.isin on segment-offset keys)
-    q, keys = recorded["semijoin_probe"]
-    got = SP.semijoin_probe(q, keys)
+    (q, keys), kw = recorded["semijoin_probe"]
+    bound = kw.get("bound")
+    check(SP.uses_bitmap(bound), f"semijoin_probe's recorded call has bound {bound}: not the bitmap path")
+    got = SP.semijoin_probe(q, keys, bound=bound)
     want = ref.semijoin_probe_ref(q, keys)
     err = int((got.long() - want.long()).abs().max()) if got.numel() else 0
+    hgot = SP.semijoin_probe(q, keys)
+    check(torch.equal(hgot, want), "semijoin_probe's hash path != plain at the recorded call")
+    census = semijoin_census(torch, q, keys, bound, want)
+    print(f"semijoin_probe census of the recorded call: {census}", flush=True)
+    check(census["probes_outside"] == 0.0 and census["valid_key_max_plus_1"] <= bound
+          and (census["valid_key_min"] is None or census["valid_key_min"] >= 0),
+          "semijoin_probe's recorded call breaks the bound promise")
     seg = torch.arange(q.shape[0], device=dev, dtype=torch.int64)[:, None] << 32
     # padding keys move below every probe so they never match
     q64 = q.long() + seg
@@ -386,15 +527,29 @@ def kernel_timing(torch, K, ref, recorded, launches, reps):
     check(torch.equal(torch.isin(q64, k64), want), "torch.isin yardstick disagrees")
     nbytes = q.numel() * 4 + keys.numel() * 4 + q.numel()
     ops = 30 * (q.numel() + keys.numel())
+    bitmap = lambda: SP.semijoin_probe(q, keys, bound=bound)  # noqa: E731
+    ms = time_cold(torch, bitmap, reps, flush)
+    hash_ms = time_cold(torch, lambda: SP.semijoin_probe(q, keys), reps, flush)
+    split = bitmap_kernel_split(torch, bitmap, flush)
+    # what the bytes alone cost: an elementwise pass that reads each probe
+    # and writes one byte for it, as the probe kernel does
+    mask_out = torch.empty_like(want)
+    stream_ms = time_cold(torch, lambda: torch.eq(q, -1, out=mask_out), reps, flush)
+    print(f"semijoin_probe at the recorded call: bitmap path {ms:.5f} ms "
+          f"(device ms by kernel, torch.profiler: {split}), hash path {hash_ms:.5f} ms "
+          f"(launched without bound); torch.eq(q, -1) over the same probe and mask "
+          f"bytes {stream_ms:.5f} ms; the wrapper's host work "
+          f"{wrapper_host_us(torch, SP):.3f} us a call", flush=True)
     out.append(dict(
-        name="semijoin_probe", shape=f"q {tuple(q.shape)} keys {tuple(keys.shape)}",
-        ms=time_cold(torch, lambda: SP.semijoin_probe(q, keys), reps, flush),
+        name="semijoin_probe",
+        shape=f"q {tuple(q.shape)} keys {tuple(keys.shape)} bound={bound}",
+        ms=ms,
         plain_ms=time_cold(torch, lambda: ref.semijoin_probe_ref(q, keys), reps, flush),
         library_ms=time_cold(torch, lambda: torch.isin(q64, k64), reps, flush),
         max_abs_err=err, nbytes=nbytes, ops=ops,
     ))
     # -- sorted_probe_ranges (library yardstick: batched torch.searchsorted)
-    q, keys = recorded["sorted_probe_ranges"]
+    q, keys = recorded["sorted_probe_ranges"][0]
     lo, hi = SO.sorted_probe_ranges(q, keys)
     rlo, rhi = ref.sorted_probe_ranges_ref(q, keys)
     err = max(
@@ -487,6 +642,7 @@ def main_path(torch, seed: int, sizes=("bench", "real")):
 
     summary = {}
     totals = {k: 0 for k in GYM_KERNELS}
+    totals.update({"semijoin_probe/bitmap": 0, "semijoin_probe/hash": 0})
     for size in sizes:
         t0 = time.perf_counter()
         fams = families(seed, real=(size == "real"))
@@ -496,10 +652,14 @@ def main_path(torch, seed: int, sizes=("bench", "real")):
             K.reset_launch_counts()
             rows, schema, led, cold = run_gym(torch, gym_mod, q, g, data, "cuda")
             per_run = {k: K.launch_counts()[k] for k in GYM_KERNELS}
+            per_run.update({f"semijoin_probe/{k}": v
+                            for k, v in K.semijoin_probe_path_counts().items()})
             check(K.launch_counts()["flash_attention"] == 0, "gym launched flash_attention")
             rows2, schema2, led2, warm = run_gym(torch, gym_mod, q, g, data, "cuda")
             for k in GYM_KERNELS:
                 totals[k] += K.launch_counts()[k]
+            for k, v in K.semijoin_probe_path_counts().items():
+                totals[f"semijoin_probe/{k}"] += v
             K.reset_launch_counts()
             trows, tschema, tled, tsec = run_gym(torch, gym_mod, q, g, data, "torch")
             check(sum(K.launch_counts().values()) == 0, "'torch' backend launched a kernel")
@@ -512,7 +672,10 @@ def main_path(torch, seed: int, sizes=("bench", "real")):
             check(np.array_equal(rows, rows2) and recs == [dataclasses.asdict(r) for r in led2.records],
                   f"{fam} {size}: warm run differs")
             check(rows.shape == (led.output_tuples, len(q.output_attrs)), f"{fam} {size}: shape")
-            check(all(v > 0 for v in per_run.values()), f"{fam} {size}: a kernel never launched {per_run}")
+            check(all(per_run[k] > 0 for k in GYM_KERNELS),
+                  f"{fam} {size}: a kernel never launched {per_run}")
+            check(per_run["semijoin_probe/hash"] == 0,
+                  f"{fam} {size}: a semijoin_probe launch took the hash path {per_run}")
             if size == "real":
                 want = np_answer(q, data)
                 check(np.array_equal(rows.astype(np.int64), want), f"{fam} real: rows != numpy join")
@@ -966,7 +1129,11 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     n = kernel_edge_checks(torch, K, ref, dev)
     n += sorted_probe_edge_checks(torch, K, ref, dev)
-    print(f"kernel edge cases: {n} checks, every gym CUDA kernel == its plain version", flush=True)
+    n_bitmap = bitmap_edge_checks(torch, K, ref, dev)
+    print(f"kernel edge cases: {n + n_bitmap} checks ({n_bitmap} of the semijoin probe's "
+          f"bitmap path), every gym CUDA kernel == its plain version", flush=True)
+    print(f"semijoin_probe bitmap path, a key >= bound in a child process: trapped "
+          f"({bitmap_trap_check()})", flush=True)
     n, worst = flash_edge_checks(torch, dev)
     print(f"flash_attention edge cases: {n} checks within {FLASH_TOL} of the plain version "
           f"(worst |d|/max(1,|o|): {worst}), fully masked rows exactly 0; "
@@ -986,8 +1153,11 @@ def main(argv=None) -> int:
             for r in recorders.values():
                 r.restore()
         print(f"main path launches (cuda gym runs): {launches}", flush=True)
-        check(all(v > 0 for v in launches.values()), f"a kernel never launched: {launches}")
-        recorded = {k: r.best for k, r in recorders.items()}
+        check(all(launches[k] > 0 for k in GYM_KERNELS), f"a kernel never launched: {launches}")
+        check(launches["semijoin_probe/hash"] == 0
+              and launches["semijoin_probe/bitmap"] == launches["semijoin_probe"],
+              f"a main-path semijoin_probe launch took the hash path: {launches}")
+        recorded = {k: (r.best, r.kw) for k, r in recorders.items()}
         kernels += kernel_timing(torch, K, ref, recorded, launches, args.reps)
         fams = [f for f in args.profile.split(",") if f and f != "lm"]
         if fams:

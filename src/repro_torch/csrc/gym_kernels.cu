@@ -15,8 +15,21 @@
 // of its searches off the path of probes that need none and off the top
 // of the search tree.
 //
+// Membership has two paths, chosen on the host from the shapes and the
+// caller's `bound` alone:
+//   - bitmap (gym_semijoin_bitmap), when the caller promises that every
+//     key other than INT32_MAX lies in [0, bound) and a segment's
+//     ceil(bound / 128) * 16 bytes of bits fit in one block's shared
+//     memory.  The dense ranks of a semijoin do: bound = n + m.  A key
+//     outside [0, bound) breaks the promise and stops the kernel with
+//     __trap(), never a quietly wrong mask.  A probe costs one compare
+//     and one shared-memory bit test, so the kernel moves about the bytes
+//     the function must move;
+//   - hash set (gym_semijoin_probe), for any other int32 input.
+//
 // Replaces (TPU Pallas kernels of the reference package):
 //   gym_hash_partition    <- repro/kernels/hash_partition.py::_partition_kernel
+//   gym_semijoin_bitmap,
 //   gym_semijoin_probe    <- repro/kernels/semijoin_probe.py::_probe_kernel
 //   gym_sorted_probe      <- repro/kernels/sorted_probe.py::_range_kernel
 #include <cuda_runtime.h>
@@ -68,9 +81,10 @@ __global__ void hash_partition_kernel(const int32_t* __restrict__ keys,
   }
 }
 
-// ------------------------------------------------------------- membership
-// One open-addressing hash set per segment, `slots` (a power of two, at
-// least twice the segment's key count) int32 cells each.  A cell holds
+// ------------------------------------------------------ membership, hashed
+// The path for keys of no known range.  One open-addressing hash set per
+// segment, `slots` (a power of two, at least twice the segment's key
+// count, so at most half full) int32 cells each.  A cell holds
 // key ^ INT32_MAX, so the all-zero memset is the empty set and the
 // INT32_MAX padding key (which would store 0) is never inserted.
 __global__ void set_build_kernel(const int32_t* __restrict__ keys, long long m,
@@ -113,6 +127,159 @@ __global__ void set_probe_kernel(const int32_t* __restrict__ q, long long n,
       }
     }
     out[i] = hit;
+  }
+}
+
+// ------------------------------------------------------ membership, bitmap
+// The path for keys promised to lie in [0, bound): bit x of a segment's
+// row of `words` uint32 (words = ceil(bound / 128) * 4, so every row
+// starts on 16 bytes) is set when x is one of its keys.  At the largest
+// main-path call (56 segments of 2^20 probes and 2^17 keys, bound 2^20 +
+// 2^17) a row is 144 KiB and all rows 7.9 MiB, which stays in L2.
+//
+// bitmap_build_kernel, grid (slices, segments): a block clears its slice
+// of a segment's words in shared memory, sets one bit per valid key with a
+// shared-memory atomicOr, and writes the slice out whole, so one launch
+// both clears and fills the bitmap.  With fewer segments than SMs, a
+// segment's words are cut into up to four slices; each slice's block
+// reads all the segment's keys (the second reads hit L2) and keeps the
+// bits that fall in its slice.
+//
+// bitmap_probe_kernel: one persistent block per SM (the bitmap takes most
+// of the shared memory), each over one contiguous run of the flattened
+// (segment, probe) order, so it stages each segment's words once, with
+// 16-byte cp.async copies from L2, and again only when its run crosses
+// into the next segment.  Probes are read 16 bytes a thread, four loads in
+// flight, with a streaming hint (each is read once); a probe outside
+// [0, bound), such as the -1 of an invalid row, is answered by one
+// compare before any shared-memory access; each thread writes its four
+// mask bytes as one 4-byte store.
+constexpr int kBitmapThreads = 1024;
+constexpr int kBitmapUnroll = 4;
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// the caller's promise: a key is INT32_MAX (padding) or in [0, bound)
+__device__ __forceinline__ void bitmap_set(int32_t k, uint32_t bound, uint32_t lo_bit,
+                                           uint32_t slice_bits, uint32_t* s_bits) {
+  if (k == kI32Max) return;
+  const uint32_t u = (uint32_t)k;
+  if (u >= bound) __trap();
+  const uint32_t r = u - lo_bit;
+  if (r < slice_bits) atomicOr(s_bits + (r >> 5), 1u << (r & 31));
+}
+
+__global__ void __launch_bounds__(kBitmapThreads)
+    bitmap_build_kernel(const int32_t* __restrict__ keys, long long m,
+                        uint32_t bound, int words, int slice_words,
+                        long long segments, uint32_t* __restrict__ bits) {
+  extern __shared__ uint4 s_raw[];
+  uint32_t* s_bits = reinterpret_cast<uint32_t*>(s_raw);
+  const int w0 = blockIdx.x * slice_words;
+  const int nw = max(0, min(slice_words, words - w0));
+  const uint32_t lo_bit = (uint32_t)w0 * 32u;
+  const uint32_t slice_bits = (uint32_t)nw * 32u;
+  for (long long seg = blockIdx.y; seg < segments; seg += gridDim.y) {
+    for (int w = threadIdx.x; w < nw; w += kBitmapThreads) s_bits[w] = 0u;
+    __syncthreads();
+    const int32_t* ks = keys + seg * m;
+    // scalar keys up to the first 16-byte boundary, int4 loads after it
+    const long long head =
+        min(m, (long long)(((16u - ((uintptr_t)ks & 15u)) & 15u) >> 2));
+    const long long nvec = (m - head) >> 2;
+    for (long long i = threadIdx.x; i < head; i += kBitmapThreads)
+      bitmap_set(ks[i], bound, lo_bit, slice_bits, s_bits);
+    for (long long i = head + 4 * nvec + threadIdx.x; i < m; i += kBitmapThreads)
+      bitmap_set(ks[i], bound, lo_bit, slice_bits, s_bits);
+    const int4* kv = reinterpret_cast<const int4*>(ks + head);
+    for (long long v = threadIdx.x; v < nvec;
+         v += (long long)kBitmapThreads * kBitmapUnroll) {
+      int4 x[kBitmapUnroll];
+#pragma unroll
+      for (int u = 0; u < kBitmapUnroll; ++u) {
+        const long long vu = v + (long long)u * kBitmapThreads;
+        x[u] = vu < nvec ? kv[vu] : make_int4(kI32Max, kI32Max, kI32Max, kI32Max);
+      }
+#pragma unroll
+      for (int u = 0; u < kBitmapUnroll; ++u) {
+        bitmap_set(x[u].x, bound, lo_bit, slice_bits, s_bits);
+        bitmap_set(x[u].y, bound, lo_bit, slice_bits, s_bits);
+        bitmap_set(x[u].z, bound, lo_bit, slice_bits, s_bits);
+        bitmap_set(x[u].w, bound, lo_bit, slice_bits, s_bits);
+      }
+    }
+    __syncthreads();
+    uint32_t* dst = bits + seg * (long long)words + w0;
+    for (int w = threadIdx.x; w < nw; w += kBitmapThreads) dst[w] = s_bits[w];
+    __syncthreads();  // the slice is written out before the next clear
+  }
+}
+
+__device__ __forceinline__ uint32_t bitmap_hit(int32_t x, uint32_t bound,
+                                               const uint32_t* s_bits) {
+  const uint32_t u = (uint32_t)x;
+  return u < bound ? (s_bits[u >> 5] >> (u & 31)) & 1u : 0u;
+}
+
+// q is 16-byte aligned (the wrapper sees to it) and out is a fresh
+// allocation, so at a flat index i % 4 == 0 an int4 of probes and a
+// uint32 of mask bytes are aligned
+__global__ void __launch_bounds__(kBitmapThreads, 1)
+    bitmap_probe_kernel(const int32_t* __restrict__ q, long long n,
+                        const uint32_t* __restrict__ bits, int words,
+                        uint32_t bound, long long total, long long per_block,
+                        uint8_t* __restrict__ out) {
+  extern __shared__ uint4 s_raw[];
+  const uint32_t* s_bits = reinterpret_cast<const uint32_t*>(s_raw);
+  const long long g0 = (long long)blockIdx.x * per_block;
+  const long long g1 = min(g0 + per_block, total);
+  const int t = threadIdx.x;
+  long long seg = g0 / n;
+  for (long long i0 = g0; i0 < g1; ++seg) {
+    const long long i1 = min((seg + 1) * n, g1);
+    __syncthreads();  // every thread is done with the previous segment
+    const uint4* src = reinterpret_cast<const uint4*>(bits + seg * (long long)words);
+    for (int w = t; w < (words >> 2); w += kBitmapThreads) cp_async16(s_raw + w, src + w);
+    cp_async_wait_all();
+    __syncthreads();
+    const long long a = min(i1, (i0 + 3) & ~3LL);  // first multiple of 4
+    const long long b = max(a, i1 & ~3LL);         // last multiple of 4
+    for (long long i = i0 + t; i < a; i += kBitmapThreads)
+      out[i] = (uint8_t)bitmap_hit(q[i], bound, s_bits);
+    for (long long i = b + t; i < i1; i += kBitmapThreads)
+      out[i] = (uint8_t)bitmap_hit(q[i], bound, s_bits);
+    const int4* qv = reinterpret_cast<const int4*>(q);
+    uint32_t* ov = reinterpret_cast<uint32_t*>(out);
+    const long long v1 = b >> 2;
+    for (long long v = (a >> 2) + t; v < v1;
+         v += (long long)kBitmapThreads * kBitmapUnroll) {
+      int4 x[kBitmapUnroll];
+#pragma unroll
+      for (int u = 0; u < kBitmapUnroll; ++u) {
+        const long long vu = v + (long long)u * kBitmapThreads;
+        x[u] = vu < v1 ? __ldcs(qv + vu) : make_int4(-1, -1, -1, -1);
+      }
+#pragma unroll
+      for (int u = 0; u < kBitmapUnroll; ++u) {
+        const long long vu = v + (long long)u * kBitmapThreads;
+        if (vu < v1) {
+          const uint32_t r = bitmap_hit(x[u].x, bound, s_bits) |
+                             bitmap_hit(x[u].y, bound, s_bits) << 8 |
+                             bitmap_hit(x[u].z, bound, s_bits) << 16 |
+                             bitmap_hit(x[u].w, bound, s_bits) << 24;
+          __stcs(ov + vu, r);
+        }
+      }
+    }
+    i0 = i1;
   }
 }
 
@@ -350,6 +517,65 @@ int gym_semijoin_probe(const void* q, const void* keys, void* table, void* out,
   set_probe_kernel<<<blocks_for(segments * n), kThreads, 0, s>>>(
       (const int32_t*)q, n, (const int32_t*)table, slots, (uint8_t*)out,
       segments * n);
+  return (int)cudaGetLastError();
+}
+
+// Bitmap membership: bits is (segments, words) uint32 scratch, words a
+// multiple of 4 with bound <= 32 * words; keys other than INT32_MAX must
+// lie in [0, bound) (else the build traps).  Two launches: build, probe.
+int gym_semijoin_bitmap(const void* q, const void* keys, void* bits, void* out,
+                        long long segments, long long n, long long m,
+                        long long bound, long long words, void* stream) {
+  if (segments * n == 0) return 0;
+  if (bound < 0 || words < 0 || (words & 3) || bound > 32 * words ||
+      bound > (long long)kI32Max)
+    return (int)cudaErrorInvalidValue;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  static int s_sms[64], s_optin[64];
+  if (dev < 0 || dev >= 64) return (int)cudaErrorInvalidDevice;
+  if (s_sms[dev] == 0) {  // once per device: SM count, opt-in shared memory
+    int sms = 0, optin = 0;
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(bitmap_build_kernel,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize, optin);
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(bitmap_probe_kernel,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize, optin);
+    if (err != cudaSuccess) return (int)err;
+    s_optin[dev] = optin;
+    s_sms[dev] = sms;
+  }
+  const int sms = s_sms[dev];
+  if (words * 4 > (long long)s_optin[dev]) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  // build: up to four slices of a segment's words when segments < SMs
+  long long slices = segments < sms ? sms / segments : 1;
+  slices = slices < 1 ? 1 : (slices > 4 ? 4 : slices);
+  long long slice_words = ((words + slices - 1) / slices + 3) & ~3LL;
+  if (slice_words > 0) slices = (words + slice_words - 1) / slice_words;
+  else slices = 1;
+  const dim3 bgrid((unsigned int)slices,
+                   (unsigned int)(segments < 65535 ? segments : 65535));
+  bitmap_build_kernel<<<bgrid, kBitmapThreads, (size_t)slice_words * 4, s>>>(
+      (const int32_t*)keys, m, (uint32_t)bound, (int)words, (int)slice_words,
+      segments, (uint32_t*)bits);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  // probe: at most one block per SM, each over >= 4096 probes, runs of a
+  // multiple of 4 probes
+  const long long total = segments * n;
+  long long blocks = (total + 4095) / 4096;
+  if (blocks > sms) blocks = sms;
+  const long long per_block = (((total + blocks - 1) / blocks) + 3) & ~3LL;
+  blocks = (total + per_block - 1) / per_block;
+  bitmap_probe_kernel<<<(unsigned int)blocks, kBitmapThreads, (size_t)words * 4, s>>>(
+      (const int32_t*)q, n, (const uint32_t*)bits, (int)words, (uint32_t)bound,
+      total, per_block, (uint8_t*)out);
   return (int)cudaGetLastError();
 }
 

@@ -115,14 +115,16 @@ def load() -> ctypes.CDLL:
     vp, ll, ci, cf = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_float
     lib.gym_hash_partition.argtypes = [vp, vp, vp, vp, ll, ll, ci, ci, vp]
     lib.gym_semijoin_probe.argtypes = [vp, vp, vp, vp, ll, ll, ll, ll, vp]
+    # q, keys, bits, out, segments, n, m, bound, words, stream
+    lib.gym_semijoin_bitmap.argtypes = [vp, vp, vp, vp, ll, ll, ll, ll, ll, vp]
     # q, keys, lo, hi, meff, spl, segments, n, m, ns_cap, stream
     lib.gym_sorted_probe.argtypes = [vp, vp, vp, vp, vp, vp, ll, ll, ll, ci, vp]
     # q, k, v, o, dtype, B, H, KVH, Sq, Skv, D, scale, causal, window, softcap, stream
     lib.gym_flash_attention.argtypes = [
         vp, vp, vp, vp, ci, ll, ll, ll, ll, ll, ci, cf, ci, ci, cf, vp,
     ]
-    for fn in (lib.gym_hash_partition, lib.gym_semijoin_probe, lib.gym_sorted_probe,
-               lib.gym_flash_attention):
+    for fn in (lib.gym_hash_partition, lib.gym_semijoin_probe, lib.gym_semijoin_bitmap,
+               lib.gym_sorted_probe, lib.gym_flash_attention):
         fn.restype = ci
     _lib = lib
     return lib
@@ -135,6 +137,9 @@ def check(err: int, what: str) -> None:
 
 
 def stream_handle(device) -> int:
+    """The raw handle of PyTorch's current stream on a CUDA tensor's
+    device: a far cheaper host call than building the ``Stream`` object
+    that ``torch.cuda.current_stream`` returns (``PERF.md``)."""
     import torch
 
-    return torch.cuda.current_stream(device).cuda_stream
+    return torch._C._cuda_getCurrentRawStream(device.index)

@@ -4,7 +4,8 @@
 CPU ones) or the plain PyTorch version (any device); ``None`` follows the
 tensors' device.  There is no fallback: a failed build or launch raises.
 ``launch_counts`` / ``reset_launch_counts`` read and clear the kernels'
-launch counters, which count kernel launches only.
+launch counters, which count kernel launches only;
+``semijoin_probe_path_counts`` splits the probe's count by path.
 """
 from __future__ import annotations
 
@@ -30,10 +31,18 @@ def _want_cuda(t: torch.Tensor, use_cuda: Optional[bool], name: str) -> bool:
 
 
 def semijoin_probe(
-    q: torch.Tensor, keys: torch.Tensor, *, use_cuda: Optional[bool] = None
+    q: torch.Tensor,
+    keys: torch.Tensor,
+    *,
+    bound: Optional[int] = None,
+    use_cuda: Optional[bool] = None,
 ) -> torch.Tensor:
+    """mask of q in keys per segment.  ``bound`` promises every key other
+    than INT32_MAX lies in ``[0, bound)``: the kernel then takes its
+    bitmap path (``kernels/semijoin_probe.py``); the plain version
+    ignores it."""
     if _want_cuda(q, use_cuda, "semijoin_probe"):
-        return _sp.semijoin_probe(q, keys)
+        return _sp.semijoin_probe(q, keys, bound=bound)
     return ref.semijoin_probe_ref(q, keys)
 
 
@@ -99,8 +108,14 @@ def launch_counts() -> Dict[str, int]:
     }
 
 
+def semijoin_probe_path_counts() -> Dict[str, int]:
+    """``semijoin_probe`` launches by path (``bitmap`` / ``hash``)."""
+    return dict(_sp.path_launches)
+
+
 def reset_launch_counts() -> None:
     _hp.launches = 0
     _sp.launches = 0
+    _sp.path_launches.update(bitmap=0, hash=0)
     _so.launches = 0
     _fa.launches = 0

@@ -25,7 +25,7 @@ Both are bit-identical; the engine threads the choice down from
 from __future__ import annotations
 
 import math
-from typing import Dict, Sequence, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
@@ -87,8 +87,12 @@ class LocalBackend:
         """Reducer destination in [0,p) per valid row; p for invalid."""
         raise NotImplementedError
 
-    def member_mask(self, q: torch.Tensor, keys: torch.Tensor) -> torch.Tensor:
-        """mask[..., i] = q[..., i] in keys[...] (keys need NOT be sorted)."""
+    def member_mask(
+        self, q: torch.Tensor, keys: torch.Tensor, bound: Optional[int] = None
+    ) -> torch.Tensor:
+        """mask[..., i] = q[..., i] in keys[...] (keys need NOT be sorted).
+        ``bound`` promises every key other than INT32_MAX lies in
+        ``[0, bound)``."""
         raise NotImplementedError
 
     def probe_ranges(self, q: torch.Tensor, sorted_keys: torch.Tensor):
@@ -103,8 +107,8 @@ class TorchBackend(LocalBackend):
     def dests(self, data, valid, cols, p, seed):
         return dests_for(data, valid, cols, p, seed)
 
-    def member_mask(self, q, keys):
-        out = K.semijoin_probe(_seg(q, 1), _seg(keys, 1), use_cuda=False)
+    def member_mask(self, q, keys, bound=None):
+        out = K.semijoin_probe(_seg(q, 1), _seg(keys, 1), bound=bound, use_cuda=False)
         return out.reshape(q.shape)
 
     def probe_ranges(self, q, sorted_keys):
@@ -137,10 +141,11 @@ class CudaBackend(LocalBackend):
         )
         return out.reshape(batch + (n,))
 
-    def member_mask(self, q, keys):
+    def member_mask(self, q, keys, bound=None):
         self._need_cuda(q)
         out = K.semijoin_probe(
-            _seg(q, 1).contiguous(), _seg(keys, 1).contiguous(), use_cuda=True
+            _seg(q, 1).contiguous(), _seg(keys, 1).contiguous(), bound=bound,
+            use_cuda=True,
         )
         return out.reshape(q.shape)
 
@@ -284,7 +289,9 @@ def local_semijoin_mask(
     be = get_local_backend(backend)
     rs, rr = dense_ranks(s_data, s_valid, s_key, r_data, r_valid, r_key)
     keys = torch.where(r_valid, rr, torch.full_like(rr, I32MAX))
-    return s_valid & be.member_mask(rs, keys)
+    # dense ranks of the n S and m R rows lie in [0, n + m); invalid S rows
+    # probe -1, invalid R rows become INT32_MAX padding
+    return s_valid & be.member_mask(rs, keys, bound=rs.shape[-1] + keys.shape[-1])
 
 
 def local_dedup_mask(data, valid, cols: Sequence[int]) -> torch.Tensor:

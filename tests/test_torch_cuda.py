@@ -224,3 +224,127 @@ def test_cuda_flash_attention_bf16_unaligned_inputs(cuda_device):
     got = flash_attention(q, k, v, causal=True, softcap=50.0)
     want = flash_attention(q.clone(), k.clone(), v.clone(), causal=True, softcap=50.0)
     assert torch.equal(got, want)
+
+
+def _bitmap_case(rng, b, n, m, bound):
+    """Keys in [0, bound) with INT32_MAX padding and one all-padding
+    segment; probes over [-1, bound) with 0, bound - 1 and -1 planted."""
+    keys = rng.integers(0, max(bound, 1), (b, m)).astype(np.int32)
+    keys[:, m // 2:] = I32MAX
+    if b > 1:
+        keys[1] = I32MAX
+    if m > 2 and bound > 0:
+        keys[0, :2] = (0, bound - 1)
+    q = rng.integers(-1, max(bound, 1), (b, n)).astype(np.int32)
+    if n > 3:
+        q[:, :3] = (0, bound - 1, -1)
+    q[:, 5::7] = -1
+    return q, keys
+
+
+# (segments, n, m, bound): bound off a multiple of 32 and of the 128-bit
+# row, n off 4 (the scalar head and tail), n = 0, m = 0, the main path's
+# bound n + m, more segments than the card has SMs, the largest bound one
+# block's shared memory takes, and one bit past it (the hash path)
+BITMAP_SHAPES = [
+    (3, 1003, 517, 1003 + 517),
+    (5, 4096, 4096, 8192),
+    (4, 0, 300, 300),
+    (4, 300, 0, 300),
+    (2, 2**16 + 3, 2**13, 2**16 + 3 + 2**13),
+    (300, 517, 129, 517 + 129),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,n,m,bound", BITMAP_SHAPES,
+                         ids=["off_32", "aligned", "n0", "m0", "off_4", "300_segments"])
+def test_cuda_semijoin_bitmap_path_matches_plain(cuda_device, b, n, m, bound):
+    from repro_torch.kernels import ops as K
+    from repro_torch.kernels import ref
+
+    rng = np.random.default_rng(b * 7 + n + m)
+    q, keys = _bitmap_case(rng, b, n, m, bound)
+    tq, tk = torch.from_numpy(q).to(cuda_device), torch.from_numpy(keys).to(cuda_device)
+    K.reset_launch_counts()
+    got = K.semijoin_probe(tq, tk, bound=bound)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref.semijoin_probe_ref(tq, tk))
+    assert K.semijoin_probe_path_counts() == {"bitmap": int(b * n > 0), "hash": 0}
+
+
+@pytest.mark.cuda
+def test_cuda_semijoin_bitmap_largest_bound_and_one_past(cuda_device):
+    """The largest bound that fits one block's shared memory takes the
+    bitmap path; one bit more takes the hash path; both equal the plain
+    version, with keys and probes at the top of the range."""
+    from repro_torch.kernels import ops as K
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.semijoin_probe import MAX_BITMAP_BITS
+
+    rng = np.random.default_rng(3)
+    for bound, path in ((MAX_BITMAP_BITS, "bitmap"), (MAX_BITMAP_BITS + 1, "hash")):
+        q, keys = _bitmap_case(rng, 3, 2**15 + 1, 2**14, bound)
+        keys[2, :4] = (bound - 1, bound - 2, bound - 32, bound - 33)
+        q[2, -4:] = (bound - 1, bound - 2, bound - 32, bound)
+        tq, tk = torch.from_numpy(q).to(cuda_device), torch.from_numpy(keys).to(cuda_device)
+        K.reset_launch_counts()
+        got = K.semijoin_probe(tq, tk, bound=bound)
+        torch.cuda.synchronize()
+        assert torch.equal(got, ref.semijoin_probe_ref(tq, tk)), bound
+        assert K.semijoin_probe_path_counts()[path] == 1
+
+
+@pytest.mark.cuda
+def test_cuda_semijoin_unaligned_probes_and_no_bound(cuda_device):
+    """A probe view off 16 bytes (copied for the bitmap path) and a call
+    without bound (the hash path, any int32 keys) equal the plain version."""
+    from repro_torch.kernels import ops as K
+    from repro_torch.kernels import ref
+
+    rng = np.random.default_rng(6)
+    q, keys = _bitmap_case(rng, 2, 1001, 400, 1401)
+    flat = torch.from_numpy(np.concatenate([[7], q.reshape(-1)]).astype(np.int32)).to(cuda_device)
+    tq = flat[1:].view(2, 1001)
+    tk = torch.from_numpy(keys).to(cuda_device)
+    assert tq.is_contiguous() and tq.data_ptr() % 16 != 0
+    want = ref.semijoin_probe_ref(tq, tk)
+    K.reset_launch_counts()
+    assert torch.equal(K.semijoin_probe(tq, tk, bound=1401), want)
+    keys[0, :3] = (-(2**31) + 1, I32MAX - 1, -5)
+    tk = torch.from_numpy(keys).to(cuda_device)
+    assert torch.equal(K.semijoin_probe(tq, tk), ref.semijoin_probe_ref(tq, tk))
+    torch.cuda.synchronize()
+    assert K.semijoin_probe_path_counts() == {"bitmap": 1, "hash": 1}
+
+
+_TRAP_SCRIPT = """
+import sys, torch
+from repro_torch.kernels import ops as K
+key = int(sys.argv[1])
+q = torch.arange(-1, 100, dtype=torch.int32, device="cuda").reshape(1, 101)
+keys = torch.tensor([[3, key, 2**31 - 1]], dtype=torch.int32, device="cuda")
+mask = K.semijoin_probe(q, keys, bound=100)
+torch.cuda.synchronize()
+print("mask", int(mask.sum()))
+"""
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("key,traps", [(99, False), (100, True), (-5, True)])
+def test_cuda_semijoin_bitmap_broken_promise_traps(cuda_device, key, traps):
+    """A key outside [0, bound) stops the kernel with a trap: the process
+    exits nonzero (run apart, so this process's CUDA context survives)."""
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    src = str(Path(__file__).resolve().parents[1] / "src")
+    env = dict(os.environ, PYTHONPATH=src + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    proc = subprocess.run([sys.executable, "-c", _TRAP_SCRIPT, str(key)], env=env,
+                          capture_output=True, text=True, timeout=300)
+    if traps:
+        assert proc.returncode != 0 and "mask" not in proc.stdout, proc.stdout
+    else:
+        assert proc.returncode == 0 and "mask 2" in proc.stdout, proc.stderr[-2000:]
