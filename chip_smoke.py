@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port of GYM on one CUDA card.
 
-    python3 chip_smoke.py [--seed N] [--reps N] [--phases gym,lm]
+    python3 chip_smoke.py [--seed N] [--reps N] [--phases gym,grid,logdepth,lm]
 
 Run from the root of a checkout on a machine with a CUDA card (sm_90a,
 an H100) and the CUDA toolkit.  In order it:
@@ -15,7 +15,9 @@ an H100) and the CUDA toolkit.  In order it:
    on the card at edge cases (n=0, all-INT32_MAX keys, -1 probes, p=7 and
    p=8, a top-bit seed; for the sorted probe also every early out, valid
    lengths 0, 1 and off the splitter stride, a 2^20-key run of equal keys,
-   n off the tile, 70000 segments; for the semijoin probe's bitmap path also
+   n off the tile, 70000 segments, an empty join key (every range a whole
+   segment) and three distinct keys at 2^20-2^22 probes a segment; for the
+   semijoin probe's bitmap path also
    a bound off 32, probes at 0 and bound - 1, the largest bound that fits
    one block's shared memory and one bit past it, which must take the hash
    path, and more segments than SMs, and, in a child process, that a key
@@ -32,14 +34,29 @@ an H100) and the CUDA toolkit.  In order it:
    row sets must equal an independent numpy join, and every gym kernel
    must have launched, every ``semijoin_probe`` launch on its bitmap path
    (the launches are printed per path, ``bitmap`` / ``hash``);
-5. (phase ``lm``) drives the port's LM serving path — ``generate`` over
+5. (phase ``grid``) drives ``GymConfig(strategy="grid")`` — the paper's
+   skew-proof Lemma 8/10 engine — on the same families, sizes and data,
+   with the same checks, and prints its comm beside the hash engine's;
+   the semijoin probe's launches are split by path and by the ``bound``
+   passed, and no launch whose bound fits the bitmap may take the hash
+   path;
+6. (phase ``logdepth``) drives the paper's log-depth path: C_16 (about 256
+   tuples a relation) under ``chain_ghd(16)``, ``gym_loggta`` (Log-GTA,
+   whose cross bags hold about 2^24 tuples) and ``acq_mr`` (Log-GTA'),
+   TC_15 under ``gym_loggta``, and ``shares_join`` on the Table-2 query;
+   each run's rows, schema and ledger must equal the ``'torch'`` backend's,
+   the rows the numpy join's, and the largest materialized bag the numpy
+   count; it prints rounds, comm, the largest bag, peak device memory and
+   cold/warm seconds.  Every gym kernel must launch on each of the grid
+   and logdepth phases;
+7. (phase ``lm``) drives the port's LM serving path — ``generate`` over
    ``DecoderLM.prefill`` and ``decode_step`` — on gemma2-9b at full width
    and depth in bf16 with random weights from ``--seed``: a batch of two
    4608-token prompts, 16 greedy tokens, the ``'cuda'`` backend.  The
    flash kernel must launch exactly 42 times per ``generate`` (once per
    layer, in prefill), and the per-step logits must agree with a
    teacher-forced replay through the ``'torch'`` backend on the card;
-6. times each kernel at the largest inputs its path gave it (CUDA events,
+8. times each kernel at the largest inputs its path gave it (CUDA events,
    L2 flushed before each launch) beside its plain version, one PyTorch
    library call where one computes the same function, and its bound,
    prints the sorted probe's census of that call (the share of probes its
@@ -62,6 +79,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import functools
 import json
 import os
 import subprocess
@@ -91,6 +109,16 @@ KERNELS = {
     "sorted_probe_ranges": "src/repro/kernels/sorted_probe.py:40",
     "flash_attention": "src/repro/kernels/flash_attention.py:34",
 }
+# the log-depth phase: C_16 on real_chain(16, ident=LOGDEPTH_IDENT,
+# extra=64, domain=4096), about 256 tuples a relation, so that Log-GTA's
+# cross bag pi_A4(R4) x pi_A6(R6) x pi_A8(R8) holds about 256^3 = 2^24
+# tuples; Assumption 3's default per-shard ceiling (64 M, M = 4 IN / p)
+# is far below that bag, so both backends get this explicit one
+LOGDEPTH_IDENT = 192
+LOGDEPTH_MAX_CAP = 2**25
+# the least tuples Log-GTA's and Log-GTA''s largest C_16 bag must hold,
+# so that the phase keeps its real device state
+LOGDEPTH_MIN_BAG = 16_000_000
 # the LM serving phase: gemma2-9b at full width and depth
 LM_ARCH, LM_BATCH, LM_PROMPT, LM_STEPS = "gemma2-9b", 2, 4608, 16
 # flash kernel vs its plain version: f32 both accumulate in f32 and differ
@@ -282,6 +310,26 @@ def sorted_probe_edge_checks(torch, K, ref, dev):
     # more segments than a grid's y dimension takes
     one(probes(70000, 6, 40), sorted_keys(70000, 3, rng.integers(0, 4, 70000), 40),
         "70000 segments")
+    # the cross joins of the grid and log-depth phases: an empty join key
+    # ranks every valid row 0, so every probe's range is its whole segment
+    # (2^22 probes a segment against 2^10 keys, as the last step of a
+    # 3-way cross bag; 2^12 against 2^21 keys); and segments of a few
+    # distinct keys
+    for n, m in ((2**22, 2**10), (2**12, 2**21)):
+        meff = np.array([m, m // 8, 1, 0, m - 1, 3, m // 2 + 1, 2])
+        k = np.zeros((8, m), np.int32)
+        k[np.arange(m)[None, :] >= meff[:, None]] = I32MAX
+        q = np.zeros((8, n), np.int32)
+        q[:, ::9] = -1
+        lo, hi = one(q, k, f"an empty join key, {n} probes against {m} keys")
+        check(np.array_equal((hi - lo)[:, [1, 8]].cpu().numpy(), np.repeat(meff[:, None], 2, axis=1))
+              and int(lo[:, [1, 8]].abs().max()) == 0,
+              "sorted_probe_ranges: an empty-key probe's range is not its whole segment")
+    for n, m in ((2**20, 2**20), (2**22, 2**12)):
+        k = np.sort(rng.integers(0, 3, (8, m)), axis=1).astype(np.int32)
+        k[:, m - m // 5:] = I32MAX
+        k[3] = 1
+        one(rng.integers(-1, 4, (8, n)).astype(np.int32), k, f"3 distinct keys, n={n} m={m}")
     torch.cuda.synchronize()
     return n_checks
 
@@ -604,7 +652,10 @@ def kernel_timing(torch, K, ref, recorded, launches, reps):
 
 
 # --------------------------------------------------------------- main path
+@functools.lru_cache(maxsize=None)
 def families(seed: int, real: bool):
+    """S_8, C_8 and TC_9 with their GHDs and data, built once per process
+    (the gym and grid phases drive the same data)."""
     from repro_torch.core import queries as Q
     from repro_torch.data import synthetic as D
 
@@ -627,8 +678,16 @@ def families(seed: int, real: bool):
     }
 
 
-def run_gym(torch, gym_mod, q, g, data, backend):
-    cfg = gym_mod.GymConfig(strategy="hash", seed=23, local_backend=backend)
+@functools.lru_cache(maxsize=None)
+def real_answer(seed: int, fam: str):
+    """The numpy join of a real-size family, computed once per process
+    (the gym and grid phases check the same data)."""
+    q, _, data = families(seed, True)[fam]
+    return np_answer(q, data)
+
+
+def run_gym(torch, gym_mod, q, g, data, backend, strategy="hash"):
+    cfg = gym_mod.GymConfig(strategy=strategy, seed=23, local_backend=backend)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     rows, schema, led = gym_mod.gym(q, data, ghd=g, p=8, config=cfg, device="cuda")
@@ -636,10 +695,19 @@ def run_gym(torch, gym_mod, q, g, data, backend):
     return rows, schema, led, time.perf_counter() - t0
 
 
-def main_path(torch, seed: int, sizes=("bench", "real")):
+def main_path(torch, seed: int, sizes=("bench", "real"), strategy="hash", audit=None,
+              hash_summary=None):
+    """Drive default ``gym()`` (``strategy="hash"``, the gym phase) or
+    ``GymConfig(strategy="grid")`` (the grid phase) over S_8/C_8/TC_9.  The
+    gym phase requires every semijoin probe launch on its bitmap path; the
+    grid phase's semijoins may pass a larger ``bound`` and then take the
+    hash path, so ``audit`` (a ``SemijoinAudit``) checks there that no
+    launch within the bitmap's bound took it.  ``hash_summary``: the gym
+    phase's summary, whose comm the grid phase prints beside its own."""
     from repro_torch.core import gym as gym_mod
     from repro_torch.kernels import ops as K
 
+    phase = "gym" if strategy == "hash" else strategy
     summary = {}
     totals = {k: 0 for k in GYM_KERNELS}
     totals.update({"semijoin_probe/bitmap": 0, "semijoin_probe/hash": 0})
@@ -650,18 +718,21 @@ def main_path(torch, seed: int, sizes=("bench", "real")):
         print(f"data {size}: built in {time.perf_counter() - t0:.2f} s; input tuples {n_in}", flush=True)
         for fam, (q, g, data) in fams.items():
             K.reset_launch_counts()
-            rows, schema, led, cold = run_gym(torch, gym_mod, q, g, data, "cuda")
+            if audit is not None:
+                audit.reset()
+            rows, schema, led, cold = run_gym(torch, gym_mod, q, g, data, "cuda", strategy)
             per_run = {k: K.launch_counts()[k] for k in GYM_KERNELS}
             per_run.update({f"semijoin_probe/{k}": v
                             for k, v in K.semijoin_probe_path_counts().items()})
             check(K.launch_counts()["flash_attention"] == 0, "gym launched flash_attention")
-            rows2, schema2, led2, warm = run_gym(torch, gym_mod, q, g, data, "cuda")
+            rows2, schema2, led2, warm = run_gym(torch, gym_mod, q, g, data, "cuda", strategy)
             for k in GYM_KERNELS:
                 totals[k] += K.launch_counts()[k]
             for k, v in K.semijoin_probe_path_counts().items():
                 totals[f"semijoin_probe/{k}"] += v
             K.reset_launch_counts()
-            trows, tschema, tled, tsec = run_gym(torch, gym_mod, q, g, data, "torch")
+            audited = audit.counts() if audit is not None else None
+            trows, tschema, tled, tsec = run_gym(torch, gym_mod, q, g, data, "torch", strategy)
             check(sum(K.launch_counts().values()) == 0, "'torch' backend launched a kernel")
             recs = [dataclasses.asdict(r) for r in led.records]
             check(tuple(schema) == tuple(tschema) == tuple(q.output_attrs), f"{fam} {size}: schema")
@@ -674,25 +745,33 @@ def main_path(torch, seed: int, sizes=("bench", "real")):
             check(rows.shape == (led.output_tuples, len(q.output_attrs)), f"{fam} {size}: shape")
             check(all(per_run[k] > 0 for k in GYM_KERNELS),
                   f"{fam} {size}: a kernel never launched {per_run}")
-            check(per_run["semijoin_probe/hash"] == 0,
-                  f"{fam} {size}: a semijoin_probe launch took the hash path {per_run}")
+            if audit is None:
+                check(per_run["semijoin_probe/hash"] == 0,
+                      f"{fam} {size}: a semijoin_probe launch took the hash path {per_run}")
+            else:
+                audit.check(f"{phase} {fam} {size}")
             if size == "real":
-                want = np_answer(q, data)
+                want = real_answer(seed, fam)
                 check(np.array_equal(rows.astype(np.int64), want), f"{fam} real: rows != numpy join")
                 check(led.output_tuples > 0, f"{fam} real: empty answer")
+            hash_comm = ""
+            if strategy != "hash":
+                hs = (hash_summary or {}).get(f"{fam}/{size}")
+                hash_comm = f" hash_engine_comm={hs['comm'] if hs else 'not run'}"
+                hash_comm += f" semijoin_audit={audited}"
             print(
-                f"gym {fam} {size}: inputs={n_in[fam]} out={led.output_tuples} "
+                f"{phase} {fam} {size}: inputs={n_in[fam]} out={led.output_tuples} "
                 f"cold_s={cold:.4f} warm_s={warm:.4f} torch_backend_s={tsec:.4f} "
                 f"rounds={led.rounds} dispatches={led.measured_dispatches} "
                 f"measure_dispatches={led.measure_dispatches} retries={led.retries} "
-                f"comm={led.comm_tuples} padded_slots={led.padded_slots} "
+                f"comm={led.comm_tuples}{hash_comm} padded_slots={led.padded_slots} "
                 f"launches_per_run={per_run} cuda==torch rows+ledger: yes"
                 + (" rows==numpy join: yes" if size == "real" else ""),
                 flush=True,
             )
             summary[f"{fam}/{size}"] = dict(cold_s=cold, warm_s=warm, out=led.output_tuples,
                                             dispatches=led.measured_dispatches,
-                                            launches=per_run)
+                                            comm=led.comm_tuples, launches=per_run)
     return summary, totals
 
 
@@ -747,6 +826,223 @@ def profile_queries(torch, seed: int, fams, out_dir: str) -> None:
         )
         for name, us in sorted(kern.items(), key=lambda kv: -kv[1])[:8]:
             print(f"  {name[:70]:70s} device_ms={us / 1e3:.3f}", flush=True)
+
+
+# ------------------------------------------------- grid and log-depth paths
+class SemijoinAudit:
+    """Wraps the semijoin probe's wrapper to split its launches by path and
+    by the ``bound`` the caller passed: a launch whose bound fits the bitmap
+    (``MAX_BITMAP_BITS``) must never take the hash path."""
+
+    def __init__(self, SP, K):
+        self.SP, self.K = SP, K
+        self.orig = SP.semijoin_probe
+        SP.semijoin_probe = self
+        self.reset()
+
+    def reset(self):
+        self.tally = {"bitmap": 0, "hash": 0, "hash_bound_fits": 0, "hash_no_bound": 0}
+        self.max_bound = 0
+
+    def __call__(self, q, keys, bound=None):
+        before = self.K.semijoin_probe_path_counts()
+        out = self.orig(q, keys, bound=bound)
+        after = self.K.semijoin_probe_path_counts()
+        for path in ("bitmap", "hash"):
+            self.tally[path] += after[path] - before[path]
+        hashed = after["hash"] - before["hash"]
+        if bound is None:
+            self.tally["hash_no_bound"] += hashed
+        else:
+            self.max_bound = max(self.max_bound, bound)
+            if bound <= self.SP.MAX_BITMAP_BITS:
+                self.tally["hash_bound_fits"] += hashed
+        return out
+
+    def counts(self):
+        return dict(self.tally, max_bound=self.max_bound)
+
+    def check(self, what: str) -> None:
+        check(self.tally["hash_bound_fits"] == 0 and self.tally["hash_no_bound"] == 0,
+              f"{what}: a semijoin_probe launch took the hash path with a bound the "
+              f"bitmap holds, or with none: {self.counts()}")
+
+    def restore(self):
+        self.SP.semijoin_probe = self.orig
+
+
+class BagRecorder:
+    """Wraps ``PhysicalExecutor.materialize`` to keep the largest bag
+    (valid tuples, per-shard capacity) each materialization produced."""
+
+    def __init__(self, physical):
+        self.cls = physical.PhysicalExecutor
+        self.orig = self.cls.materialize
+        self.largest = (0, 0)
+        rec = self
+
+        def materialize(exe, ghd, base, node_schema, ledger):
+            out = rec.orig(exe, ghd, base, node_schema, ledger)
+            for t in out[0].values():
+                rec.largest = max(rec.largest, (int(t.valid.sum().item()), t.cap))
+            return out
+
+        self.cls.materialize = materialize
+
+    def restore(self):
+        self.cls.materialize = self.orig
+
+
+def np_bag_sizes(q, plan, data):
+    """Tuples of each bag of ``plan`` — the join of the projections of
+    lam(v) onto chi(v) — counted with numpy: a product of the projections'
+    sizes where they share no attribute, else a fold of ``np_join``."""
+    sizes = {}
+    atoms = {a.alias: a for a in q.atoms}
+    for v in plan.nodes():
+        parts = []
+        for alias in sorted(plan.lam[v]):
+            at = atoms[alias]
+            keep = [x for x in at.attrs if x in plan.chi[v]]
+            rows = np.asarray(data[at.rel], np.int64)[:, [at.attrs.index(x) for x in keep]]
+            parts.append((np.unique(rows, axis=0), tuple(keep)))
+        attrs = [x for _, sch in parts for x in sch]
+        if len(attrs) == len(set(attrs)):
+            sizes[v] = int(np.prod([len(r) for r, _ in parts]))
+            continue
+        out, schema = parts[0]
+        for rows, sch in parts[1:]:
+            out, schema = np_join(out, schema, rows, sch)
+        sizes[v] = len(np.unique(out, axis=0)) if len(out) else 0
+    return sizes
+
+
+def logdepth_workloads(seed: int):
+    """The log-depth phase's plans: (name, query, data, entry point,
+    keyword arguments, the plan the entry point runs, the least tuples its
+    largest bag must hold)."""
+    from repro_torch.core import acq_mr as A
+    from repro_torch.core import gym as G
+    from repro_torch.core import queries as Q
+    from repro_torch.core.loggta import log_gta
+    from repro_torch.core.loggta_prime import log_gta_prime
+    from repro_torch.data import synthetic as D
+
+    q16, g16 = Q.chain_query(16), Q.chain_ghd(16)
+    d16 = real_chain(16, ident=LOGDEPTH_IDENT, extra=64, domain=4096, seed=seed + 3)
+    tc, gtc = Q.triangle_chain_query(5), Q.triangle_chain_ghd(5)
+    dtc = D.tc_data_sparse(5, domain=128, ident=32, extra=96, seed=22)
+    g16c, gtcc = g16.make_complete(q16), gtc.make_complete(tc)
+    return [
+        ("C_16 chain_ghd(16)", q16, d16, G.gym, dict(ghd=g16), g16c, 0),
+        ("C_16 Log-GTA (gym_loggta)", q16, d16, A.gym_loggta, dict(ghd=g16),
+         log_gta(g16c, q16), LOGDEPTH_MIN_BAG),
+        ("C_16 Log-GTA' (acq_mr)", q16, d16, A.acq_mr, dict(ghd=g16),
+         log_gta_prime(g16c, q16), LOGDEPTH_MIN_BAG),
+        ("TC_15 Log-GTA (gym_loggta)", tc, dtc, A.gym_loggta, dict(ghd=gtc), log_gta(gtcc, tc), 0),
+    ]
+
+
+def logdepth_phase(torch, seed: int, audit):
+    """The paper's log-depth path on the card: C_16 under chain_ghd(16),
+    GYM(Log-GTA) and ACQ-MR (GYM on Log-GTA'), TC_15 under GYM(Log-GTA),
+    and the one-round Shares baseline on the Table-2 query.  Each: 'cuda'
+    == 'torch' in rows, schema and records, rows == the numpy join.
+    Returns (summary, launches over the phase's 'cuda' runs)."""
+    from repro_torch.core import gym as G
+    from repro_torch.core import physical
+    from repro_torch.core import queries as Q
+    from repro_torch.core import shares as S
+    from repro_torch.data import synthetic as D
+    from repro_torch.kernels import ops as K
+
+    totals = {k: 0 for k in GYM_KERNELS}
+    summary = {}
+
+    def tally():
+        for k in GYM_KERNELS:
+            totals[k] += K.launch_counts()[k]
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    bags = BagRecorder(physical)
+    try:
+        for name, q, data, entry, kw, plan, min_bag in logdepth_workloads(seed):
+            want = np_answer(q, data)
+            want_bag = max(np_bag_sizes(q, plan, data).values())
+
+            def run(backend):
+                cfg = G.GymConfig(seed=23, local_backend=backend, max_cap_tuples=LOGDEPTH_MAX_CAP)
+                return entry(q, data, p=8, config=cfg, device="cuda", **kw)
+
+            K.reset_launch_counts()
+            audit.reset()
+            bags.largest = (0, 0)
+            torch.cuda.reset_peak_memory_stats()
+            (rows, schema, led), cold = timed(lambda: run("cuda"))
+            peak = torch.cuda.max_memory_allocated()
+            bag = bags.largest
+            per_run = {k: K.launch_counts()[k] for k in GYM_KERNELS}
+            audited = audit.counts()
+            audit.check(f"logdepth {name}")
+            (rows2, _, led2), warm = timed(lambda: run("cuda"))
+            tally()
+            K.reset_launch_counts()
+            (trows, tschema, tled), tsec = timed(lambda: run("torch"))
+            check(sum(K.launch_counts().values()) == 0, "'torch' backend launched a kernel")
+            recs = [dataclasses.asdict(r) for r in led.records]
+            check(tuple(schema) == tuple(tschema) == tuple(q.output_attrs), f"{name}: schema")
+            check(np.array_equal(rows, trows), f"{name}: cuda rows != torch rows")
+            check(recs == [dataclasses.asdict(r) for r in tled.records], f"{name}: ledger records")
+            check((led.retries, led.output_tuples) == (tled.retries, tled.output_tuples),
+                  f"{name}: retries/output")
+            check(np.array_equal(rows, rows2) and recs == [dataclasses.asdict(r) for r in led2.records],
+                  f"{name}: warm run differs")
+            check(np.array_equal(rows.astype(np.int64), want) and len(want) > 0,
+                  f"{name}: rows != numpy join")
+            check(bag[0] == want_bag, f"{name}: largest bag {bag[0]} != numpy's {want_bag}")
+            check(bag[0] >= min_bag, f"{name}: largest bag {bag[0]} < {min_bag} tuples")
+            print(
+                f"logdepth {name}: inputs={sum(len(v) for v in data.values())} "
+                f"out={led.output_tuples} depth={plan.depth} "
+                f"largest_bag_tuples={bag[0]} (per-shard cap {bag[1]}; numpy: {want_bag}) "
+                f"peak_device_bytes={peak} cold_s={cold:.4f} warm_s={warm:.4f} "
+                f"torch_backend_s={tsec:.4f} rounds={led.rounds} comm={led.comm_tuples} "
+                f"dispatches={led.measured_dispatches} measure_dispatches={led.measure_dispatches} "
+                f"retries={led.retries} padded_slots={led.padded_slots} "
+                f"launches_per_run={per_run} semijoin_audit={audited} "
+                "cuda==torch rows+ledger: yes rows==numpy join: yes", flush=True,
+            )
+            summary[name] = dict(rounds=led.rounds, comm=led.comm_tuples, bag=bag[0], peak=peak,
+                                 cold_s=cold, warm_s=warm, launches=per_run)
+    finally:
+        bags.restore()
+    # the Table-2 query under the one-round Shares baseline
+    q, data = Q.star_query(5), D.star_data_sparse(5, seed=1)
+    K.reset_launch_counts()
+    (rows, schema, led), cold = timed(lambda: S.shares_join(q, data, p=8, seed=2, device="cuda"))
+    per_run = {k: K.launch_counts()[k] for k in GYM_KERNELS}
+    (rows2, _, _), warm = timed(lambda: S.shares_join(q, data, p=8, seed=2, device="cuda"))
+    tally()
+    K.reset_launch_counts()
+    trows, tschema, tled = S.shares_join(q, data, p=8, seed=2, local_backend="torch", device="cuda")
+    check(sum(K.launch_counts().values()) == 0, "'torch' backend launched a kernel")
+    check(np.array_equal(rows, trows) and np.array_equal(rows, rows2) and tuple(schema) == tuple(tschema),
+          "shares: cuda rows != torch rows")
+    check([dataclasses.asdict(r) for r in led.records] == [dataclasses.asdict(r) for r in tled.records],
+          "shares: ledger records")
+    check(np.array_equal(rows.astype(np.int64), np_answer(q, data)), "shares: rows != numpy join")
+    print(f"logdepth S_5 Shares (shares_join): out={led.output_tuples} rounds={led.rounds} "
+          f"comm={led.comm_tuples} retries={led.retries} cold_s={cold:.4f} warm_s={warm:.4f} "
+          f"launches_per_run={per_run} cuda==torch rows+ledger: yes rows==numpy join: yes",
+          flush=True)
+    summary["S_5 Shares"] = dict(rounds=led.rounds, comm=led.comm_tuples, launches=per_run)
+    return summary, totals
 
 
 # ------------------------------------------------------- flash attention
@@ -1075,8 +1371,9 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--reps", type=int, default=30)
-    ap.add_argument("--phases", default="gym,lm",
+    ap.add_argument("--phases", default="gym,grid,logdepth,lm",
                     help="comma-separated main paths to drive: gym (the join path), "
+                         "grid (the grid engine), logdepth (Log-GTA, Log-GTA', Shares), "
                          "lm (gemma2-9b serving)")
     ap.add_argument("--sizes", default="bench,real",
                     help="comma-separated gym sizes to drive: bench, real")
@@ -1140,6 +1437,8 @@ def main(argv=None) -> int:
           f"edge phase {time.perf_counter() - t0:.1f} s", flush=True)
 
     kernels = []
+    by_path = {}
+    summary = None
     if "gym" in phases:
         recorders = {
             "hash_partition": Recorder(torch, HP, "hash_partition"),
@@ -1159,9 +1458,30 @@ def main(argv=None) -> int:
               f"a main-path semijoin_probe launch took the hash path: {launches}")
         recorded = {k: (r.best, r.kw) for k, r in recorders.items()}
         kernels += kernel_timing(torch, K, ref, recorded, launches, args.reps)
+        by_path["gym"] = launches
         fams = [f for f in args.profile.split(",") if f and f != "lm"]
         if fams:
             profile_queries(torch, args.seed, fams, args.profile_out)
+    for path in ("grid", "logdepth"):
+        if path not in phases:
+            continue
+        t0 = time.perf_counter()
+        audit = SemijoinAudit(SP, K)
+        K.reset_launch_counts()
+        try:
+            if path == "grid":
+                _, launches = main_path(torch, args.seed, tuple(args.sizes.split(",")),
+                                        strategy="grid", audit=audit, hash_summary=summary)
+            else:
+                _, launches = logdepth_phase(torch, args.seed, audit)
+        finally:
+            audit.restore()
+        print(f"{path} path launches (cuda runs): {launches}; phase {time.perf_counter() - t0:.1f} s",
+              flush=True)
+        check(all(launches[k] > 0 for k in GYM_KERNELS), f"{path}: a kernel never launched: {launches}")
+        by_path[path] = launches
+    for rec in kernels:
+        rec["launches_by_path"] = {p: n[rec["name"]] for p, n in by_path.items()}
     if "lm" in phases:
         lm, flash_call, per_generate = lm_phase(
             torch, args.seed, args.profile_out if "lm" in args.profile.split(",") else "")

@@ -3,8 +3,8 @@
 Given any complete GHD D(T, chi, lam) of a query Q:
 
   1. *Materialization stage* (Theorem 15): per tree vertex v, compute
-     IDB_v = |><|_{R in lam(v)} pi_{attrs(R) & chi(v)}(R) — a hash join
-     per bag.  Q' = |><| IDB_v is acyclic and equals Q.
+     IDB_v = |><|_{R in lam(v)} pi_{attrs(R) & chi(v)}(R) — one Lemma 8
+     grid round, or a hash join for a 2-atom bag under the hash engine.  Q' = |><| IDB_v is acyclic and equals Q.
   2. *DYM-d* (Sec. 4.3) on the IDB tree: upward semijoins, downward
      semijoins, join phase — O(d + log n) rounds total.
 
@@ -29,7 +29,7 @@ from ..relational.spmd import SPMD, resolve_device
 from ..relational.table import DTable
 from .ghd import GHD
 from .hypergraph import Query
-from .physical import ENGINES, CapacityManager, PhysicalExecutor
+from .physical import ENGINES, HYBRID_ITEM, CapacityManager, PhysicalExecutor
 from .physical import pow2 as _pow2
 from .planner import Round, get_schedule
 
@@ -46,8 +46,9 @@ LATER = {
 # --------------------------------------------------------------------------
 @dataclasses.dataclass
 class GymConfig:
-    # 'hash' (hash co-partitioning, skew-sensitive with abort-retry); the
-    # grid and hybrid engines are not ported yet
+    # 'hash' (hash co-partitioning, skew-sensitive with abort-retry) |
+    # 'grid' (paper-faithful Lemmas 8/10, positional, skew-proof); the
+    # hybrid engine is not ported yet
     strategy: str = "hash"
     schedule: str = "dym_d"  # 'dym_d' (Sec 4.3) | 'dym_n' (Sec 4.2)
     seed: int = 0
@@ -77,10 +78,14 @@ class GymConfig:
     device: Optional[str] = None
 
     def __post_init__(self):
+        if self.strategy == "hybrid":
+            raise NotImplementedError(
+                f"strategy='hybrid' is not ported yet ({HYBRID_ITEM})"
+            )
         if self.strategy not in ENGINES:
             raise ValueError(
                 f"unknown strategy {self.strategy!r}; registered engines: "
-                f"{sorted(ENGINES)} (grid and hybrid are not ported yet)"
+                f"{sorted(ENGINES)}"
             )
         if self.wire_format != "dense":
             raise NotImplementedError(

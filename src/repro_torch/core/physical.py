@@ -11,9 +11,12 @@ charges as ONE round.  This module keeps that promise:
   3. **Fused dispatch** — each group executes as ONE SPMD dispatch via
      the stacked operators in ``relational.batched``.
 
-Engine strategies are a registry (``register_engine``); the port has the
-``'hash'`` engine (hash co-partitioning, comm ~ inputs + outputs,
-skew-sensitive with abort-retry).  Capacity sizing and the paper's
+Engine strategies are a registry (``register_engine``): ``'hash'`` (hash
+co-partitioning, comm ~ inputs + outputs, skew-sensitive with
+abort-retry) and ``'grid'`` (the paper's Lemmas 8/10, positional and
+skew-proof).  Every engine materializes a GHD bag of more than two atoms
+with the Lemma 8 grid multiway join; the hash engine joins 2-atom bags
+by hash.  Capacity sizing and the paper's
 abort-and-retry semantics live in ``CapacityManager``.
 
 Occupancy-adaptive shuffle (``calibrate=True``, the default): a count-only
@@ -30,6 +33,7 @@ import dataclasses
 from typing import Dict, List, Optional, Sequence, Tuple
 
 from ..relational import batched as B
+from ..relational import grid as G
 from ..relational import ops as R
 from ..relational.batched import GroupMeasure
 from ..relational.ledger import Ledger
@@ -43,15 +47,8 @@ from .caps_cache import CapsCache
 from .ghd import GHD
 from .planner import Op, Round
 
-#: the ROADMAP item that ports the grid multiway join (bags of > 2 atoms)
-GRID_ITEM = "ROADMAP queue A, item 'grid engine'"
-
-
-def _grid_not_ported(n_atoms: int):
-    raise NotImplementedError(
-        f"a GHD bag of {n_atoms} atoms needs the grid multiway join, which "
-        f"is not ported yet ({GRID_ITEM})"
-    )
+#: the ROADMAP item that ports the hybrid engine
+HYBRID_ITEM = "ROADMAP queue A, item 'hybrid engine'"
 
 
 # --------------------------------------------------------------------------
@@ -178,18 +175,35 @@ class Engine:
         return outs, stats, 1
 
     # -- materialization (one-time per query) ------------------------------
+    def _multijoin_grid(self, parts: List[DTable]) -> bool:
+        """Whether ``multijoin`` takes the grid path for these parts (those
+        pre-passes batch across vertices)."""
+        return len(parts) >= 2
+
     def multijoin_measure_batch(self, parts_list, seeds):
-        """Phase A of materialization: the multijoin calibrations of every
-        vertex with at most one combined count dispatch.  Returns
-        {vertex_index: (cal, count_pad, count_bytes)}."""
-        return {}
+        """Phase A of materialization: the grid-path multijoin calibrations
+        of every multi-atom vertex with ONE combined count dispatch
+        (``grid_multiway_count``).  Returns {vertex_index: (cal,
+        count_pad, count_bytes)} for ``multijoin(cal=...)``."""
+        idx = [
+            i for i, ps in enumerate(parts_list)
+            if len(ps) >= 2 and self._multijoin_grid(ps)
+        ]
+        if not idx:
+            return {}
+        cals, pads, byts = G.grid_multiway_count(self.spmd, [parts_list[i] for i in idx])
+        return {i: (c, pad, by) for i, c, pad, by in zip(idx, cals, pads, byts)}
 
     def multijoin(self, parts: List[DTable], cap: int, seed: int, calibrate=False, cal=None):
         if len(parts) == 1:
             return parts[0], {
                 "sent": 0, "dropped": 0, "padded": 0, "wire_bytes": 0, "ubytes": 0,
             }, 0
-        _grid_not_ported(len(parts))
+        out, st = G.grid_multiway_join(
+            self.spmd, parts, out_cap=cap, calibrate=calibrate, cals=cal,
+            backend=self.local_backend,
+        )
+        return out, st, 1
 
 
 @register_engine("hash")
@@ -269,13 +283,14 @@ class HashEngine(Engine):
         )
         return outs, stats, 1
 
+    def _multijoin_grid(self, parts):
+        return len(parts) != 2  # 2-way takes the hash path below
+
     def multijoin_measure_batch(self, parts_list, seeds):
-        """The 2-way vertices batch their pair-exchange counts into one
-        combined dispatch (``measure_exchange_pairs``)."""
-        for ps in parts_list:
-            if len(ps) > 2:
-                _grid_not_ported(len(ps))
-        cal_map = {}
+        """Grid-path vertices batch as in ``Engine``; the 2-way vertices
+        batch their pair-exchange counts into one further combined
+        dispatch (``measure_exchange_pairs``)."""
+        cal_map = Engine.multijoin_measure_batch(self, parts_list, seeds)
         pidx = [
             i for i, ps in enumerate(parts_list)
             if len(ps) == 2 and [x for x in ps[0].schema if x in ps[1].schema]
@@ -303,6 +318,46 @@ class HashEngine(Engine):
             )
             return out, st, 1
         return Engine.multijoin(self, parts, cap, seed, calibrate, cal)
+
+
+@register_engine("grid")
+class GridEngine(Engine):
+    """Paper-faithful Lemmas 8/10 (skew-proof, B(X, M) = X^2/M comm)."""
+
+    def measure_group(self, kind, lhs, rhs, seeds):
+        if kind == "semijoin":
+            return B.measure_grid_semijoin_many(self.spmd, lhs, rhs)
+        if kind == "join":
+            return B.measure_grid_join_many(self.spmd, lhs, rhs)
+        return Engine.measure_group(self, kind, lhs, rhs, seeds)
+
+    def measure_spec(self, kind, lhs, rhs, seeds):
+        if kind == "semijoin":
+            return B.grid_rkeys_measure_spec(self.spmd, lhs, rhs)
+        if kind == "join":
+            return B.grid_pair_measure_spec(self.spmd, lhs, rhs)
+        return Engine.measure_spec(self, kind, lhs, rhs, seeds)
+
+    def semijoin_many(self, ss, rs, cap, seeds, xcaps=None):
+        kw = {}
+        if xcaps is not None:
+            kw["c_out"] = (xcaps.lhs.c_out, xcaps.rhs.c_out)
+            kw["cap_recv"] = (xcaps.lhs.cap_recv, xcaps.rhs.cap_recv)
+        outs, stats = B.grid_semijoin_many(
+            self.spmd, ss, rs, seeds=seeds, out_cap=cap,
+            backend=self.local_backend, **kw,
+        )
+        return outs, stats, 2
+
+    def join_many(self, as_, bs, cap, seeds, xcaps=None):
+        kw = {}
+        if xcaps is not None:
+            kw["c_out"] = (xcaps.lhs.c_out, xcaps.rhs.c_out)
+            kw["cap_recv"] = (xcaps.lhs.cap_recv, xcaps.rhs.cap_recv)
+        outs, stats = B.grid_join_many(
+            self.spmd, as_, bs, out_cap=cap, backend=self.local_backend, **kw
+        )
+        return outs, stats, 1
 
 
 # --------------------------------------------------------------------------
@@ -947,8 +1002,9 @@ class PhysicalExecutor:
 
     # -- materialization (Theorem 15 stage 1) ------------------------------
     def materialize(self, ghd: GHD, base: Dict[str, DTable], node_schema, ledger: Ledger):
-        """Compute IDB_v per tree vertex (a hash-join per 2-atom bag), with
-        the centralized retry loop.  Returns (tables, comm, padded, heavy,
+        """Compute IDB_v per tree vertex (one grid round, or a hash join for
+        a 2-atom bag under the hash engine), with the centralized retry
+        loop.  Returns (tables, comm, padded, heavy,
         claimed_rounds, dispatches, measure_dispatches, payload_bytes,
         useful_bytes)."""
         d0 = self.spmd.dispatch_count

@@ -1,4 +1,4 @@
-"""Batched ("round-fused") distributed operators — hash paths.
+"""Batched ("round-fused") distributed operators — hash and grid paths.
 
 A DYM round schedules k independent operator instances.  These variants
 stack the k instances along a batch axis between the reducer axis and the
@@ -13,9 +13,11 @@ across the k instances.  Key column POSITIONS and hash seeds may differ
 per instance — they ride as ``(p, k, ·)`` tensors applied with
 ``gather``.
 
-Hash-path batched ops give bit-identical results (and identical
-``sent``/``dropped`` stats) to ``repro.relational.batched`` given the
-same seeds and capacities.
+Hash-path and grid-path batched ops give bit-identical results (and
+identical ``sent``/``dropped`` stats) to ``repro.relational.batched``
+given the same seeds and capacities.  The grid paths (Lemma 8 joins and
+Lemma 10 semijoins) route by position, so their pre-passes need no
+seeds.
 
 Calibration pre-passes: every payload operator here has a ``measure_*``
 sibling — one extra count-only dispatch per op group that ships only
@@ -32,6 +34,13 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from .grid import (
+    _flat_dests,
+    _grid_dests,
+    _grid_send_one,
+    _grid_shares,
+    _position_groups,
+)
 from .hashing import dense_ranks, hash_columns, u32_to_i32
 from .localops import (
     get_local_backend,
@@ -41,7 +50,14 @@ from .localops import (
     local_semijoin_mask,
 )
 from .localops import take_cols as _take
-from .shuffle import bucket_counts, exchange, exchange_counts, padded_slots, pow2
+from .shuffle import (
+    bucket_counts,
+    exchange,
+    exchange_counts,
+    exchange_multi,
+    padded_slots,
+    pow2,
+)
 from .skew import DEFAULT_SKEW_THRESHOLD, heavy_dest_flags_many
 from .spmd import SPMD
 from .table import DTable, schema_join
@@ -323,6 +339,95 @@ def measure_dedup_many(
     )
 
 
+# -------------------------------------------- grid-path measure dispatches
+def _grid_pair_dests(av, bv, *, g_a, g_b, cap_a, cap_b, offs_a, offs_b,
+                     stride_a, stride_b, p):
+    dest_a = _grid_dests(_position_groups(av, g_a, cap_a, p), g_a, stride_a, offs_a, p)
+    dest_b = _grid_dests(_position_groups(bv, g_b, cap_b, p), g_b, stride_b, offs_b, p)
+    return _flat_dests(dest_a), _flat_dests(dest_b)
+
+
+def _grid_measure_shard_b(av, bv, *, plan, p):
+    da, db = _grid_pair_dests(av, bv, p=p, **dict(plan))
+    oa, ra = exchange_counts(da, p)
+    ob, rb = exchange_counts(db, p)
+    return oa, ra, ob, rb
+
+
+def _grid_rkeys_valid(rd, rv, rk):
+    """Valid mask of R's deduplicated key projection: its position groups
+    are counted on these rows, exactly as the mark stage sends them."""
+    return local_dedup_mask(_take(rd, rk), rv, tuple(range(rk.shape[-1])))
+
+
+def _grid_measure_rkeys_shard_b(av, rd, rv, rk, *, plan, p):
+    """Grid semijoin pre-pass: S positional, R the dedup'd key projection."""
+    da, db = _grid_pair_dests(av, _grid_rkeys_valid(rd, rv, rk), p=p, **dict(plan))
+    oa, ra = exchange_counts(da, p)
+    ob, rb = exchange_counts(db, p)
+    return oa, ra, ob, rb
+
+
+def _grid_pair_plan(g_a, g_b, cap_a, cap_b):
+    """Static dest plan of a 2-relation grid — cell = grp_a * g_b + grp_b,
+    which is both the Lemma 8 (w=2) join layout and the Lemma 10 mark
+    layout (S major, R-projection minor)."""
+    stride_a, stride_b = g_b, 1
+    offs_a = tuple(range(g_b))
+    offs_b = tuple(c * g_b for c in range(g_a))
+    return (
+        ("g_a", g_a), ("g_b", g_b), ("cap_a", cap_a), ("cap_b", cap_b),
+        ("offs_a", offs_a), ("offs_b", offs_b),
+        ("stride_a", stride_a), ("stride_b", stride_b),
+    )
+
+
+def _stack_valid(tables: Sequence[DTable]) -> torch.Tensor:
+    """Valid masks only, (p, k, cap) — the grid pre-passes are positional,
+    so they never need the payload columns."""
+    assert len({t.cap for t in tables}) == 1
+    return torch.stack([t.valid for t in tables], dim=1)
+
+
+def _grid_measure(oa, ra, ob, rb, k: int, p: int) -> GroupMeasure:
+    return GroupMeasure(
+        lhs=SideCaps.from_counts(oa, ra),
+        rhs=SideCaps.from_counts(ob, rb),
+        padded=2 * k * p * p,
+        wire_bytes=count_wire_bytes(p, 2 * k),
+    )
+
+
+def measure_grid_join_many(spmd: SPMD, as_, bs) -> GroupMeasure:
+    """Pre-pass of ``grid_join_many``: positional dests need no seeds, so
+    the counts are exact for the payload send regardless of hashing."""
+    p = spmd.p
+    a0, b0 = as_[0], bs[0]
+    g = _grid_shares([a0.cap * a0.p, b0.cap * b0.p], p)
+    oa, ra, ob, rb = spmd.run(
+        _grid_measure_shard_b, _stack_valid(as_), _stack_valid(bs),
+        plan=_grid_pair_plan(g[0], g[1], a0.cap, b0.cap), p=p, measure=True,
+    )
+    return _grid_measure(oa, ra, ob, rb, len(as_), p)
+
+
+def measure_grid_semijoin_many(spmd: SPMD, ss, rs) -> GroupMeasure:
+    """Pre-pass of ``grid_semijoin_many``'s mark stage (the trailing hash
+    dedup keeps its managed capacity — its input is the mark output, which
+    does not exist yet)."""
+    p, dev = spmd.p, spmd.device
+    s0, r0 = ss[0], rs[0]
+    g_s, g_r = _grid_shares([s0.cap * s0.p, r0.cap * r0.p], p)
+    shareds = [[x for x in s.schema if x in r.schema] for s, r in zip(ss, rs)]
+    rd, rv = _stack(rs)  # R's key projection needs the data; S only its mask
+    rk = _key_array([r.cols(sh) for r, sh in zip(rs, shareds)], p, dev)
+    oa, ra, ob, rb = spmd.run(
+        _grid_measure_rkeys_shard_b, _stack_valid(ss), rd, rv, rk,
+        plan=_grid_pair_plan(g_s, g_r, s0.cap, r0.cap), p=p, measure=True,
+    )
+    return _grid_measure(oa, ra, ob, rb, len(ss), p)
+
+
 # ---------------------------------------- combined round-level measure pass
 @dataclasses.dataclass
 class MeasureSpec:
@@ -334,7 +439,7 @@ class MeasureSpec:
     ``rows`` is how many count rows the spec owns (2k for two-sided
     groups, k for single exchanges)."""
 
-    tag: str  # 'pair' | 'join_pair' | 'single'
+    tag: str  # 'pair' | 'join_pair' | 'single' | 'grid_pair' | 'grid_rkeys'
     entry: Tuple
     arrays: Tuple
     k: int
@@ -413,6 +518,40 @@ def single_measure_spec(spmd: SPMD, ts, seeds) -> MeasureSpec:
     )
 
 
+def grid_pair_measure_spec(spmd: SPMD, as_, bs) -> MeasureSpec:
+    """Positional grid join send counts (seedless, exact)."""
+    p = spmd.p
+    a0, b0 = as_[0], bs[0]
+    g = _grid_shares([a0.cap * a0.p, b0.cap * b0.p], p)
+    k = len(as_)
+    return MeasureSpec(
+        tag="grid_pair",
+        entry=("grid_pair", k, _grid_pair_plan(g[0], g[1], a0.cap, b0.cap)),
+        arrays=(_stack_valid(as_), _stack_valid(bs)),
+        k=k, rows=2 * k, count_padded=2 * k * p * p,
+        count_bytes=count_wire_bytes(p, 2 * k),
+    )
+
+
+def grid_rkeys_measure_spec(spmd: SPMD, ss, rs) -> MeasureSpec:
+    """Grid semijoin mark-stage counts: S positional, R the dedup'd key
+    projection (masked rows recounted, exactly as the mark stage does)."""
+    p, dev = spmd.p, spmd.device
+    s0, r0 = ss[0], rs[0]
+    g_s, g_r = _grid_shares([s0.cap * s0.p, r0.cap * r0.p], p)
+    shareds = [[x for x in s.schema if x in r.schema] for s, r in zip(ss, rs)]
+    rd, rv = _stack(rs)
+    rk = _key_array([r.cols(sh) for r, sh in zip(rs, shareds)], p, dev)
+    k = len(ss)
+    return MeasureSpec(
+        tag="grid_rkeys",
+        entry=("grid_rkeys", k, _grid_pair_plan(g_s, g_r, s0.cap, r0.cap)),
+        arrays=(_stack_valid(ss), rd, rv, rk),
+        k=k, rows=2 * k, count_padded=2 * k * p * p,
+        count_bytes=count_wire_bytes(p, 2 * k),
+    )
+
+
 def _measure_round_shard(*arrays, entries, p, backend):
     """Body of the combined pre-pass: every group's local per-destination
     counts, computed with the SAME destination logic as its payload,
@@ -458,8 +597,18 @@ def _measure_round_shard(*arrays, entries, p, backend):
             d, v, seed, cols = arrays[i: i + 4]
             i += 4
             blocks.append(bucket_counts(_dests(_take(d, cols), v, p, seed, backend), p))
-        else:
-            raise NotImplementedError(f"measure spec {tag!r} is not ported yet")
+        elif tag == "grid_pair":
+            _, k, plan = e
+            gav, gbv = arrays[i: i + 2]
+            i += 2
+            da, db = _grid_pair_dests(gav, gbv, p=p, **dict(plan))
+            blocks += [bucket_counts(da, p), bucket_counts(db, p)]
+        else:  # grid_rkeys
+            _, k, plan = e
+            sv, rd, rv, rk = arrays[i: i + 4]
+            i += 4
+            da, db = _grid_pair_dests(sv, _grid_rkeys_valid(rd, rv, rk), p=p, **dict(plan))
+            blocks += [bucket_counts(da, p), bucket_counts(db, p)]
     cnts = torch.cat(blocks, dim=1)  # (p_src, m, p_dst)
     recv = cnts.permute(2, 1, 0)  # all_to_all on the count-vector axis
     if jblocks:
@@ -485,6 +634,14 @@ def _finalize_spec(
         )
     oa, ra = cnts[:, off: off + k, :], recv[:, off: off + k]
     ob, rb = cnts[:, off + k: off + 2 * k, :], recv[:, off + k: off + 2 * k]
+    if spec.tag in ("grid_pair", "grid_rkeys"):
+        # positional routing: no heavy-destination surface
+        return GroupMeasure(
+            lhs=SideCaps.from_counts(oa, ra),
+            rhs=SideCaps.from_counts(ob, rb),
+            padded=spec.count_padded,
+            wire_bytes=spec.count_bytes,
+        )
     m = _finalize_pair_counts(
         oa, ra, ob, rb, p=p,
         count_padded=spec.count_padded, count_bytes=spec.count_bytes,
@@ -794,3 +951,158 @@ def dist_dedup_many(
         # single exchange: useful bytes are 4 * arity * sent, host-side
         ubytes=4 * ts[0].arity * _host(sent),
     )
+
+
+# ---------------------------------------------- grid semijoin (Lemma 10)
+def _grid_semijoin_mark_b(sd, sv, rd, rv, sk, rk, *,
+                          g_s, g_r, s_cap, r_cap, p, c_out_s, c_out_r,
+                          cap_s, cap_r, backend):
+    """Round 1 of Lemma 10 for every instance of the group: S by position
+    to its g_r cells, R's deduplicated key projection by position to its
+    g_s cells, then each cell marks its S rows matched by its R block."""
+    nk = rk.shape[-1]
+    kcols = tuple(range(nk))
+    grp_s = _position_groups(sv, g_s, s_cap, p)
+    dest_s = _grid_dests(grp_s, g_s, g_r, range(g_r), p)
+    s2, s2v, sent_s, dss, drs = exchange_multi(
+        sd, sv, dest_s, p=p, c_out=c_out_s, cap_recv=cap_s
+    )
+    rkeys = _take(rd, rk)
+    rkv = local_dedup_mask(rkeys, rv, kcols)
+    rkeys = torch.where(rkv.unsqueeze(-1), rkeys, 0)
+    grp_r = _position_groups(rkv, g_r, r_cap, p)
+    dest_r = _grid_dests(grp_r, g_r, 1, [c * g_r for c in range(g_s)], p)
+    r2, r2v, sent_r, dsr, drr = exchange_multi(
+        rkeys, rkv, dest_r, p=p, c_out=c_out_r, cap_recv=cap_r
+    )
+    mask = local_semijoin_mask(_take(s2, sk), s2v, kcols, r2, r2v, kcols, backend)
+    s2 = torch.where(mask.unsqueeze(-1), s2, 0)
+    ub = 4 * (sd.shape[-1] * sent_s + nk * sent_r)
+    return s2, mask, sent_s + sent_r, dss + drs + dsr + drr, ub
+
+
+def grid_semijoin_many(
+    spmd: SPMD,
+    ss: Sequence[DTable],
+    rs: Sequence[DTable],
+    *,
+    seeds: Sequence[int],
+    out_cap: int,
+    c_out: Optional[Tuple[int, int]] = None,
+    cap_recv: Optional[Tuple[int, int]] = None,
+    backend: str = "torch",
+) -> Tuple[List[DTable], List[Dict]]:
+    """k-fold Lemma-10 grid semijoin: one MARK dispatch for the whole group
+    + one batched hash-dedup dispatch for the marked duplicates (2 claimed
+    BSP rounds either way).  ``c_out``/``cap_recv`` (per (S, R-keys) side)
+    override the worst-case mark-stage capacities with calibrated ones
+    (``measure_grid_semijoin_many``)."""
+    p, dev = spmd.p, spmd.device
+    s0, r0 = ss[0], rs[0]
+    shareds = [[x for x in s.schema if x in r.schema] for s, r in zip(ss, rs)]
+    assert all(shareds)
+    sz_s, sz_r = s0.cap * s0.p, r0.cap * r0.p
+    g_s, g_r = _grid_shares([sz_s, sz_r], p)
+    c_out = c_out or (s0.cap * g_r, r0.cap * g_s)
+    cap_recv = cap_recv or (-(-sz_s // g_s), -(-sz_r // g_r))
+    sd, sv = _stack(ss)
+    rd, rv = _stack(rs)
+    sk = _key_array([s.cols(sh) for s, sh in zip(ss, shareds)], p, dev)
+    rk = _key_array([r.cols(sh) for r, sh in zip(rs, shareds)], p, dev)
+    md, mv, sent, dropped, ub = spmd.run(
+        _grid_semijoin_mark_b,
+        sd, sv, rd, rv, sk, rk,
+        g_s=g_s, g_r=g_r, s_cap=s0.cap, r_cap=r0.cap, p=p,
+        c_out_s=c_out[0], c_out_r=c_out[1],
+        cap_s=cap_recv[0], cap_r=cap_recv[1], backend=backend,
+    )
+    marked = _unstack(md, mv, [s.schema for s in ss])
+    mark_stats = _per_op_stats(
+        sent, dropped,
+        padded_slots(p, c_out[0], s0.arity)
+        + padded_slots(p, c_out[1], len(shareds[0])),
+        wire_bytes=dense_wire_bytes(p, c_out[0], s0.arity)
+        + dense_wire_bytes(p, c_out[1], len(shareds[0])),
+        ubytes=ub,
+    )
+    ded, ded_stats = dist_dedup_many(
+        spmd, marked, seeds=[s + 7 for s in seeds],
+        c_out=marked[0].cap, cap_recv=out_cap, backend=backend,
+    )
+    return ded, [_sum_stats(m, d) for m, d in zip(mark_stats, ded_stats)]
+
+
+def _sum_stats(*parts: Dict[str, int]) -> Dict[str, int]:
+    return {
+        key: sum(st.get(key, 0) for st in parts)
+        for key in ("sent", "dropped", "padded", "wire_bytes", "ubytes")
+    }
+
+
+# -------------------------------------------------- grid join (Lemma 8, w=2)
+def _local_join_shard_b(ad, av, bd, bv, ak, bk, bkeep, *, out_cap, backend):
+    kcols = tuple(range(ak.shape[-1]))
+    ra, rb = dense_ranks(_take(ad, ak), av, kcols, _take(bd, bk), bv, kcols)
+    out, out_v, over = local_join_ranked(ad, av, ra, bd, bv, rb, bkeep, out_cap, backend)
+    return out, out_v, torch.zeros_like(over), over
+
+
+def grid_join_many(
+    spmd: SPMD,
+    as_: Sequence[DTable],
+    bs: Sequence[DTable],
+    *,
+    out_cap: int,
+    c_out: Optional[Tuple[int, int]] = None,
+    cap_recv: Optional[Tuple[int, int]] = None,
+    backend: str = "torch",
+) -> Tuple[List[DTable], List[Dict]]:
+    """k-fold Lemma-8 grid join (w=2): two batched position-group send
+    dispatches + one batched local-join dispatch — one claimed BSP round.
+    ``c_out``/``cap_recv`` (per (A, B) relation) override the worst-case
+    send capacities with calibrated ones (``measure_grid_join_many``)."""
+    p, dev = spmd.p, spmd.device
+    a0, b0 = as_[0], bs[0]
+    g = _grid_shares([a0.cap * a0.p, b0.cap * b0.p], p)
+    # mixed-radix grid: table 0 strides by g[1], table 1 strides by 1
+    strides = [g[1], 1]
+    plans = [
+        # (g_self, stride, offsets over the OTHER dim)
+        (g[0], strides[0], tuple(c * strides[1] for c in range(g[1]))),
+        (g[1], strides[1], tuple(c * strides[0] for c in range(g[0]))),
+    ]
+    parts = []
+    send_stats = []
+    for i, (tables, (g_self, stride, offs)) in enumerate(zip((as_, bs), plans)):
+        t0 = tables[0]
+        d, v = _stack(tables)
+        co = c_out[i] if c_out else t0.cap * (g[0] * g[1] // g_self)
+        cr = cap_recv[i] if cap_recv else -(-(t0.p * t0.cap) // g_self)
+        rd, rv, stats = spmd.run(
+            _grid_send_one, d, v,
+            g_self=g_self, stride=stride, offsets=offs, p=p, cap=t0.cap,
+            c_out=co, cap_recv=cr,
+        )
+        parts.append((rd, rv))
+        send_stats.append(_per_op_stats(
+            stats["sent"], stats["dropped"], padded_slots(p, co, t0.arity),
+            wire_bytes=dense_wire_bytes(p, co, t0.arity), ubytes=stats["ubytes"],
+        ))
+    shareds = [[x for x in a.schema if x in b.schema] for a, b in zip(as_, bs)]
+    keeps = [
+        tuple(i for i, x in enumerate(b.schema) if x not in set(a.schema))
+        for a, b in zip(as_, bs)
+    ]
+    schemas = [schema_join(a.schema, b.schema) for a, b in zip(as_, bs)]
+    ak = _key_array([a.cols(sh) for a, sh in zip(as_, shareds)], p, dev)
+    bk = _key_array([b.cols(sh) for b, sh in zip(bs, shareds)], p, dev)
+    bkeep = _key_array(keeps, p, dev)
+    (ad, av), (bd, bv) = parts
+    od, ov, sent_j, over = spmd.run(
+        _local_join_shard_b, ad, av, bd, bv, ak, bk, bkeep,
+        out_cap=out_cap, backend=backend,
+    )
+    join_stats = _per_op_stats(sent_j, over)
+    return _unstack(od, ov, schemas), [
+        _sum_stats(sa, sb, sj) for sa, sb, sj in zip(send_stats[0], send_stats[1], join_stats)
+    ]

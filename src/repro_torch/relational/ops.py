@@ -13,11 +13,13 @@ materialization stage and the capacity manager call directly.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional, Sequence, Tuple
+import itertools
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from .hashing import hash_columns
 from .localops import (
     get_local_backend,
     local_dedup_mask,
@@ -257,6 +259,117 @@ def dist_dedup(
         padded_slots(p, c_out, t.arity),
         wire_bytes=dense_wire_bytes(p, c_out, t.arity),
     )
+
+
+# ------------------------------------------------- hypercube (Lemma 8/Shares)
+def _hypercube_send_shard(data, valid, seed, *, dest_plan, p, c_out, cap_recv):
+    """dest_plan: (fixed, wild_offsets)
+    - fixed: tuple of (col, share, stride, attr_id) — coordinate =
+      hash(col value; seeded by the GLOBAL attr id) % share, so every
+      relation hashes a shared attribute identically;
+    - wild_offsets: precomputed flat offsets over the wildcard dims."""
+    fixed, wild_offsets = dest_plan
+    base = torch.zeros(valid.shape, dtype=torch.int64, device=data.device)
+    for col, share, stride, attr_id in fixed:
+        h = hash_columns(data, (col,), seed + 7717 * (1 + attr_id))
+        base = base + (h % share) * stride
+    offs = torch.tensor(wild_offsets, dtype=torch.int64, device=data.device)
+    dests = (base.unsqueeze(-1) + offs).to(torch.int32)
+    rd, rv, sent, ds, dr = exchange_multi(
+        data, valid, dests, p=p, c_out=c_out, cap_recv=cap_recv
+    )
+    return rd, rv, _stats(sent, ds + dr, ubytes=4 * data.shape[-1] * sent)
+
+
+def hypercube_partition(
+    spmd: SPMD,
+    t: DTable,
+    shares: Dict[str, int],
+    attr_order: Sequence[str],
+    *,
+    seed: int,
+    c_out: int,
+    cap_recv: int,
+) -> Tuple[DTable, Dict]:
+    """Send each row of ``t`` to every hypercube cell consistent with its
+    attribute hashes (Shares / Lemma 8).  Cells are mixed-radix points
+    over ``attr_order`` with radix ``shares[attr]``; cell ids < p."""
+    strides: Dict[str, int] = {}
+    acc = 1
+    for a in attr_order:
+        strides[a] = acc
+        acc *= shares[a]
+    assert acc <= spmd.p, f"cells {acc} > p {spmd.p}"
+    attr_ids = {a: i for i, a in enumerate(attr_order)}
+    fixed = tuple(
+        (t.col(a), shares[a], strides[a], attr_ids[a])
+        for a in attr_order
+        if a in t.schema
+    )
+    wild_attrs = [a for a in attr_order if a not in t.schema]
+    combos = itertools.product(*[range(shares[a]) for a in wild_attrs])
+    wild_offsets = tuple(
+        sum(c * strides[a] for c, a in zip(combo, wild_attrs)) for combo in combos
+    ) or (0,)
+    rd, rv, stats = spmd.run(
+        _hypercube_send_shard,
+        t.data, t.valid, spmd.seeds(seed),
+        dest_plan=(fixed, wild_offsets),
+        p=spmd.p, c_out=c_out, cap_recv=cap_recv,
+    )
+    return DTable(rd, rv, t.schema), agg_stats(
+        stats,
+        padded_slots(spmd.p, c_out, t.arity),
+        wire_bytes=dense_wire_bytes(spmd.p, c_out, t.arity),
+    )
+
+
+# ------------------------------------------------------- local multiway join
+def _multijoin_shard(*arrays, plan, out_caps, backend):
+    """arrays: d0,v0,d1,v1,...; plan: tuple of (a_key, b_key, b_keep) for the
+    left-deep fold (an empty key is the cross join); out_caps: per-step
+    output capacities."""
+    k = len(arrays) // 2
+    acc_d, acc_v = arrays[0], arrays[1]
+    over_total = torch.zeros(acc_v.shape[:-1], dtype=torch.int64, device=acc_v.device)
+    for step in range(k - 1):
+        a_key, b_key, b_keep = plan[step]
+        acc_d, acc_v, over = local_join(
+            acc_d, acc_v, arrays[2 * step + 2], arrays[2 * step + 3],
+            a_key, b_key, b_keep, out_caps[step], backend,
+        )
+        over_total = over_total + over
+    return acc_d, acc_v, _stats(torch.zeros_like(over_total), over_total)
+
+
+def local_multiway_join(
+    spmd: SPMD, tables: List[DTable], out_caps: Sequence[int],
+    backend: str = "torch",
+) -> Tuple[DTable, Dict]:
+    """Per-shard left-deep multiway join (no communication — reducers join
+    their co-located buckets, the reduce stage of Lemma 8)."""
+    assert len(tables) >= 1
+    if len(tables) == 1:
+        return tables[0], {
+            "sent": 0, "dropped": 0, "padded": 0, "wire_bytes": 0, "ubytes": 0,
+        }
+    plan = []
+    schema = tables[0].schema
+    for nxt in tables[1:]:
+        shared = [x for x in schema if x in nxt.schema]
+        a_key = tuple(schema.index(x) for x in shared)
+        b_key = tuple(nxt.schema.index(x) for x in shared)
+        b_keep = tuple(i for i, x in enumerate(nxt.schema) if x not in set(schema))
+        plan.append((a_key, b_key, b_keep))
+        schema = schema_join(schema, nxt.schema)
+    args = []
+    for t in tables:
+        args.extend([t.data, t.valid])
+    od, ov, stats = spmd.run(
+        _multijoin_shard, *args,
+        plan=tuple(plan), out_caps=tuple(out_caps), backend=backend,
+    )
+    return DTable(od, ov, schema), agg_stats(stats)
 
 
 # ------------------------------------------------------ join output counting

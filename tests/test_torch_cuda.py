@@ -6,8 +6,9 @@ runs on a machine with PyTorch alone:
 
 Each gym kernel must equal its plain PyTorch version exactly, the flash
 attention kernel must agree with its plain version within the f32/bf16
-tolerances stated below, and the default ``gym()`` with the ``'cuda'``
-backend must equal the ``'torch'`` backend in rows and ledger."""
+tolerances stated below, and the default ``gym()``, the grid engine and
+the log-depth entry points with the ``'cuda'`` backend must equal the
+``'torch'`` backend in rows and ledger."""
 from __future__ import annotations
 
 import dataclasses
@@ -169,6 +170,69 @@ def test_cuda_sorted_probe_equal_run_fills_a_segment(cuda_device):
     lo, hi = K.sorted_probe_ranges(q, keys)
     assert (hi - lo).tolist() == [[2**20, 0, 0, 0], [2**19, 0, 0, 0]]
     assert lo.tolist() == [[0, 0, 2**20, 0], [0, 0, 2**19, 0]]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,m", [(2**16 + 3, 2**10), (1027, 2**20)])
+def test_cuda_sorted_probe_empty_key_and_few_distinct(cuda_device, n, m):
+    """The cross joins of the grid multiway join: an empty join key ranks
+    every valid row 0, so each probe's range is its whole segment; and
+    segments of three distinct keys.  Exact against the plain version."""
+    from repro_torch.kernels import ops as K
+    from repro_torch.kernels import ref
+
+    meff = np.array([m, m // 8, 1, 0, m - 1, 3])
+    keys = np.where(np.arange(m)[None, :] < meff[:, None], 0, I32MAX).astype(np.int32)
+    q = np.zeros((6, n), np.int32)
+    q[:, ::9] = -1
+    tq, tk = torch.from_numpy(q).to(cuda_device), torch.from_numpy(keys).to(cuda_device)
+    lo, hi = K.sorted_probe_ranges(tq, tk)
+    rlo, rhi = ref.sorted_probe_ranges_ref(tq, tk)
+    assert torch.equal(lo, rlo) and torch.equal(hi, rhi)
+    assert (hi - lo)[:, 1].tolist() == meff.tolist() and int(lo[:, 1].abs().max()) == 0
+    rng = np.random.default_rng(n)
+    keys = np.sort(rng.integers(0, 3, (6, m)), axis=1).astype(np.int32)
+    keys[:, m - m // 5:] = I32MAX
+    tk = torch.from_numpy(keys).to(cuda_device)
+    tq = torch.from_numpy(rng.integers(-1, 4, (6, n)).astype(np.int32)).to(cuda_device)
+    lo, hi = K.sorted_probe_ranges(tq, tk)
+    rlo, rhi = ref.sorted_probe_ranges_ref(tq, tk)
+    assert torch.equal(lo, rlo) and torch.equal(hi, rhi)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("plan", ["grid", "loggta", "acq_mr"])
+def test_cuda_grid_and_log_depth_paths_match_torch_backend(cuda_device, plan):
+    """``strategy="grid"`` on C_8, and the log-depth entry points (3-atom
+    bags, cross bags among them) under the default engine: the 'cuda'
+    backend equals the 'torch' backend in rows and ledger, and every gym
+    kernel launches."""
+    from repro_torch.core import acq_mr as A
+    from repro_torch.core.gym import GymConfig, gym
+    from repro_torch.core.queries import chain_ghd, chain_query
+    from repro_torch.data.synthetic import chain_data_sparse
+    from repro_torch.kernels import ops as K
+
+    q, g = chain_query(8), chain_ghd(8)
+    if plan == "grid":
+        data = chain_data_sparse(8, domain=256, ident=64, extra=192, seed=24)
+        run = lambda cfg: gym(q, data, ghd=g, p=8, config=cfg, device="cuda")  # noqa: E731
+        kw = dict(strategy="grid")
+    else:
+        data = chain_data_sparse(8, domain=64, ident=16, extra=24, seed=5)
+        entry = A.gym_loggta if plan == "loggta" else A.acq_mr
+        run = lambda cfg: entry(q, data, ghd=g, p=8, config=cfg, device="cuda")  # noqa: E731
+        kw = {}
+    K.reset_launch_counts()
+    rows, schema, led = run(GymConfig(seed=23, **kw))
+    assert all(K.launch_counts()[k] > 0 for k in GYM_KERNELS)
+    trows, tschema, tled = run(GymConfig(seed=23, local_backend="torch", **kw))
+    assert tuple(schema) == tuple(tschema)
+    np.testing.assert_array_equal(rows, trows)
+    assert [dataclasses.asdict(r) for r in led.records] == [
+        dataclasses.asdict(r) for r in tled.records
+    ]
+    assert led.output_tuples > 0
 
 
 @pytest.mark.cuda

@@ -39,7 +39,8 @@ def test_port_modules_exist():
         "interop.py", "kernels/flash_attention.py", "kernels/ops.py", "kernels/ref.py",
         "models/common.py", "models/attention.py", "models/mlp.py",
         "models/transformer.py", "configs/registry.py", "configs/gemma2_9b.py",
-        "serve/decode.py", "launch/serve.py",
+        "serve/decode.py", "launch/serve.py", "relational/grid.py", "core/loggta.py",
+        "core/loggta_prime.py", "core/cgta.py", "core/acq_mr.py", "core/shares.py",
     ):
         assert mod in names, mod
     assert (PKG / "csrc" / "gym_kernels.cu").exists()
@@ -107,8 +108,10 @@ def test_later_slices_raise():
         GymConfig(wire_format="packed")
     with pytest.raises(NotImplementedError, match="advisor"):
         GymConfig(plan="auto")
-    with pytest.raises(ValueError, match="grid"):
-        GymConfig(strategy="grid")
+    # the grid engine is ported; the hybrid engine names its ROADMAP item
+    assert GymConfig(strategy="grid").strategy == "grid"
+    with pytest.raises(NotImplementedError, match="hybrid engine"):
+        GymConfig(strategy="hybrid")
     from repro_torch.relational.spmd import SPMD
 
     with pytest.raises(NotImplementedError):
@@ -116,9 +119,11 @@ def test_later_slices_raise():
 
 
 def test_bag_of_three_atoms_names_the_grid_item():
+    """A bag of three atoms once raised, naming the grid engine's ROADMAP
+    item; the grid multiway join now materializes it."""
     from repro_torch.core.gym import gym
     from repro_torch.core.queries import chain_ghd_grouped, chain_query
 
     data = {f"R{i}": np.array([[i, i + 1]], np.int32) for i in range(1, 5)}
-    with pytest.raises(NotImplementedError, match="grid engine"):
-        gym(chain_query(4), data, ghd=chain_ghd_grouped(4, 3), p=2, device="cpu")
+    rows, _, led = gym(chain_query(4), data, ghd=chain_ghd_grouped(4, 3), p=2, device="cpu")
+    assert rows.tolist() == [[1, 2, 3, 4, 5]] and led.output_tuples == 1

@@ -1,6 +1,7 @@
 """Port-vs-reference ``gym()`` parity on the Table-1 families S_8, C_8 and
 TC_9 at the sizes of ``benchmarks/bench_shuffle.py`` (p=8, seed=23, the
-default calibrated dense configuration).  Marked slow: the JAX side alone
+default calibrated dense configuration, under the hash engine and under
+``strategy="grid"``).  Marked slow: the JAX side alone
 compiles for tens of seconds per family."""
 from __future__ import annotations
 
@@ -49,5 +50,15 @@ def test_table1_family_parity(family):
     q, g, data = FAMILIES[family]()
     led = assert_gym_parity(
         q, data, p=8, ref_spmd=SPMD(8), ghd=g, strategy="hash", seed=23
+    )
+    assert led.output_tuples > 0
+
+
+@pytest.mark.slow
+@pytest.mark.parametrize("family", sorted(FAMILIES))
+def test_table1_family_grid_parity(family):
+    q, g, data = FAMILIES[family]()
+    led = assert_gym_parity(
+        q, data, p=8, ref_spmd=SPMD(8), ghd=g, strategy="grid", seed=23
     )
     assert led.output_tuples > 0
