@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port of GYM on one CUDA card.
 
-    python3 chip_smoke.py [--seed N] [--reps N] [--phases gym,grid,logdepth,lm]
+    python3 chip_smoke.py [--seed N] [--reps N] [--phases gym,grid,skew,logdepth,lm]
 
 Run from the root of a checkout on a machine with a CUDA card (sm_90a,
 an H100) and the CUDA toolkit.  In order it:
@@ -40,7 +40,22 @@ an H100) and the CUDA toolkit.  In order it:
    the semijoin probe's launches are split by path and by the ``bound``
    passed, and no launch whose bound fits the bitmap may take the hash
    path;
-6. (phase ``logdepth``) drives the paper's log-depth path: C_16 (about 256
+6. (phase ``skew``) drives ``GymConfig(strategy="hybrid")`` — the
+   heavy-hitter engine — beside the hash and grid engines: the five
+   families of ``benchmarks/bench_skew.py`` (p = 8, seed 23,
+   ``max_cap_tuples=1<<18``), the planted heavy key ``S_8_heavy`` at the
+   gym phase's real S_8 scale (hub 2^20 rows, 80% of them on one A_1
+   value), and the gym phase's real S_8 under ``hybrid`` as a uniform
+   control.  Each run's rows, schema and ledger must equal the ``'torch'``
+   backend's; the engines must give one row set, the real-size rows the
+   numpy join's; ``hybrid`` must make no retry, and on ``S_8_heavy`` ship
+   fewer padded slots than ``hash`` with heavy tuples; the control must
+   equal the gym phase's hash run record for record; no semijoin launch
+   with a bound the bitmap holds may take the hash path.  Each run prints
+   rows, comm, shuffle tuples, padded slots, the heavy/light split, the
+   flagged destinations, retries, dispatches, launches (per kernel and per
+   semijoin path) and cold seconds (warm too at real size);
+7. (phase ``logdepth``) drives the paper's log-depth path: C_16 (about 256
    tuples a relation) under ``chain_ghd(16)``, ``gym_loggta`` (Log-GTA,
    whose cross bags hold about 2^24 tuples) and ``acq_mr`` (Log-GTA'),
    TC_15 under ``gym_loggta``, and ``shares_join`` on the Table-2 query;
@@ -49,14 +64,14 @@ an H100) and the CUDA toolkit.  In order it:
    count; it prints rounds, comm, the largest bag, peak device memory and
    cold/warm seconds.  Every gym kernel must launch on each of the grid
    and logdepth phases;
-7. (phase ``lm``) drives the port's LM serving path — ``generate`` over
+8. (phase ``lm``) drives the port's LM serving path — ``generate`` over
    ``DecoderLM.prefill`` and ``decode_step`` — on gemma2-9b at full width
    and depth in bf16 with random weights from ``--seed``: a batch of two
    4608-token prompts, 16 greedy tokens, the ``'cuda'`` backend.  The
    flash kernel must launch exactly 42 times per ``generate`` (once per
    layer, in prefill), and the per-step logits must agree with a
    teacher-forced replay through the ``'torch'`` backend on the card;
-8. times each kernel at the largest inputs its path gave it (CUDA events,
+9. times each kernel at the largest inputs its path gave it (CUDA events,
    L2 flushed before each launch) beside its plain version, one PyTorch
    library call where one computes the same function, and its bound,
    prints the sorted probe's census of that call (the share of probes its
@@ -170,6 +185,29 @@ def real_star(n: int, *, hub_rows: int, spoke_extra: int, domain: int, seed: int
         rows = np.stack([vals, vals % 7], 1)
         ext = np.stack([
             rng.integers(domain // 2, domain, spoke_extra),
+            rng.integers(0, 7, spoke_extra),
+        ], 1)
+        out[f"R{i}"] = np.unique(np.concatenate([rows, ext]).astype(np.int32), axis=0)
+    return out
+
+
+def real_star_heavy(n: int, *, hub_rows: int, heavy_share: float, spoke_extra: int,
+                    domain: int, seed: int):
+    """S_n with a planted heavy hitter: ``heavy_share`` of the hub rows
+    carry A_1 = 0, the other columns uniform over [0, domain/2); spokes as
+    ``real_star`` (as star_data_heavy, vectorized)."""
+    rng = np.random.default_rng(seed)
+    half = domain // 2
+    k = int(hub_rows * heavy_share)
+    a1 = np.concatenate([np.zeros(k, np.int64), rng.integers(1, half, hub_rows - k)])
+    cols = [a1] + [rng.integers(0, half, hub_rows) for _ in range(n - 2)]
+    hub = np.stack(cols, 1).astype(np.int32)
+    out = {"S": np.unique(hub, axis=0)}
+    for i in range(1, n):
+        vals = np.unique(hub[:, i - 1])
+        rows = np.stack([vals, vals % 7], 1)
+        ext = np.stack([
+            rng.integers(half, domain, spoke_extra),
             rng.integers(0, 7, spoke_extra),
         ], 1)
         out[f"R{i}"] = np.unique(np.concatenate([rows, ext]).astype(np.int32), axis=0)
@@ -771,7 +809,8 @@ def main_path(torch, seed: int, sizes=("bench", "real"), strategy="hash", audit=
             )
             summary[f"{fam}/{size}"] = dict(cold_s=cold, warm_s=warm, out=led.output_tuples,
                                             dispatches=led.measured_dispatches,
-                                            comm=led.comm_tuples, launches=per_run)
+                                            comm=led.comm_tuples, padded=led.padded_slots,
+                                            records=recs, launches=per_run)
     return summary, totals
 
 
@@ -1042,6 +1081,187 @@ def logdepth_phase(torch, seed: int, audit):
           f"launches_per_run={per_run} cuda==torch rows+ledger: yes rows==numpy join: yes",
           flush=True)
     summary["S_5 Shares"] = dict(rounds=led.rounds, comm=led.comm_tuples, launches=per_run)
+    return summary, totals
+
+
+# ------------------------------------------------------------ skew phase
+SKEW_ENGINES = ("hash", "grid", "hybrid")
+# benchmarks/bench_skew.py's capacity ceiling for its bench-size families
+SKEW_BENCH_MAX_CAP = 1 << 18
+
+
+@functools.lru_cache(maxsize=None)
+def skew_families(seed: int, real: bool):
+    """The skew phase's instances: at bench size the five families of
+    ``benchmarks/bench_skew.py`` (their own seeds), at real size the
+    planted heavy key at the gym phase's S_8 scale (from ``seed``)."""
+    from repro_torch.core import queries as Q
+    from repro_torch.data import synthetic as D
+
+    star = (Q.star_query(8), Q.star_ghd(8))
+    chain = (Q.chain_query(8), Q.chain_ghd(8))
+    if not real:
+        return {
+            "S_8_z0": star + (D.star_data_zipf(8, domain=64, hub_rows=256, spoke_extra=32, s=0.0, seed=31),),
+            "S_8_z11": star + (D.star_data_zipf(8, domain=64, hub_rows=256, spoke_extra=32, s=1.1, seed=31),),
+            "C_8_z0": chain + (D.chain_data_zipf(8, domain=96, rows=192, s=0.0, seed=34),),
+            "C_8_z11": chain + (D.chain_data_zipf(8, domain=96, rows=192, s=1.1, seed=34),),
+            "S_8_heavy": star + (D.star_data_heavy(8, domain=64, hub_rows=256, heavy_share=0.8,
+                                                   spoke_extra=16, seed=5),),
+        }
+    return {"S_8_heavy": star + (real_star_heavy(8, hub_rows=2**20, heavy_share=0.8,
+                                                 spoke_extra=2**18, domain=2**22, seed=seed),)}
+
+
+class HeavyRecorder:
+    """Wraps ``PhysicalExecutor._measure_stage`` to sum the heavy
+    destinations its measures flagged and count the hybrid-routed groups."""
+
+    def __init__(self, physical):
+        self.cls = physical.PhysicalExecutor
+        self.orig = self.cls._measure_stage
+        self.reset()
+        rec = self
+
+        def measure_stage(exe, groups, resolve, pending=None):
+            out = rec.orig(exe, groups, resolve, pending)
+            for m in out[0]:
+                if m is not None:
+                    rec.n_heavy += m.n_heavy
+                    rec.routed += int(m.hybrid_routed)
+            return out
+
+        self.cls._measure_stage = measure_stage
+
+    def reset(self):
+        self.n_heavy = 0
+        self.routed = 0
+
+    def restore(self):
+        self.cls._measure_stage = self.orig
+
+
+def skew_phase(torch, seed: int, audit, gym_summary=None, sizes=("bench", "real")):
+    """The hybrid engine beside hash and grid on the skew families (see
+    the module doc).  Returns (summary, launches over the phase's 'cuda'
+    runs)."""
+    from repro_torch.core import gym as G
+    from repro_torch.core import physical
+    from repro_torch.kernels import ops as K
+
+    totals = {k: 0 for k in GYM_KERNELS}
+    totals.update({"semijoin_probe/bitmap": 0, "semijoin_probe/hash": 0})
+    summary = {}
+
+    def run(q, g, data, backend, strategy, max_cap):
+        cfg = G.GymConfig(strategy=strategy, seed=23, local_backend=backend, max_cap_tuples=max_cap)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = G.gym(q, data, ghd=g, p=8, config=cfg, device="cuda")
+        torch.cuda.synchronize()
+        return out + (time.perf_counter() - t0,)
+
+    def drive(name, q, g, data, strategy, max_cap, want=None):
+        """A cold 'cuda' run, a warm one at real size (``want`` given), and
+        a 'torch' run, checked against each other (and ``want``); None when
+        both backends hit the ceiling.  Bench-size seconds measure launch
+        and host overhead, so the bench families skip the warm repeat."""
+        K.reset_launch_counts()
+        audit.reset()
+        heavy.reset()
+        try:
+            rows, schema, led, cold = run(q, g, data, "cuda", strategy, max_cap)
+        except physical.CapacityCeiling as e:
+            check(strategy == "hash", f"{name} {strategy}: {e}")
+            try:
+                run(q, g, data, "torch", strategy, max_cap)
+            except physical.CapacityCeiling:
+                print(f"skew {name} {strategy}: CapacityCeiling on both backends ({e})", flush=True)
+                return None
+            raise SmokeFailure(f"{name} {strategy}: only the 'cuda' backend hit the ceiling")
+        per_run = {k: K.launch_counts()[k] for k in GYM_KERNELS}
+        per_run.update({f"semijoin_probe/{k}": v for k, v in K.semijoin_probe_path_counts().items()})
+        flagged, routed = heavy.n_heavy, heavy.routed
+        audited = audit.counts()
+        audit.check(f"skew {name} {strategy}")
+        recs = [dataclasses.asdict(r) for r in led.records]
+        warm = None
+        if want is not None:
+            rows2, _, led2, warm = run(q, g, data, "cuda", strategy, max_cap)
+            check(np.array_equal(rows, rows2) and recs == [dataclasses.asdict(r) for r in led2.records],
+                  f"{name} {strategy}: warm run differs")
+        for k in GYM_KERNELS:
+            totals[k] += K.launch_counts()[k]
+        for k, v in K.semijoin_probe_path_counts().items():
+            totals[f"semijoin_probe/{k}"] += v
+        K.reset_launch_counts()
+        trows, tschema, tled, tsec = run(q, g, data, "torch", strategy, max_cap)
+        check(sum(K.launch_counts().values()) == 0, "'torch' backend launched a kernel")
+        check(tuple(schema) == tuple(tschema) == tuple(q.output_attrs), f"{name} {strategy}: schema")
+        check(np.array_equal(rows, trows), f"{name} {strategy}: cuda rows != torch rows")
+        check(recs == [dataclasses.asdict(r) for r in tled.records], f"{name} {strategy}: ledger records")
+        check((led.retries, led.output_tuples) == (tled.retries, tled.output_tuples),
+              f"{name} {strategy}: retries/output")
+        check(all(per_run[k] > 0 for k in GYM_KERNELS), f"{name} {strategy}: a kernel never launched")
+        if want is not None:
+            check(np.array_equal(rows.astype(np.int64), want) and len(want) > 0,
+                  f"{name} {strategy}: rows != numpy join")
+        print(
+            f"skew {name} {strategy}: out={led.output_tuples} comm={led.comm_tuples} "
+            f"shuffle_tuples={led.shuffle_tuples} padded_slots={led.padded_slots} "
+            f"heavy_tuples={led.heavy_tuples} light_tuples={led.light_tuples} "
+            f"n_heavy={flagged} hybrid_routed_groups={routed} retries={led.retries} "
+            f"rounds={led.rounds} dispatches={led.measured_dispatches} "
+            f"measure_dispatches={led.measure_dispatches} cold_s={cold:.4f} "
+            f"warm_s={'not run' if warm is None else f'{warm:.4f}'} "
+            f"torch_backend_s={tsec:.4f} launches_per_run={per_run} semijoin_audit={audited} "
+            "cuda==torch rows+ledger: yes" + (" rows==numpy join: yes" if want is not None else ""),
+            flush=True,
+        )
+        summary[f"{name}/{strategy}"] = dict(
+            out=led.output_tuples, comm=led.comm_tuples, padded=led.padded_slots,
+            heavy=led.heavy_tuples, retries=led.retries, dispatches=led.measured_dispatches,
+            n_heavy=flagged, cold_s=cold, warm_s=warm, launches=per_run,
+        )
+        return rows, led
+
+    heavy = HeavyRecorder(physical)
+    try:
+        for size in sizes:
+            real = size == "real"
+            for fam, (q, g, data) in skew_families(seed, real).items():
+                name = f"{fam} {size}"
+                want = np_answer(q, data) if real else None
+                res = {e: drive(name, q, g, data, e, None if real else SKEW_BENCH_MAX_CAP, want)
+                       for e in SKEW_ENGINES}
+                sets = [np.unique(r[0].astype(np.int64), axis=0) for r in res.values() if r]
+                check(all(np.array_equal(x, sets[0]) for x in sets), f"{name}: engines disagree on rows")
+                hyb = res["hybrid"][1]
+                check(hyb.retries == 0, f"{name}: hybrid made {hyb.retries} retries")
+                if fam == "S_8_heavy":
+                    check(hyb.heavy_tuples > 0, f"{name}: no heavy tuples under hybrid")
+                    if res["hash"] is not None:
+                        check(hyb.padded_slots < res["hash"][1].padded_slots,
+                              f"{name}: hybrid padded {hyb.padded_slots} >= hash "
+                              f"{res['hash'][1].padded_slots}")
+        if "real" in sizes:
+            # the uniform control: the gym phase's real S_8 under hybrid must
+            # be the hash engine's run, record for record
+            q, g, data = families(seed, True)["S_8"]
+            rows, led = drive("S_8 real (uniform control)", q, g, data, "hybrid", None,
+                              real_answer(seed, "S_8"))
+            hs = (gym_summary or {}).get("S_8/real")
+            if hs is None:  # the gym phase did not run: run its hash query here
+                hrows, _, hled, _ = run(q, g, data, "cuda", "hash", None)
+                hs = dict(records=[dataclasses.asdict(r) for r in hled.records])
+            check([dataclasses.asdict(r) for r in led.records] == hs["records"],
+                  "uniform control: hybrid records != the hash run's")
+            check(led.heavy_tuples == 0, "uniform control: heavy tuples on uniform data")
+            print(f"skew S_8 real (uniform control): hybrid == hash record for record "
+                  f"(comm={led.comm_tuples} padded_slots={led.padded_slots} "
+                  f"dispatches={led.measured_dispatches} heavy_tuples=0)", flush=True)
+    finally:
+        heavy.restore()
     return summary, totals
 
 
@@ -1371,12 +1591,13 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--reps", type=int, default=30)
-    ap.add_argument("--phases", default="gym,grid,logdepth,lm",
+    ap.add_argument("--phases", default="gym,grid,skew,logdepth,lm",
                     help="comma-separated main paths to drive: gym (the join path), "
-                         "grid (the grid engine), logdepth (Log-GTA, Log-GTA', Shares), "
+                         "grid (the grid engine), skew (the hybrid engine beside hash "
+                         "and grid on skewed data), logdepth (Log-GTA, Log-GTA', Shares), "
                          "lm (gemma2-9b serving)")
     ap.add_argument("--sizes", default="bench,real",
-                    help="comma-separated gym sizes to drive: bench, real")
+                    help="comma-separated gym, grid and skew sizes to drive: bench, real")
     ap.add_argument("--profile", default="",
                     help="comma-separated families (S_8,C_8,TC_9) to profile at real size, "
                          "and lm to profile the LM serving path")
@@ -1462,7 +1683,7 @@ def main(argv=None) -> int:
         fams = [f for f in args.profile.split(",") if f and f != "lm"]
         if fams:
             profile_queries(torch, args.seed, fams, args.profile_out)
-    for path in ("grid", "logdepth"):
+    for path in ("grid", "skew", "logdepth"):
         if path not in phases:
             continue
         t0 = time.perf_counter()
@@ -1472,6 +1693,9 @@ def main(argv=None) -> int:
             if path == "grid":
                 _, launches = main_path(torch, args.seed, tuple(args.sizes.split(",")),
                                         strategy="grid", audit=audit, hash_summary=summary)
+            elif path == "skew":
+                _, launches = skew_phase(torch, args.seed, audit, summary,
+                                         tuple(args.sizes.split(",")))
             else:
                 _, launches = logdepth_phase(torch, args.seed, audit)
         finally:

@@ -29,7 +29,7 @@ from ..relational.spmd import SPMD, resolve_device
 from ..relational.table import DTable
 from .ghd import GHD
 from .hypergraph import Query
-from .physical import ENGINES, HYBRID_ITEM, CapacityManager, PhysicalExecutor
+from .physical import ENGINES, CapacityManager, PhysicalExecutor
 from .physical import pow2 as _pow2
 from .planner import Round, get_schedule
 
@@ -47,8 +47,9 @@ LATER = {
 @dataclasses.dataclass
 class GymConfig:
     # 'hash' (hash co-partitioning, skew-sensitive with abort-retry) |
-    # 'grid' (paper-faithful Lemmas 8/10, positional, skew-proof); the
-    # hybrid engine is not ported yet
+    # 'grid' (paper-faithful Lemmas 8/10, positional, skew-proof) |
+    # 'hybrid' (hash for light keys, spread/broadcast for heavy keys;
+    # forces the count pre-pass on)
     strategy: str = "hash"
     schedule: str = "dym_d"  # 'dym_d' (Sec 4.3) | 'dym_n' (Sec 4.2)
     seed: int = 0
@@ -67,7 +68,8 @@ class GymConfig:
     # shard-local hot loops: 'cuda' (Hopper kernels) | 'torch' (plain
     # PyTorch); None = 'cuda' on a CUDA device, 'torch' on the CPU
     local_backend: Optional[str] = None
-    # heavy-hitter sensitivity of the count pre-pass diagnostics
+    # heavy-hitter sensitivity of the count pre-pass (hybrid routing and
+    # the capacity ceiling's diagnostics)
     skew_threshold: Optional[float] = None
     # hard per-shard capacity ceiling (tuples); None derives 64 * M from
     # Assumption 3's M = 4*IN/p
@@ -78,10 +80,6 @@ class GymConfig:
     device: Optional[str] = None
 
     def __post_init__(self):
-        if self.strategy == "hybrid":
-            raise NotImplementedError(
-                f"strategy='hybrid' is not ported yet ({HYBRID_ITEM})"
-            )
         if self.strategy not in ENGINES:
             raise ValueError(
                 f"unknown strategy {self.strategy!r}; registered engines: "

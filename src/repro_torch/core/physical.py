@@ -13,8 +13,9 @@ charges as ONE round.  This module keeps that promise:
 
 Engine strategies are a registry (``register_engine``): ``'hash'`` (hash
 co-partitioning, comm ~ inputs + outputs, skew-sensitive with
-abort-retry) and ``'grid'`` (the paper's Lemmas 8/10, positional and
-skew-proof).  Every engine materializes a GHD bag of more than two atoms
+abort-retry), ``'hybrid'`` (hash for light keys, grid-style spread and
+broadcast for the heavy keys the count pre-pass flags) and ``'grid'``
+(the paper's Lemmas 8/10, positional and skew-proof).  Every engine materializes a GHD bag of more than two atoms
 with the Lemma 8 grid multiway join; the hash engine joins 2-atom bags
 by hash.  Capacity sizing and the paper's
 abort-and-retry semantics live in ``CapacityManager``.
@@ -46,10 +47,6 @@ from ..relational.wire import count_wire_bytes
 from .caps_cache import CapsCache
 from .ghd import GHD
 from .planner import Op, Round
-
-#: the ROADMAP item that ports the hybrid engine
-HYBRID_ITEM = "ROADMAP queue A, item 'hybrid engine'"
-
 
 # --------------------------------------------------------------------------
 # engine strategy registry
@@ -91,6 +88,12 @@ class Engine:
     name = "?"
     # whether dist_join_count predicts this engine's per-shard join output
     exact_join_presize = False
+    # whether the routing is data-dependent and therefore NEEDS the count
+    # pre-pass (the executor forces calibrate on for such engines)
+    requires_measure = False
+    # whether pair measures may re-route under the hybrid heavy-hitter
+    # exchange (drives ``measure_finish``'s re-measure)
+    hybrid_measure = False
 
     def __init__(
         self, spmd: SPMD, local_backend: str = "torch",
@@ -253,7 +256,15 @@ class HashEngine(Engine):
 
     def measure_finish(self, kind, lhs, rhs, seeds, m):
         if kind == "semijoin":
-            return B.finish_semijoin_measure(m)
+            return B.finish_semijoin_measure(
+                self.spmd, lhs, rhs, seeds, m,
+                hybrid=self.hybrid_measure, backend=self.local_backend,
+            )
+        if kind == "join":
+            return B.hybridize_join_measure(
+                self.spmd, lhs, rhs, seeds, m,
+                hybrid=self.hybrid_measure, backend=self.local_backend,
+            )
         return Engine.measure_finish(self, kind, lhs, rhs, seeds, m)
 
     def measure_needs_join_count(self, kind):
@@ -315,6 +326,77 @@ class HashEngine(Engine):
             out, st = R.dist_join(
                 self.spmd, parts[0], parts[1], seed=seed, out_cap=cap,
                 calibrate=calibrate, backend=self.local_backend, **kw,
+            )
+            return out, st, 1
+        return Engine.multijoin(self, parts, cap, seed, calibrate, cal)
+
+
+@register_engine("hybrid")
+class HybridEngine(HashEngine):
+    """Skew-resilient heavy/light decomposition (``relational.skew``): the
+    count pre-pass flags heavy destinations, the payload routes light keys
+    through the hash exchange and heavy keys grid-style (one side spread
+    over all p reducers, the other broadcast) in the SAME fused dispatch.
+    On unskewed groups the measure finds no heavy keys and the payload is
+    the hash engine's, bit for bit.
+
+    The routing is data-dependent, so the engine REQUIRES the count
+    pre-pass: the executor forces ``calibrate`` on (``requires_measure``)
+    even when the config disables the calibrated shuffle."""
+
+    requires_measure = True
+    hybrid_measure = True
+    # abort-retry pre-sizing stays valid: blown joins only happen on
+    # hash-routed groups (hybrid-routed ones pre-floor the exact spread
+    # output from the measure), and there the hash placement is the one
+    # that blew
+    exact_join_presize = True
+
+    def measure_group(self, kind, lhs, rhs, seeds):
+        if kind == "semijoin":
+            return B.measure_semijoin_many(
+                self.spmd, lhs, rhs, seeds=seeds, backend=self.local_backend,
+                hybrid=True, skew_threshold=self.skew_threshold,
+            )
+        if kind == "join":
+            return B.measure_join_many(
+                self.spmd, lhs, rhs, seeds=seeds, backend=self.local_backend,
+                hybrid=True, skew_threshold=self.skew_threshold,
+            )
+        return Engine.measure_group(self, kind, lhs, rhs, seeds)
+
+    def semijoin_many(self, ss, rs, cap, seeds, xcaps=None):
+        if xcaps is None or not xcaps.hybrid_routed:
+            return HashEngine.semijoin_many(self, ss, rs, cap, seeds, xcaps)
+        outs, stats = B.hybrid_semijoin_many(
+            self.spmd, ss, rs, seeds=seeds, heavy=xcaps.heavy,
+            c_out=(xcaps.lhs.c_out, xcaps.rhs.c_out),
+            cap_recv=(max(cap, xcaps.lhs.cap_recv), xcaps.rhs.cap_recv),
+            backend=self.local_backend,
+        )
+        return outs, stats, 1
+
+    def join_many(self, as_, bs, cap, seeds, xcaps=None):
+        if xcaps is None or not xcaps.hybrid_routed:
+            return HashEngine.join_many(self, as_, bs, cap, seeds, xcaps)
+        outs, stats = B.hybrid_join_many(
+            self.spmd, as_, bs, seeds=seeds, out_cap=cap, heavy=xcaps.heavy,
+            c_out=(xcaps.lhs.c_out, xcaps.rhs.c_out),
+            cap_recv=(xcaps.lhs.cap_recv, xcaps.rhs.cap_recv),
+            swap=xcaps.swap_spread, backend=self.local_backend,
+        )
+        return outs, stats, 1
+
+    def multijoin_measure_batch(self, parts_list, seeds):
+        # 2-way bags take dist_join_hybrid, whose heavy-hitter routing needs
+        # its own per-destination flags — only the grid-path vertices batch
+        return Engine.multijoin_measure_batch(self, parts_list, seeds)
+
+    def multijoin(self, parts, cap, seed, calibrate=False, cal=None):
+        if len(parts) == 2:
+            out, st = R.dist_join_hybrid(
+                self.spmd, parts[0], parts[1], seed=seed, out_cap=cap,
+                skew_threshold=self.skew_threshold, backend=self.local_backend,
             )
             return out, st, 1
         return Engine.multijoin(self, parts, cap, seed, calibrate, cal)
@@ -398,14 +480,17 @@ class CapacityManager:
                     f"{self.heavy_hint} heavy destination(s) were flagged by "
                     "this round's count pre-passes — the round is skew-bound, "
                     "and abort-retry doubling cannot fix skew (the heavy key "
-                    "lands on one reducer at ANY capacity)"
+                    "lands on one reducer at ANY capacity); switch to "
+                    "engine='hybrid' (heavy-hitter routing) or engine='grid' "
+                    "(skew-proof)"
                 )
             else:
                 hint = (
                     "this round's count pre-passes flagged no heavy "
                     "destinations (none measured if calibrate_shuffle is "
                     "off), so the load may genuinely be this large; raise "
-                    "GymConfig.max_cap_tuples"
+                    "GymConfig.max_cap_tuples — or, under skew, switch to "
+                    "engine='hybrid' or engine='grid'"
                 )
             raise CapacityCeiling(
                 f"capacity for node(s) {tuple(nodes)} would grow to {cap} > "
@@ -648,7 +733,9 @@ class PhysicalExecutor:
         self.max_retries = max_retries
         self.count_retries_comm = count_retries_comm
         self.fuse = fuse
-        self.calibrate = calibrate
+        # data-dependent engines (hybrid) cannot route without the count
+        # pre-pass: force it on for them regardless of the config knob
+        self.calibrate = calibrate or self.engine.requires_measure
         self._seed_ctr = 0
         if isinstance(caps_cache, CapsCache):
             self.caps_cache = caps_cache if self.calibrate else None
@@ -759,7 +846,9 @@ class PhysicalExecutor:
             kind, lhs, rhs, seeds = operands(gi)
             measures[gi] = self.engine.measure_finish(kind, lhs, rhs, seeds, measures[gi])
         # exact keys-only output pre-count for the fresh join groups the
-        # combined pass could NOT resolve (hashed-key guess too small)
+        # combined pass could NOT resolve: hybrid re-routed groups (the
+        # light-placement count is void) and groups whose hashed-key guess
+        # proved too small
         join_gis = [
             gi for gi in fresh
             if groups[gi][0].kind == "join"

@@ -29,10 +29,6 @@ from ..relational.spmd import SPMD, resolve_device
 from ..relational.table import DTable
 from .hypergraph import Query
 
-#: re-runs with doubled capacities before a dropped row becomes an error
-MAX_RETRIES = 12
-
-
 def replication_cost(
     query: Query, sizes: Dict[str, int], shares: Dict[str, int]
 ) -> float:
@@ -99,15 +95,20 @@ def shares_join(
     data: Dict[str, np.ndarray],
     *,
     p: int = 4,
+    shares: Optional[Dict[str, int]] = None,
     out_cap: Optional[int] = None,
     seed: int = 0,
+    max_retries: int = 12,
     local_backend: Optional[str] = None,
     device=None,
 ) -> Tuple[np.ndarray, Tuple[str, ...], Ledger]:
     """One-round Shares evaluation of Q.  Returns (rows, schema, ledger).
 
-    ``local_backend`` None means ``'cuda'`` on a CUDA device and
-    ``'torch'`` on the CPU, as ``GymConfig.local_backend``."""
+    ``shares`` fixes the per-attribute shares (default
+    ``optimize_shares``); ``max_retries`` bounds the re-runs with doubled
+    capacities before a dropped row becomes an error.  ``local_backend``
+    None means ``'cuda'`` on a CUDA device and ``'torch'`` on the CPU, as
+    ``GymConfig.local_backend``."""
     s = SPMD(p, device=resolve_device(device))
     backend = local_backend or default_backend(s.device)
     ledger = Ledger()
@@ -121,7 +122,7 @@ def shares_join(
         tables[atom.alias] = DTable.scatter_numpy(rows, atom.attrs, p, device=s.device)
         sizes[atom.alias] = rows.shape[0]
 
-    shares = optimize_shares(query, sizes, p)
+    shares = shares or optimize_shares(query, sizes, p)
     attr_order = sorted(shares, key=lambda a: -shares[a])
     n_cells = math.prod(shares.values())
     assert n_cells <= p
@@ -131,7 +132,7 @@ def shares_join(
     attempt = 0
     while True:
         attempt += 1
-        assert attempt <= MAX_RETRIES, "shares: too many retries"
+        assert attempt <= max_retries, "shares: too many retries"
         comm = 0
         dropped = 0
         parts: List[DTable] = []

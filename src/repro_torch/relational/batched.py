@@ -1,4 +1,4 @@
-"""Batched ("round-fused") distributed operators — hash and grid paths.
+"""Batched ("round-fused") distributed operators — hash, hybrid and grid paths.
 
 A DYM round schedules k independent operator instances.  These variants
 stack the k instances along a batch axis between the reducer axis and the
@@ -13,11 +13,13 @@ across the k instances.  Key column POSITIONS and hash seeds may differ
 per instance — they ride as ``(p, k, ·)`` tensors applied with
 ``gather``.
 
-Hash-path and grid-path batched ops give bit-identical results (and
-identical ``sent``/``dropped`` stats) to ``repro.relational.batched``
-given the same seeds and capacities.  The grid paths (Lemma 8 joins and
-Lemma 10 semijoins) route by position, so their pre-passes need no
-seeds.
+Hash-, hybrid- and grid-path batched ops give bit-identical results (and
+identical ``sent``/``dropped``/``heavy`` stats) to
+``repro.relational.batched`` given the same seeds and capacities.  The
+hybrid paths route light keys by hash and heavy keys grid-style
+(``relational.skew``), with the per-instance heavy flags riding as a
+``(p, k, p)`` tensor.  The grid paths (Lemma 8 joins and Lemma 10
+semijoins) route by position, so their pre-passes need no seeds.
 
 Calibration pre-passes: every payload operator here has a ``measure_*``
 sibling — one extra count-only dispatch per op group that ships only
@@ -58,7 +60,7 @@ from .shuffle import (
     padded_slots,
     pow2,
 )
-from .skew import DEFAULT_SKEW_THRESHOLD, heavy_dest_flags_many
+from .skew import DEFAULT_SKEW_THRESHOLD, bcast_dests, heavy_dest_flags_many, split_dests
 from .spmd import SPMD
 from .table import DTable, schema_join
 from .wire import count_wire_bytes, dense_wire_bytes
@@ -97,11 +99,15 @@ def _seed_array(seeds: Sequence[int], p: int, device) -> torch.Tensor:
 
 
 def _per_op_stats(
-    sent, dropped, padded: int = 0, wire_bytes: int = 0, ubytes=None,
+    sent, dropped, padded: int = 0, heavy=None, wire_bytes: int = 0,
+    ubytes=None,
 ) -> List[Dict[str, int]]:
     """(p, k) shard stats -> one {'sent','dropped','padded',...} dict per
     instance; ``padded``/``wire_bytes`` (statics of the dispatch) are
-    identical across the group's instances."""
+    identical across the group's instances.  ``heavy`` (the hybrid ops'
+    (p, k) tuple-sends routed through the heavy-hitter path) adds a
+    ``'heavy'`` key only when given, so the hash and grid ops' stats stay
+    as they are."""
     s = _host(sent).sum(axis=0)
     d = _host(dropped).sum(axis=0)
     out = [
@@ -113,6 +119,9 @@ def _per_op_stats(
         }
         for a, b in zip(s, d)
     ]
+    if heavy is not None:
+        for st, h in zip(out, _host(heavy).sum(axis=0)):
+            st["heavy"] = int(h)
     if ubytes is not None:
         for st, u in zip(out, _host(ubytes).sum(axis=0)):
             st["ubytes"] = int(u)
@@ -145,9 +154,18 @@ class GroupMeasure:
     whose buffer IS the op's output (semijoin S side, intersect A side,
     dedup).  ``out_need``: exact join-output requirement (hash joins).
     ``padded``/``wire_bytes``: cells and bytes the pre-pass itself
-    shipped, charged to the ledger.  ``n_heavy``: destinations the
-    counts flagged heavy (diagnostics; skewed measures are never cached).
-    ``hybrid_routed`` stays False until the hybrid engine is ported."""
+    shipped, charged to the ledger.
+
+    Heavy-hitter surface (``relational.skew``): ``heavy`` is the (k, p)
+    bool per-instance flags the count pre-pass detected (None where
+    detection doesn't apply), ``n_heavy`` the flagged destination count
+    (skewed measures are never cached), ``lhs_heavy_rows`` /
+    ``rhs_heavy_rows`` each side's row mass at the flagged destinations.
+    ``hybrid_routed`` is True when the capacities were re-measured under
+    hybrid routing and the payload must run the hybrid exchange;
+    ``swap_spread`` picks the hybrid join's roles (False: spread the lhs,
+    broadcast the rhs; True the reverse — the side with the larger heavy
+    mass spreads)."""
 
     lhs: SideCaps
     rhs: Optional[SideCaps] = None
@@ -155,8 +173,12 @@ class GroupMeasure:
     out_need: Optional[int] = None
     padded: int = 0
     wire_bytes: int = 0
+    heavy: Optional[np.ndarray] = None
     n_heavy: int = 0
+    lhs_heavy_rows: int = 0
+    rhs_heavy_rows: int = 0
     hybrid_routed: bool = False
+    swap_spread: bool = False
 
 
 def _dests(keys: torch.Tensor, valid: torch.Tensor, p: int, seed, backend: str) -> torch.Tensor:
@@ -201,6 +223,90 @@ def _join_count_shard_b(ad, av, bd, bv, seed, ak, bk, *,
     return local_join_count(a2, a2v, b2, b2v, kc, kc, backend)
 
 
+# ------------------------------------------ hybrid-routing measure helpers
+def _heavy_array(heavy: np.ndarray, p: int, device) -> torch.Tensor:
+    """Per-instance heavy-destination flags as a (p, k, p) bool tensor on
+    the device: data, so one code path serves every flag pattern."""
+    h = torch.from_numpy(np.asarray(heavy, bool).reshape(len(heavy), p))
+    return h.to(device).expand((p,) + tuple(h.shape))
+
+
+def _hybrid_exchange(data, valid, dest, hw, *, p, c_out, cap_recv, spread):
+    """One side of a hybrid exchange: ``spread=True`` deals the heavy rows
+    round-robin (single-dest ``exchange``), ``spread=False`` broadcasts
+    them to every reducer (``exchange_multi``).  Returns (rdata, rvalid,
+    sent, dropped, heavy_sends)."""
+    if spread:
+        d2, hvy = split_dests(dest, hw, p)
+        rd, rv, sent, ds, dr = exchange(data, valid, d2, p=p, c_out=c_out, cap_recv=cap_recv)
+        return rd, rv, sent, ds + dr, hvy.sum(-1)
+    d2, hvy = bcast_dests(dest, hw, p)
+    rd, rv, sent, ds, dr = exchange_multi(data, valid, d2, p=p, c_out=c_out, cap_recv=cap_recv)
+    return rd, rv, sent, ds + dr, p * hvy.sum(-1)
+
+
+def _hybrid_counts_one_side(dest, hw, *, p, spread):
+    if spread:
+        d2, _ = split_dests(dest, hw, p)
+        return exchange_counts(d2, p)
+    d2, _ = bcast_dests(dest, hw, p)
+    return exchange_counts(_flat_dests(d2), p)
+
+
+def _hybrid_pair_counts_shard_b(ad, av, bd, bv, seed, ak, bk, hw, *,
+                                p, dedup_b, swap, backend):
+    """Count both sides of every instance under HYBRID routing: the spread
+    side's heavy rows dealt round-robin, the broadcast side's heavy rows to
+    every reducer — the dests the hybrid payload will use.  ``swap``
+    spreads the rhs and broadcasts the lhs instead."""
+    da = _dests(_take(ad, ak), av, p, seed, backend)
+    oa, ra = _hybrid_counts_one_side(da, hw, p=p, spread=not swap)
+    bkeys = _take(bd, bk)
+    bv2 = local_dedup_mask(bkeys, bv, tuple(range(bk.shape[-1]))) if dedup_b else bv
+    db = _dests(bkeys, bv2, p, seed, backend)
+    ob, rb = _hybrid_counts_one_side(db, hw, p=p, spread=swap)
+    return oa, ra, ob, rb
+
+
+def _hybrid_pair_counts(
+    spmd: SPMD, as_, bs, a_keys, b_keys, seeds, heavy, *,
+    dedup_b, swap, backend,
+) -> Tuple[SideCaps, SideCaps]:
+    """ONE count-only dispatch re-measuring an op group's exchanges under
+    hybrid routing (run only when the hash counts flagged heavy
+    destinations)."""
+    p, dev = spmd.p, spmd.device
+    ad, av = _stack(as_)
+    bd, bv = _stack(bs)
+    oa, ra, ob, rb = spmd.run(
+        _hybrid_pair_counts_shard_b,
+        ad, av, bd, bv, _seed_array(seeds, p, dev),
+        _key_array(a_keys, p, dev), _key_array(b_keys, p, dev),
+        _heavy_array(heavy, p, dev),
+        p=p, dedup_b=dedup_b, swap=swap, backend=backend, measure=True,
+    )
+    return SideCaps.from_counts(oa, ra), SideCaps.from_counts(ob, rb)
+
+
+def _hybrid_join_count_shard_b(ad, av, bd, bv, seed, ak, bk, hw, *,
+                               p, c_out_a, c_out_b, cap_a, cap_b, swap, backend):
+    """Keys-only exchange at the hybrid-calibrated capacities, then the
+    exact per-shard join output count UNDER HYBRID PLACEMENT — the spread
+    join's true requirement, not the hash join's one-reducer pile-up."""
+    akeys = _take(ad, ak)
+    da = _dests(akeys, av, p, seed, backend)
+    bkeys = _take(bd, bk)
+    db = _dests(bkeys, bv, p, seed, backend)
+    kc = tuple(range(ak.shape[-1]))
+    a2, a2v, *_ = _hybrid_exchange(
+        akeys, av, da, hw, p=p, c_out=c_out_a, cap_recv=cap_a, spread=not swap
+    )
+    b2, b2v, *_ = _hybrid_exchange(
+        bkeys, bv, db, hw, p=p, c_out=c_out_b, cap_recv=cap_b, spread=swap
+    )
+    return local_join_count(a2, a2v, b2, b2v, kc, kc, backend)
+
+
 def _finalize_pair_counts(
     oa_np: np.ndarray, ra, ob_np: np.ndarray, rb, *, p: int,
     count_padded: int, count_bytes: int = 0,
@@ -209,17 +315,23 @@ def _finalize_pair_counts(
     """Host-side tail shared by the per-group pair measure and the
     combined round pre-pass: tight pow2 caps per side plus the free
     heavy-destination detection (the hash is key-consistent across both
-    sides, so overload on EITHER side flags the destination)."""
+    sides, so overload on EITHER side flags the destination's keys heavy
+    for both: the union of both sides' flags decides)."""
     heavy = heavy_dest_flags_many(oa_np, p, skew_threshold) | heavy_dest_flags_many(
         ob_np, p, skew_threshold
     )
+    arrivals_a = oa_np.reshape(oa_np.shape[0], -1, p).sum(axis=0)  # (k, p)
+    arrivals_b = ob_np.reshape(ob_np.shape[0], -1, p).sum(axis=0)
     return GroupMeasure(
         lhs=SideCaps.from_counts(oa_np, ra),
         rhs=SideCaps.from_counts(ob_np, rb),
         out_recv=None,
         padded=count_padded,
         wire_bytes=count_bytes,
+        heavy=heavy,
         n_heavy=int(heavy.sum()),
+        lhs_heavy_rows=int(arrivals_a[heavy].sum()),
+        rhs_heavy_rows=int(arrivals_b[heavy].sum()),
     )
 
 
@@ -244,56 +356,125 @@ def _measure_pair_many(
     )
 
 
+def _pair_keys(as_, bs):
+    shareds = [[x for x in a.schema if x in b.schema] for a, b in zip(as_, bs)]
+    return (
+        [a.cols(sh) for a, sh in zip(as_, shareds)],
+        [b.cols(sh) for b, sh in zip(bs, shareds)],
+    )
+
+
 def measure_semijoin_many(
     spmd: SPMD, ss, rs, *, seeds, backend: str = "torch",
-    skew_threshold: float = DEFAULT_SKEW_THRESHOLD,
+    hybrid: bool = False, skew_threshold: float = DEFAULT_SKEW_THRESHOLD,
 ) -> GroupMeasure:
     """Pre-pass of ``dist_semijoin_many``: S side raw, R side the
-    deduplicated key projection — the S receive count bounds the output."""
-    shareds = [[x for x in s.schema if x in r.schema] for s, r in zip(ss, rs)]
-    s_keys = [s.cols(sh) for s, sh in zip(ss, shareds)]
-    r_keys = [r.cols(sh) for r, sh in zip(rs, shareds)]
+    deduplicated key projection — the S receive count bounds the output.
+
+    ``hybrid=True``: when the counts flag heavy destinations, ONE more
+    count-only dispatch re-measures both sides under hybrid routing (S
+    spread, R keys broadcast); ``hybrid_routed`` marks the result so."""
+    s_keys, r_keys = _pair_keys(ss, rs)
     m = _measure_pair_many(
         spmd, ss, rs, s_keys, r_keys, seeds, dedup_b=True, backend=backend,
         skew_threshold=skew_threshold,
     )
-    return finish_semijoin_measure(m)
+    return finish_semijoin_measure(spmd, ss, rs, seeds, m, hybrid=hybrid, backend=backend)
 
 
-def finish_semijoin_measure(m: GroupMeasure) -> GroupMeasure:
+def finish_semijoin_measure(
+    spmd: SPMD, ss, rs, seeds, m: GroupMeasure, *,
+    hybrid: bool, backend: str = "torch",
+) -> GroupMeasure:
     """Tail of the semijoin pre-pass given pair counts ``m`` from ANY
     source (the per-group dispatch or one slice of ``RoundCounts``): the S
     receive count bounds the output."""
+    if hybrid and m.n_heavy:
+        # roles are fixed for a semijoin: S (the output side, one copy per
+        # row) spreads, R's deduplicated key projection broadcasts — a
+        # heavy KEY is a single R-side row after dedup, so broadcast costs
+        # n_heavy * p keys, never a relation's row mass
+        p = spmd.p
+        s_keys, r_keys = _pair_keys(ss, rs)
+        lhs, rhs = _hybrid_pair_counts(
+            spmd, ss, rs, s_keys, r_keys, seeds, m.heavy,
+            dedup_b=True, swap=False, backend=backend,
+        )
+        return dataclasses.replace(
+            m, lhs=lhs, rhs=rhs, out_recv=lhs.cap_recv,
+            padded=m.padded + 2 * len(ss) * p * p,
+            wire_bytes=m.wire_bytes + count_wire_bytes(p, 2 * len(ss)),
+            hybrid_routed=True,
+        )
     return dataclasses.replace(m, out_recv=m.lhs.cap_recv)
+
+
+def hybridize_join_measure(
+    spmd: SPMD, as_, bs, seeds, m: GroupMeasure, *,
+    hybrid: bool, backend: str = "torch",
+) -> GroupMeasure:
+    """Join-measure middle stage shared by ``measure_join_many`` and the
+    combined round pre-pass: when heavy destinations were flagged,
+    re-measure both sides under hybrid routing (one extra count-only
+    dispatch, skew-dependent and rare)."""
+    if not (hybrid and m.n_heavy):
+        return m
+    # spread the side carrying the LARGER heavy row mass, broadcast the
+    # smaller — that balances both the wire and the join output
+    p = spmd.p
+    a_keys, b_keys = _pair_keys(as_, bs)
+    swap = m.rhs_heavy_rows > m.lhs_heavy_rows
+    lhs, rhs = _hybrid_pair_counts(
+        spmd, as_, bs, a_keys, b_keys, seeds, m.heavy,
+        dedup_b=False, swap=swap, backend=backend,
+    )
+    # a light-placement output count is void under hybrid routing; the
+    # join-need pass recomputes it at the hybrid placement
+    return dataclasses.replace(
+        m, lhs=lhs, rhs=rhs, out_need=None,
+        padded=m.padded + 2 * len(as_) * p * p,
+        wire_bytes=m.wire_bytes + count_wire_bytes(p, 2 * len(as_)),
+        hybrid_routed=True, swap_spread=swap,
+    )
 
 
 def measure_join_many(
     spmd: SPMD, as_, bs, *, seeds, backend: str = "torch",
-    skew_threshold: float = DEFAULT_SKEW_THRESHOLD,
+    hybrid: bool = False, skew_threshold: float = DEFAULT_SKEW_THRESHOLD,
 ) -> GroupMeasure:
     """Pre-pass of ``dist_join_many``: the count dispatch (tight shuffle
     capacities), then a keys-only exchange AT those capacities whose
     exact output count pre-sizes ``out_need`` — both priced into
-    ``padded``."""
+    ``padded``.
+
+    ``hybrid=True``: when the counts flag heavy destinations, the
+    capacities are re-measured under hybrid routing and the keys-only
+    output count runs at the HYBRID placement."""
     p, dev = spmd.p, spmd.device
-    shareds = [[x for x in a.schema if x in b.schema] for a, b in zip(as_, bs)]
-    a_keys = [a.cols(sh) for a, sh in zip(as_, shareds)]
-    b_keys = [b.cols(sh) for b, sh in zip(bs, shareds)]
+    a_keys, b_keys = _pair_keys(as_, bs)
     m = _measure_pair_many(
         spmd, as_, bs, a_keys, b_keys, seeds, dedup_b=False, backend=backend,
         skew_threshold=skew_threshold,
     )
     k, nk = len(as_), len(a_keys[0])
+    m = hybridize_join_measure(spmd, as_, bs, seeds, m, hybrid=hybrid, backend=backend)
     ad, av = _stack(as_)
     bd, bv = _stack(bs)
-    cnt = spmd.run(
-        _join_count_shard_b,
+    arrays = (
         ad, av, bd, bv, _seed_array(seeds, p, dev),
         _key_array(a_keys, p, dev), _key_array(b_keys, p, dev),
+    )
+    caps = dict(
         p=p, c_out_a=m.lhs.c_out, c_out_b=m.rhs.c_out,
         cap_a=m.lhs.cap_recv, cap_b=m.rhs.cap_recv, backend=backend,
-        measure=True,
     )
+    if not m.hybrid_routed:
+        cnt = spmd.run(_join_count_shard_b, *arrays, **caps, measure=True)
+    else:
+        cnt = spmd.run(
+            _hybrid_join_count_shard_b, *arrays, _heavy_array(m.heavy, p, dev),
+            **caps, swap=m.swap_spread, measure=True,
+        )
     return dataclasses.replace(
         m,
         out_need=pow2(max(1, int(_host(cnt).max()))),
@@ -714,13 +895,22 @@ def _join_need_round_shard(*arrays, entries, p, backend):
     outs = []
     i = 0
     for e in entries:
-        _, k, coa, cob, ca, cb = e
-        ad, av, bd, bv, seed, ak, bk = arrays[i: i + 7]
-        i += 7
-        outs.append(_join_count_shard_b(
-            ad, av, bd, bv, seed, ak, bk, p=p, c_out_a=coa, c_out_b=cob,
-            cap_a=ca, cap_b=cb, backend=backend,
-        ))
+        if e[0] == "hash":
+            _, k, coa, cob, ca, cb = e
+            ad, av, bd, bv, seed, ak, bk = arrays[i: i + 7]
+            i += 7
+            outs.append(_join_count_shard_b(
+                ad, av, bd, bv, seed, ak, bk, p=p, c_out_a=coa, c_out_b=cob,
+                cap_a=ca, cap_b=cb, backend=backend,
+            ))
+        else:  # hybrid placement
+            _, k, coa, cob, ca, cb, swap = e
+            ad, av, bd, bv, seed, ak, bk, hw = arrays[i: i + 8]
+            i += 8
+            outs.append(_hybrid_join_count_shard_b(
+                ad, av, bd, bv, seed, ak, bk, hw, p=p, c_out_a=coa,
+                c_out_b=cob, cap_a=ca, cap_b=cb, swap=swap, backend=backend,
+            ))
     return torch.cat(outs, dim=1)  # (p, sum_k)
 
 
@@ -733,20 +923,20 @@ def join_need_many(spmd: SPMD, items, *, backend: str = "torch") -> List[GroupMe
     entries = []
     nks = []
     for as_, bs, seeds, m in items:
-        shareds = [[x for x in a.schema if x in b.schema] for a, b in zip(as_, bs)]
-        a_keys = [a.cols(sh) for a, sh in zip(as_, shareds)]
-        b_keys = [b.cols(sh) for b, sh in zip(bs, shareds)]
+        a_keys, b_keys = _pair_keys(as_, bs)
         nks.append(len(a_keys[0]))
         ad, av = _stack(as_)
         bd, bv = _stack(bs)
-        entries.append((
-            "hash", len(as_), m.lhs.c_out, m.rhs.c_out,
-            m.lhs.cap_recv, m.rhs.cap_recv,
-        ))
+        caps = (m.lhs.c_out, m.rhs.c_out, m.lhs.cap_recv, m.rhs.cap_recv)
         arrays.extend((
             ad, av, bd, bv, _seed_array(seeds, p, dev),
             _key_array(a_keys, p, dev), _key_array(b_keys, p, dev),
         ))
+        if m.hybrid_routed:
+            entries.append(("hybrid", len(as_)) + caps + (m.swap_spread,))
+            arrays.append(_heavy_array(m.heavy, p, dev))
+        else:
+            entries.append(("hash", len(as_)) + caps)
     cnt = _host(spmd.run(
         _join_need_round_shard, *arrays,
         entries=tuple(entries), p=p, backend=backend, measure=True,
@@ -875,6 +1065,137 @@ def dist_join_many(
         sent, dropped,
         padded_slots(p, c_out[0], as_[0].arity)
         + padded_slots(p, c_out[1], bs[0].arity),
+        wire_bytes=dense_wire_bytes(p, c_out[0], as_[0].arity)
+        + dense_wire_bytes(p, c_out[1], bs[0].arity),
+        ubytes=ub,
+    )
+
+
+# ------------------------------------------- hybrid (heavy-hitter) semijoin
+def _hybrid_semijoin_shard_b(sd, sv, rd, rv, seed, sk, rk, hw, *,
+                             p, c_out_s, c_out_r, cap_s, cap_r, backend):
+    """``_semijoin_shard_b`` with hybrid routing: S (the output side)
+    spread, R's deduplicated key projection broadcast for heavy keys.  An
+    S row lands on exactly one reducer either way, and every R key it can
+    match is there (hash-co-located for light keys, broadcast for heavy),
+    so the mask — and the output row set — is the hash semijoin's."""
+    nk = rk.shape[-1]
+    kcols = tuple(range(nk))
+    rkeys = _take(rd, rk)
+    rkv = local_dedup_mask(rkeys, rv, kcols)
+    rkeys = torch.where(rkv.unsqueeze(-1), rkeys, 0)
+    rk2, rkv2, sent_r, dr_r, hvy_r = _hybrid_exchange(
+        rkeys, rkv, _dests(rkeys, rkv, p, seed, backend), hw,
+        p=p, c_out=c_out_r, cap_recv=cap_r, spread=False,
+    )
+    rkv2 = local_dedup_mask(rk2, rkv2, kcols)
+    s2, s2v, sent_s, dr_s, hvy_s = _hybrid_exchange(
+        sd, sv, _dests(_take(sd, sk), sv, p, seed, backend), hw,
+        p=p, c_out=c_out_s, cap_recv=cap_s, spread=True,
+    )
+    mask = local_semijoin_mask(_take(s2, sk), s2v, kcols, rk2, rkv2, kcols, backend)
+    s2 = torch.where(mask.unsqueeze(-1), s2, 0)
+    ub = 4 * (nk * sent_r + sd.shape[-1] * sent_s)
+    return s2, mask, sent_r + sent_s, dr_r + dr_s, hvy_s + hvy_r, ub
+
+
+def hybrid_semijoin_many(
+    spmd: SPMD, ss: Sequence[DTable], rs: Sequence[DTable], *,
+    seeds: Sequence[int], heavy: np.ndarray, cap_recv: Tuple[int, int],
+    c_out: Optional[Tuple[int, int]] = None, backend: str = "torch",
+) -> Tuple[List[DTable], List[Dict]]:
+    """k-fold skew-resilient S_i |>< R_i in ONE dispatch: light keys hash,
+    heavy keys (``heavy`` (k, p) per-instance flags) spread/broadcast.
+    Same row sets as ``dist_semijoin_many``; stats carry the extra
+    ``'heavy'`` count of tuple-sends routed through the heavy path."""
+    p, dev = spmd.p, spmd.device
+    shareds = [[x for x in s.schema if x in r.schema] for s, r in zip(ss, rs)]
+    assert all(shareds), "semijoin with no shared attrs in batch"
+    # a row reaches each destination at most once, so the worst-case send
+    # bucket is the shard cap even for the broadcast side
+    c_out = c_out or (ss[0].cap, rs[0].cap)
+    sd, sv = _stack(ss)
+    rd, rv = _stack(rs)
+    sk, rk = (_key_array(ks, p, dev) for ks in _pair_keys(ss, rs))
+    od, ov, sent, dropped, hvy, ub = spmd.run(
+        _hybrid_semijoin_shard_b,
+        sd, sv, rd, rv, _seed_array(seeds, p, dev), sk, rk,
+        _heavy_array(heavy, p, dev),
+        p=p, c_out_s=c_out[0], c_out_r=c_out[1],
+        cap_s=cap_recv[0], cap_r=cap_recv[1], backend=backend,
+    )
+    return _unstack(od, ov, [s.schema for s in ss]), _per_op_stats(
+        sent, dropped,
+        padded_slots(p, c_out[0], ss[0].arity)
+        + padded_slots(p, c_out[1], len(shareds[0])),
+        heavy=hvy,
+        wire_bytes=dense_wire_bytes(p, c_out[0], ss[0].arity)
+        + dense_wire_bytes(p, c_out[1], len(shareds[0])),
+        ubytes=ub,
+    )
+
+
+# ----------------------------------------------- hybrid (heavy-hitter) join
+def _hybrid_join_shard_b(ad, av, bd, bv, seed, ak, bk, bkeep, hw, *,
+                         p, c_out_a, c_out_b, cap_a, cap_b, out_cap, swap, backend):
+    """``_join_shard_b`` with hybrid routing: one side spread, the other
+    broadcast for heavy keys (``swap`` picks which).  A heavy pair (a, b)
+    meets exactly once — at the unique reducer holding the spread copy;
+    light pairs meet at ``hash(key)``; heavy and light keys cannot
+    cross-match because heaviness is a function of the key."""
+    kcols = tuple(range(ak.shape[-1]))
+    a2, a2v, sent_a, dr_a, hvy_a = _hybrid_exchange(
+        ad, av, _dests(_take(ad, ak), av, p, seed, backend), hw,
+        p=p, c_out=c_out_a, cap_recv=cap_a, spread=not swap,
+    )
+    b2, b2v, sent_b, dr_b, hvy_b = _hybrid_exchange(
+        bd, bv, _dests(_take(bd, bk), bv, p, seed, backend), hw,
+        p=p, c_out=c_out_b, cap_recv=cap_b, spread=swap,
+    )
+    ra, rb = dense_ranks(_take(a2, ak), a2v, kcols, _take(b2, bk), b2v, kcols)
+    out, out_v, over = local_join_ranked(
+        a2, a2v, ra, b2, b2v, rb, bkeep, out_cap, backend
+    )
+    ub = 4 * (ad.shape[-1] * sent_a + bd.shape[-1] * sent_b)
+    return out, out_v, sent_a + sent_b, dr_a + dr_b + over, hvy_a + hvy_b, ub
+
+
+def hybrid_join_many(
+    spmd: SPMD, as_: Sequence[DTable], bs: Sequence[DTable], *,
+    seeds: Sequence[int], out_cap: int, heavy: np.ndarray,
+    c_out: Optional[Tuple[int, int]] = None,
+    cap_recv: Optional[Tuple[int, int]] = None,
+    swap: bool = False, backend: str = "torch",
+) -> Tuple[List[DTable], List[Dict]]:
+    """k-fold skew-resilient A_i |><| B_i in ONE dispatch; same row sets
+    as ``dist_join_many`` with heavy keys routed spread/broadcast.
+    ``swap`` (``GroupMeasure.swap_spread``) spreads B and broadcasts A."""
+    p, dev = spmd.p, spmd.device
+    shareds = [[x for x in a.schema if x in b.schema] for a, b in zip(as_, bs)]
+    assert all(shareds), "attribute-disjoint join in batch; use dist_join"
+    keeps = [
+        tuple(i for i, x in enumerate(b.schema) if x not in set(a.schema))
+        for a, b in zip(as_, bs)
+    ]
+    schemas = [schema_join(a.schema, b.schema) for a, b in zip(as_, bs)]
+    c_out = c_out or (as_[0].cap, bs[0].cap)
+    cap_recv = cap_recv or (p * as_[0].cap, p * bs[0].cap)
+    ad, av = _stack(as_)
+    bd, bv = _stack(bs)
+    ak, bk = (_key_array(ks, p, dev) for ks in _pair_keys(as_, bs))
+    od, ov, sent, dropped, hvy, ub = spmd.run(
+        _hybrid_join_shard_b,
+        ad, av, bd, bv, _seed_array(seeds, p, dev), ak, bk,
+        _key_array(keeps, p, dev), _heavy_array(heavy, p, dev),
+        p=p, c_out_a=c_out[0], c_out_b=c_out[1],
+        cap_a=cap_recv[0], cap_b=cap_recv[1], out_cap=out_cap, swap=swap,
+        backend=backend,
+    )
+    return _unstack(od, ov, schemas), _per_op_stats(
+        sent, dropped,
+        padded_slots(p, c_out[0], as_[0].arity)
+        + padded_slots(p, c_out[1], bs[0].arity),
+        heavy=hvy,
         wire_bytes=dense_wire_bytes(p, c_out[0], as_[0].arity)
         + dense_wire_bytes(p, c_out[1], bs[0].arity),
         ubytes=ub,

@@ -172,6 +172,9 @@ def grid_multiway_join(
     tables: List[DTable],
     *,
     out_cap: int,
+    c_out: Optional[int] = None,
+    cap_recv: Optional[int] = None,
+    sizes: Optional[Sequence[int]] = None,
     calibrate: bool = False,
     cals: Optional[List[Tuple[int, int]]] = None,
     fmts: Optional[List] = None,
@@ -189,7 +192,10 @@ def grid_multiway_join(
     grid dim) with the tight pow2 occupancy of the position groups.
     ``cals`` supplies those (c_out, cap_recv) pairs pre-measured by
     ``grid_multiway_count`` — the caller then owns the count-pad
-    accounting.  Only the dense wire is ported (``fmts`` must be None)."""
+    accounting.  ``c_out``/``cap_recv`` fix every relation's send and
+    receive capacity (they also turn ``calibrate`` off), and ``sizes``
+    replaces the relations' global slot counts in the grid shares.
+    Only the dense wire is ported (``fmts`` must be None)."""
     if fmts is not None:
         raise NotImplementedError(
             f"grid exchanges with wire formats (fmts=...) need the packed wire, "
@@ -202,12 +208,13 @@ def grid_multiway_join(
         return tables[0], {
             "sent": 0, "dropped": 0, "padded": 0, "wire_bytes": 0, "ubytes": 0,
         }
-    g, strides, all_offs = _grid_geometry([t.cap * t.p for t in tables], p)
+    sizes = list(sizes) if sizes is not None else [t.cap * t.p for t in tables]
+    g, strides, all_offs = _grid_geometry(sizes, p)
     acc = math.prod(g)
 
     count_pad = 0
     count_b = 0
-    if cals is None and calibrate:
+    if cals is None and calibrate and c_out is None and cap_recv is None:
         # ONE combined count dispatch for every relation's position-group
         # send (and one host sync), instead of one per relation
         oc, rt = spmd.run(
@@ -231,8 +238,8 @@ def grid_multiway_join(
         if cals is not None:
             co, cr = cals[i]
         else:
-            co = t.cap * n_other
-            cr = -(-(t.p * t.cap) // g[i])
+            co = c_out if c_out is not None else t.cap * n_other
+            cr = cap_recv if cap_recv is not None else -(-(t.p * t.cap) // g[i])
         rd, rv, stats = spmd.run(
             _grid_send_one, t.data, t.valid,
             g_self=g[i], stride=strides[i], offsets=all_offs[i], p=p,
@@ -325,11 +332,13 @@ def grid_semijoin(
     s: DTable,
     r: DTable,
     *,
+    out_cap: Optional[int] = None,
     seed: int = 0,
     backend: str = "torch",
 ) -> Tuple[DTable, Dict, int]:
     """Lemma 10: S |>< R in O(1) rounds, skew-proof grid + hash dedup of the
-    <= g_r marked duplicates.  Returns (table, stats, engine_rounds)."""
+    <= g_r marked duplicates.  ``out_cap`` is the dedup's receive capacity
+    (default S's cap).  Returns (table, stats, engine_rounds)."""
     shared = [x for x in s.schema if x in r.schema]
     assert shared
     p = spmd.p
@@ -353,7 +362,7 @@ def grid_semijoin(
     )
     # Round 2: dedup the marked copies (<= g_r per tuple) by full-row hash.
     ded, dstats = dist_dedup(
-        spmd, marked, seed=seed + 7, c_out=marked.cap, cap_recv=s.cap,
+        spmd, marked, seed=seed + 7, c_out=marked.cap, cap_recv=out_cap or s.cap,
         backend=backend,
     )
     return ded, {key: st[key] + dstats[key] for key in st}, 2
@@ -377,6 +386,7 @@ def tree_dedup(
     *,
     fan: int = 4,
     seed: int = 0,
+    cap_recv: Optional[int] = None,
 ) -> Tuple[DTable, Dict, int]:
     """Lemma 9: duplicate elimination in O(log_fan(p)) rounds.
 
@@ -384,10 +394,11 @@ def tree_dedup(
     shuffle to the shard selected by hash — per-round fan-in is bounded by
     ``fan`` predecessor groups (the paper's sqrt(M)-reducer merge tree), so
     no reducer's receive volume grows with the global duplicate count k.
-    Returns (table, stats, rounds)."""
+    ``cap_recv`` is every round's receive capacity (default ``t.cap *
+    fan``).  Returns (table, stats, rounds)."""
     p = spmd.p
     cols = tuple(range(len(t.schema)))
-    cap_recv = t.cap * fan
+    cap_recv = cap_recv or t.cap * fan
     cur = t
     total = {"sent": 0, "dropped": 0, "padded": 0, "wire_bytes": 0, "ubytes": 0}
     rounds = 0

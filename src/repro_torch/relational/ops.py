@@ -9,7 +9,14 @@ and ``padded`` (dense all_to_all slots the wire shipped, known from ``p``
 and each exchange's ``c_out``, so accounted host-side).
 
 The fused round path lives in ``batched``; these are the operators the
-materialization stage and the capacity manager call directly.
+materialization stage and the capacity manager call directly, plus the
+sequential fronts of every exchange (``repartition``, ``dist_semijoin``,
+``dist_intersect``) and of the hybrid heavy-hitter routing
+(``dist_join_hybrid``, ``dist_semijoin_hybrid``).
+
+``measure_exchange`` is the sequential count-only pre-pass: the tight
+per-exchange capacities it returns are what the capacity manager feeds
+back as ``c_out``/``cap_recv``.
 """
 from __future__ import annotations
 
@@ -23,11 +30,14 @@ from .hashing import hash_columns
 from .localops import (
     get_local_backend,
     local_dedup_mask,
+    local_intersect_mask,
     local_join,
     local_join_count,
     local_project,
+    local_semijoin_mask,
 )
 from .shuffle import exchange, exchange_counts, exchange_multi, padded_slots, pow2
+from .skew import DEFAULT_SKEW_THRESHOLD
 from .spmd import SPMD
 from .table import DTable, schema_join
 from .wire import count_wire_bytes, dense_wire_bytes
@@ -62,7 +72,59 @@ def _caps_from_counts(o, r) -> Tuple[int, int]:
     return pow2(max(1, int(o.max()))), pow2(max(1, int(r.max())))
 
 
+# ---------------------------------------------------------------- repartition
+def _repart_shard(data, valid, seed, *, cols, p, c_out, cap_recv, backend):
+    dest = get_local_backend(backend).dests(data, valid, cols, p, seed)
+    rd, rv, sent, ds, dr = exchange(data, valid, dest, p=p, c_out=c_out, cap_recv=cap_recv)
+    return rd, rv, _stats(sent, ds + dr, ubytes=4 * data.shape[-1] * sent)
+
+
+def repartition(
+    spmd: SPMD, t: DTable, attrs: Sequence[str], *, seed: int, c_out: int,
+    cap_recv: int, backend: str = "torch",
+) -> Tuple[DTable, Dict]:
+    """Hash-repartition ``t`` on ``attrs`` (one exchange, no local op)."""
+    rd, rv, stats = spmd.run(
+        _repart_shard, t.data, t.valid, spmd.seeds(seed),
+        cols=t.cols(attrs), p=spmd.p, c_out=c_out, cap_recv=cap_recv,
+        backend=backend,
+    )
+    return DTable(rd, rv, t.schema), agg_stats(
+        stats,
+        padded_slots(spmd.p, c_out, t.arity),
+        wire_bytes=dense_wire_bytes(spmd.p, c_out, t.arity),
+    )
+
+
 # ------------------------------------------------------ count-only pre-pass
+def _exchange_count_shard(data, valid, seed, *, cols, p, dedup, backend):
+    """Mirror of the map stage of one exchange, counts only: same key
+    columns, same seed, same destination hash — but the exchange carries
+    a (p,)-int count vector instead of the payload buffer."""
+    be = get_local_backend(backend)
+    if dedup:  # semijoin ships the deduplicated key projection of R
+        keys, v = local_project(data, valid, cols, dedup=True)
+        dest = be.dests(keys, v, tuple(range(len(cols))), p, seed)
+    else:
+        dest = be.dests(data, valid, cols, p, seed)
+    return exchange_counts(dest, p)
+
+
+def measure_exchange(
+    spmd: SPMD, t: DTable, attrs: Sequence[str], *, seed: int,
+    dedup: bool = False, backend: str = "torch",
+) -> Tuple[int, int]:
+    """Count-only pre-pass of ``t``'s hash exchange on ``attrs``: one tiny
+    dispatch returning the tight pow2 ``(c_out, cap_recv)`` for the payload
+    exchange that follows with the SAME seed."""
+    out_counts, recv_tot = spmd.run(
+        _exchange_count_shard, t.data, t.valid, spmd.seeds(seed),
+        cols=t.cols(attrs), p=spmd.p, dedup=dedup, backend=backend,
+        measure=True,
+    )
+    return _caps_from_counts(out_counts.cpu(), recv_tot.cpu())
+
+
 def _exchange_count_pair_shard(
     ad, av, bd, bv, seed, *, cols_a, cols_b, p, dedup_a, dedup_b, backend
 ):
@@ -229,6 +291,176 @@ def dist_join(
         wire_bytes=dense_wire_bytes(p, c_out[0], a.arity)
         + dense_wire_bytes(p, c_out[1], b.arity)
         + count_bytes,
+    )
+
+
+# --------------------------------------------- hybrid (heavy-hitter) variants
+def dist_join_hybrid(
+    spmd: SPMD, a: DTable, b: DTable, *, seed: int,
+    out_cap: Optional[int] = None, skew_threshold: Optional[float] = None,
+    backend: str = "torch",
+) -> Tuple[DTable, Dict]:
+    """Skew-resilient hash join: the count pre-pass detects heavy keys
+    (``relational.skew``) and routes them grid-style — one side's heavy
+    rows spread over all p reducers, the other's broadcast — while light
+    keys keep the plain hash exchange.  Row set identical to
+    ``dist_join``; stats gain ``'heavy'`` (tuple-sends on the heavy path),
+    and the measure pre-pass's wire cost is folded into ``'padded'``.
+    ``out_cap=None`` uses the pre-counted exact output requirement under
+    the hybrid placement."""
+    shared = [x for x in a.schema if x in b.schema]
+    if not shared:  # broadcast cross join: already skew-free
+        assert out_cap is not None, "cross join needs an explicit out_cap"
+        out, st = dist_join(spmd, a, b, seed=seed, out_cap=out_cap, backend=backend)
+        st.setdefault("heavy", 0)
+        return out, st
+    from . import batched as B  # function-level: batched imports grid -> ops
+
+    thresh = DEFAULT_SKEW_THRESHOLD if skew_threshold is None else skew_threshold
+    m = B.measure_join_many(
+        spmd, [a], [b], seeds=[seed], backend=backend,
+        hybrid=True, skew_threshold=thresh,
+    )
+    kw = dict(
+        seeds=[seed], out_cap=out_cap if out_cap is not None else m.out_need,
+        c_out=(m.lhs.c_out, m.rhs.c_out),
+        cap_recv=(m.lhs.cap_recv, m.rhs.cap_recv), backend=backend,
+    )
+    if m.hybrid_routed:
+        outs, stats = B.hybrid_join_many(
+            spmd, [a], [b], heavy=m.heavy, swap=m.swap_spread, **kw
+        )
+    else:
+        outs, stats = B.dist_join_many(spmd, [a], [b], **kw)
+    return outs[0], _with_measure(stats[0], m)
+
+
+def dist_semijoin_hybrid(
+    spmd: SPMD, s: DTable, r: DTable, *, seed: int,
+    cap_recv: Optional[int] = None, skew_threshold: Optional[float] = None,
+    backend: str = "torch",
+) -> Tuple[DTable, Dict]:
+    """Skew-resilient S |>< R: heavy S rows spread positionally, heavy R
+    keys broadcast; light keys hash as in ``dist_semijoin``.  Row set
+    identical; ``cap_recv`` (the S-side output capacity) defaults to the
+    measured hybrid arrival bound."""
+    shared = [x for x in s.schema if x in r.schema]
+    assert shared, f"semijoin with no shared attrs: {s.schema} vs {r.schema}"
+    from . import batched as B  # function-level: batched imports grid -> ops
+
+    thresh = DEFAULT_SKEW_THRESHOLD if skew_threshold is None else skew_threshold
+    m = B.measure_semijoin_many(
+        spmd, [s], [r], seeds=[seed], backend=backend,
+        hybrid=True, skew_threshold=thresh,
+    )
+    kw = dict(
+        seeds=[seed], c_out=(m.lhs.c_out, m.rhs.c_out),
+        cap_recv=(max(cap_recv or 0, m.lhs.cap_recv), m.rhs.cap_recv),
+        backend=backend,
+    )
+    if m.hybrid_routed:
+        outs, stats = B.hybrid_semijoin_many(spmd, [s], [r], heavy=m.heavy, **kw)
+    else:
+        outs, stats = B.dist_semijoin_many(spmd, [s], [r], **kw)
+    return outs[0], _with_measure(stats[0], m)
+
+
+def _with_measure(stats: Dict, m) -> Dict:
+    """One hybrid op's stats with its measure pre-pass's wire cost folded
+    in and a ``'heavy'`` count even when nothing routed heavy."""
+    st = dict(stats)
+    st["padded"] = st.get("padded", 0) + m.padded
+    st["wire_bytes"] = st.get("wire_bytes", 0) + m.wire_bytes
+    st.setdefault("heavy", 0)
+    return st
+
+
+# ------------------------------------------------------------------- semijoin
+def _semijoin_shard(
+    s_data, s_valid, r_data, r_valid, seed, *,
+    s_key, r_key, p, c_out_s, c_out_r, cap_s, cap_r, backend,
+):
+    be = get_local_backend(backend)
+    # ship only the deduplicated key projection of R (S |>< R = S |><
+    # pi_{S&R}(R)), as in Sec. 4.1
+    rk, rkv = local_project(r_data, r_valid, r_key, dedup=True)
+    kcols = tuple(range(len(r_key)))
+    dr_dest = be.dests(rk, rkv, kcols, p, seed)
+    rk2, rkv2, sent_r, dsr, drr = exchange(rk, rkv, dr_dest, p=p, c_out=c_out_r, cap_recv=cap_r)
+    rkv2 = local_dedup_mask(rk2, rkv2, kcols)
+    ds_dest = be.dests(s_data, s_valid, s_key, p, seed)
+    s2, s2v, sent_s, dss, drs = exchange(s_data, s_valid, ds_dest, p=p, c_out=c_out_s, cap_recv=cap_s)
+    mask = local_semijoin_mask(s2, s2v, s_key, rk2, rkv2, kcols, backend)
+    s2 = torch.where(mask.unsqueeze(-1), s2, 0)
+    ub = 4 * (rk.shape[-1] * sent_r + s_data.shape[-1] * sent_s)
+    return s2, mask, _stats(sent_r + sent_s, dsr + drr + dss + drs, ubytes=ub)
+
+
+def dist_semijoin(
+    spmd: SPMD, s: DTable, r: DTable, *, seed: int,
+    c_out: Optional[Tuple[int, int]] = None,
+    cap_recv: Optional[Tuple[int, int]] = None, backend: str = "torch",
+) -> Tuple[DTable, Dict]:
+    """S |>< R on shared attributes; result has S's schema (repartitioned)."""
+    shared = [x for x in s.schema if x in r.schema]
+    assert shared, f"semijoin with no shared attrs: {s.schema} vs {r.schema}"
+    p = spmd.p
+    c_out = c_out or (s.cap, r.cap)
+    cap_recv = cap_recv or (p * s.cap, p * r.cap)
+    sd, sv, stats = spmd.run(
+        _semijoin_shard,
+        s.data, s.valid, r.data, r.valid, spmd.seeds(seed),
+        s_key=s.cols(shared), r_key=r.cols(shared), p=p,
+        c_out_s=c_out[0], c_out_r=c_out[1],
+        cap_s=cap_recv[0], cap_r=cap_recv[1], backend=backend,
+    )
+    return DTable(sd, sv, s.schema), agg_stats(
+        stats,
+        # S ships full rows; R ships only its deduplicated key projection
+        padded_slots(p, c_out[0], s.arity) + padded_slots(p, c_out[1], len(shared)),
+        wire_bytes=dense_wire_bytes(p, c_out[0], s.arity)
+        + dense_wire_bytes(p, c_out[1], len(shared)),
+    )
+
+
+# ------------------------------------------------------------------ intersect
+def _intersect_shard(
+    a_data, a_valid, b_data, b_valid, seed, *,
+    a_cols, b_cols, p, c_out_a, c_out_b, cap_a, cap_b, backend,
+):
+    be = get_local_backend(backend)
+    da = be.dests(a_data, a_valid, a_cols, p, seed)
+    a2, a2v, sent_a, dsa, dra = exchange(a_data, a_valid, da, p=p, c_out=c_out_a, cap_recv=cap_a)
+    db = be.dests(b_data, b_valid, b_cols, p, seed)
+    b2, b2v, sent_b, dsb, drb = exchange(b_data, b_valid, db, p=p, c_out=c_out_b, cap_recv=cap_b)
+    mask = local_intersect_mask(a2, a2v, b2, b2v, a_cols, b_cols, backend)
+    a2 = torch.where(mask.unsqueeze(-1), a2, 0)
+    ub = 4 * (a_data.shape[-1] * sent_a + b_data.shape[-1] * sent_b)
+    return a2, mask, _stats(sent_a + sent_b, dsa + dra + dsb + drb, ubytes=ub)
+
+
+def dist_intersect(
+    spmd: SPMD, a: DTable, b: DTable, *, seed: int,
+    c_out: Optional[Tuple[int, int]] = None,
+    cap_recv: Optional[Tuple[int, int]] = None, backend: str = "torch",
+) -> Tuple[DTable, Dict]:
+    """A intersect B (same attr sets, any column order); result: A's rows."""
+    assert set(a.schema) == set(b.schema), (a.schema, b.schema)
+    p = spmd.p
+    c_out = c_out or (a.cap, b.cap)
+    cap_recv = cap_recv or (p * a.cap, p * b.cap)
+    ad, av, stats = spmd.run(
+        _intersect_shard,
+        a.data, a.valid, b.data, b.valid, spmd.seeds(seed),
+        a_cols=tuple(range(len(a.schema))), b_cols=b.cols(a.schema), p=p,
+        c_out_a=c_out[0], c_out_b=c_out[1],
+        cap_a=cap_recv[0], cap_b=cap_recv[1], backend=backend,
+    )
+    return DTable(ad, av, a.schema), agg_stats(
+        stats,
+        padded_slots(p, c_out[0], a.arity) + padded_slots(p, c_out[1], b.arity),
+        wire_bytes=dense_wire_bytes(p, c_out[0], a.arity)
+        + dense_wire_bytes(p, c_out[1], b.arity),
     )
 
 

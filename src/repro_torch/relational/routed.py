@@ -4,8 +4,10 @@
 shards.  Tensors carry the reducer axis first and any further batch axes
 (a fused op group's instances) after it: data ``(p, *K, n, ar)``, valid
 ``(p, *K, n)``.  ``dests`` ``(p, *K, n)`` is a single-destination send
-(the hash exchange); ``(p, *K, n, g)`` is a replicated send (the
-broadcast cross join), with in-row duplicate destinations deduplicated.
+(the hash exchange, optionally with heavy-hitter round-robin spreading
+via ``heavy=``); ``(p, *K, n, g)`` is a replicated send (the broadcast
+cross join, grid offsets, heavy broadcast), with in-row duplicate
+destinations deduplicated.
 
 Map stage: ``_bucketize`` scatters each shard's rows into ``(p, c_out)``
 destination buckets with one stable sort.  Network: the ``all_to_all`` is
@@ -16,12 +18,12 @@ abort-retries with larger capacities.
 from __future__ import annotations
 
 import dataclasses
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
 from .localops import _seg, compact
-from .skew import DEFAULT_SKEW_THRESHOLD
+from .skew import DEFAULT_SKEW_THRESHOLD, heavy_dest_flags, heavy_dest_flags_many, split_dests
 
 
 def pow2(x: int) -> int:
@@ -135,7 +137,7 @@ class RoutedResult(NamedTuple):
     sent: torch.Tensor          # rows that made it into a send bucket
     dropped_send: torch.Tensor  # rows lost to a full send bucket (c_out)
     dropped_recv: torch.Tensor  # rows lost to a full receive buffer (cap_recv)
-    heavy_sent: torch.Tensor    # rows routed via the heavy-hitter spread (0)
+    heavy_sent: torch.Tensor    # rows routed via the heavy-hitter spread
 
 
 def routed_all_to_all(
@@ -146,17 +148,29 @@ def routed_all_to_all(
     p: int,
     c_out: int,
     cap_recv: int,
+    heavy: Optional[torch.Tensor] = None,
 ) -> RoutedResult:
     """Route rows to destination shards over the dense wire (the packed
-    wire and heavy-hitter spreading are not ported yet)."""
+    wire is not ported yet).
+
+    ``heavy`` (p, *K, p) bool, single-destination sends only: rows bound
+    for a destination the count pre-pass flagged heavy are spread
+    round-robin over all p shards (``skew.split_dests`` — Lemma 8's
+    position-partitioned side, restricted to the heavy keys).  The
+    consumer owns putting the matching state everywhere."""
     lead = tuple(data.shape[:-2])
     ar = data.shape[-1]
     assert lead[0] == p, (lead, p)
+    heavy_sent = None
     if dests.dim() == data.dim():  # (p, *K, n, g): replicated send
+        assert heavy is None, "heavy spreading applies to single-dest routes"
         rows, flat_dest = _multi_flatten(data, valid, dests, p)
     else:
         rows = data
         flat_dest = torch.where(valid, dests, p).to(torch.int32)
+        if heavy is not None:
+            flat_dest, is_heavy = split_dests(flat_dest, heavy, p)
+            heavy_sent = (is_heavy & valid).sum(-1)
     buf, bufv, sent, dropped_send = _bucketize(
         _seg(rows, 2), _seg(flat_dest, 1), p, c_out
     )
@@ -167,10 +181,11 @@ def routed_all_to_all(
         buf.reshape(lead + (p * c_out, ar)), bufv.reshape(lead + (p * c_out,)),
         cap_recv,
     )
-    zero = torch.zeros(lead, dtype=torch.int64, device=data.device)
+    if heavy_sent is None:
+        heavy_sent = torch.zeros(lead, dtype=torch.int64, device=data.device)
     return RoutedResult(
         rdata, rv, sent.reshape(lead), dropped_send.reshape(lead), dropped_recv,
-        zero,
+        heavy_sent,
     )
 
 
@@ -192,3 +207,13 @@ class RoutePolicy:
             raise NotImplementedError(
                 "RoutePolicy: the packed wire is not ported yet (ROADMAP queue A)"
             )
+
+    # -- heavy-hitter detection ---------------------------------------------
+    def heavy_flags(self, out_counts, p: int):
+        """(shards, p) send-count matrix -> (p,) heavy-destination flags
+        at this policy's threshold."""
+        return heavy_dest_flags(out_counts, p, self.skew_threshold)
+
+    def heavy_flags_many(self, out_counts, p: int):
+        """(shards, k, p) group send counts -> (k, p) flags."""
+        return heavy_dest_flags_many(out_counts, p, self.skew_threshold)

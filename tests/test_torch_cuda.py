@@ -6,7 +6,7 @@ runs on a machine with PyTorch alone:
 
 Each gym kernel must equal its plain PyTorch version exactly, the flash
 attention kernel must agree with its plain version within the f32/bf16
-tolerances stated below, and the default ``gym()``, the grid engine and
+tolerances stated below, and the default ``gym()``, the grid and hybrid engines and
 the log-depth entry points with the ``'cuda'`` backend must equal the
 ``'torch'`` backend in rows and ledger."""
 from __future__ import annotations
@@ -412,3 +412,69 @@ def test_cuda_semijoin_bitmap_broken_promise_traps(cuda_device, key, traps):
         assert proc.returncode != 0 and "mask" not in proc.stdout, proc.stdout
     else:
         assert proc.returncode == 0 and "mask 2" in proc.stdout, proc.stderr[-2000:]
+
+
+def _planted_pair(dev, p=4, heavy=30, light=10, seed=1):
+    """(A, B) join pair with ``heavy`` distinct A rows sharing B = 0 (the
+    reference skew tests' planted pair), scattered onto ``dev``."""
+    from repro_torch.relational.table import DTable
+
+    rng = np.random.default_rng(seed)
+    a = np.stack([rng.permutation(heavy + light),
+                  np.concatenate([np.zeros(heavy, int), rng.integers(1, 16, light)])], 1)
+    b = np.stack([np.arange(16), rng.integers(0, 9, 16)], 1)
+    return (
+        DTable.scatter_numpy(np.unique(a.astype(np.int32), axis=0), ("A", "B"), p, cap=16, device=dev),
+        DTable.scatter_numpy(np.unique(b.astype(np.int32), axis=0), ("B", "C"), p, cap=8, device=dev),
+    )
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("op", ["join", "semijoin"])
+def test_cuda_hybrid_payloads_match_torch_backend(cuda_device, op):
+    """Both hybrid payloads (``hybrid_join_many``, ``hybrid_semijoin_many``)
+    through their sequential fronts on a planted heavy key: the 'cuda'
+    backend equals the 'torch' backend in the output planes and stats,
+    the key routes heavy, and the op's kernels launch."""
+    from repro_torch.kernels import ops as K
+    from repro_torch.relational import ops as R
+    from repro_torch.relational.spmd import SPMD
+
+    spmd = SPMD(4, device=cuda_device)
+    a, b = _planted_pair(cuda_device)
+    fn = R.dist_join_hybrid if op == "join" else R.dist_semijoin_hybrid
+    # a join expands its matches with the sorted probe, a semijoin masks
+    # with the semijoin probe; both route with hash_partition
+    probe = "sorted_probe_ranges" if op == "join" else "semijoin_probe"
+    K.reset_launch_counts()
+    out, st = fn(spmd, a, b, seed=5, backend="cuda")
+    assert K.launch_counts()["hash_partition"] > 0 and K.launch_counts()[probe] > 0
+    tout, tst = fn(spmd, a, b, seed=5, backend="torch")
+    assert torch.equal(out.data, tout.data) and torch.equal(out.valid, tout.valid)
+    assert st == tst and st["heavy"] > 0 and st["dropped"] == 0
+
+
+@pytest.mark.cuda
+def test_cuda_hybrid_engine_planted_star_matches_torch_backend(cuda_device):
+    """``strategy="hybrid"`` on the planted heavy-key S_8 of the reference
+    skew tests (p = 4): 'cuda' equals 'torch' in rows and every record,
+    heavy keys route, no retry, and every gym kernel launches."""
+    from repro_torch.core.gym import GymConfig, gym
+    from repro_torch.core.queries import star_ghd, star_query
+    from repro_torch.data.synthetic import star_data_heavy
+    from repro_torch.kernels import ops as K
+
+    q, g = star_query(8), star_ghd(8)
+    data = star_data_heavy(8, hub_rows=64, heavy_share=0.8, domain=32, spoke_extra=8, seed=5)
+    K.reset_launch_counts()
+    rows, schema, led = gym(q, data, ghd=g, p=4, device="cuda",
+                            config=GymConfig(strategy="hybrid", seed=3))
+    assert all(K.launch_counts()[k] > 0 for k in GYM_KERNELS)
+    trows, tschema, tled = gym(q, data, ghd=g, p=4, device="cuda",
+                               config=GymConfig(strategy="hybrid", seed=3, local_backend="torch"))
+    assert tuple(schema) == tuple(tschema)
+    np.testing.assert_array_equal(rows, trows)
+    assert [dataclasses.asdict(r) for r in led.records] == [
+        dataclasses.asdict(r) for r in tled.records
+    ]
+    assert led.heavy_tuples > 0 and led.retries == 0

@@ -63,7 +63,19 @@ def test_grid_strategy_skew_case_matches_reference():
 
 
 def test_hybrid_strategy_names_its_roadmap_item():
-    with pytest.raises(NotImplementedError, match="hybrid engine"):
-        TGymConfig(strategy="hybrid")
+    """``"hybrid"`` once raised, naming its ROADMAP item; the engine is now
+    registered, forces calibration on and runs (its parity with the
+    reference is in ``test_torch_gym_hybrid*.py``)."""
+    from repro_torch.core.physical import ENGINES
+
+    assert TGymConfig(strategy="hybrid").strategy == "hybrid"
+    assert ENGINES["hybrid"].requires_measure
+    rows, _, led = tgym(
+        to_port_query(chain_query(2)), {"R1": np.array([[0, 1], [2, 1]], np.int32),
+                         "R2": np.array([[1, 5]], np.int32)},
+        p=4, device="cpu", config=TGymConfig(strategy="hybrid", calibrate_shuffle=False),
+    )
+    assert sorted(map(tuple, rows.tolist())) == [(0, 1, 5), (2, 1, 5)]
+    assert led.measure_dispatches > 0  # the count pre-pass ran anyway
     with pytest.raises(ValueError, match="registered engines"):
         TGymConfig(strategy="nope")

@@ -108,10 +108,19 @@ def test_later_slices_raise():
         GymConfig(wire_format="packed")
     with pytest.raises(NotImplementedError, match="advisor"):
         GymConfig(plan="auto")
-    # the grid engine is ported; the hybrid engine names its ROADMAP item
+    # the grid and hybrid engines are ported; the hybrid engine forces
+    # the count pre-pass on and runs
     assert GymConfig(strategy="grid").strategy == "grid"
-    with pytest.raises(NotImplementedError, match="hybrid engine"):
-        GymConfig(strategy="hybrid")
+    from repro_torch.core.gym import gym
+    from repro_torch.core.physical import ENGINES
+    from repro_torch.core.queries import chain_query
+
+    assert ENGINES["hybrid"].requires_measure
+    rows, _, led = gym(
+        chain_query(2), {"R1": np.array([[0, 1]], np.int32), "R2": np.array([[1, 2]], np.int32)},
+        p=2, device="cpu", config=GymConfig(strategy="hybrid", calibrate_shuffle=False),
+    )
+    assert rows.tolist() == [[0, 1, 2]] and led.measure_dispatches > 0
     from repro_torch.relational.spmd import SPMD
 
     with pytest.raises(NotImplementedError):
