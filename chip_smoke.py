@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port of GYM on one CUDA card.
 
-    python3 chip_smoke.py [--seed N] [--reps N] [--phases gym,grid,skew,logdepth,lm]
+    python3 chip_smoke.py [--seed N] [--reps N] [--phases gym,grid,skew,logdepth,wire,lm]
 
 Run from the root of a checkout on a machine with a CUDA card (sm_90a,
 an H100) and the CUDA toolkit.  In order it:
@@ -64,14 +64,33 @@ an H100) and the CUDA toolkit.  In order it:
    count; it prints rounds, comm, the largest bag, peak device memory and
    cold/warm seconds.  Every gym kernel must launch on each of the grid
    and logdepth phases;
-8. (phase ``lm``) drives the port's LM serving path — ``generate`` over
+8. (phase ``wire``) drives ``GymConfig(wire_format="packed")`` — the
+   bit-packed exchange, whose codec runs the ``wire_encode`` /
+   ``wire_decode`` kernels — and ``GymConfig(plan="auto")``: S_8, C_8 and
+   TC_9 at bench size under ``hash``, ``grid`` and ``hybrid`` (``'cuda'``
+   == ``'torch'`` in rows, schema and every record; rows, comm, retries
+   and useful bytes equal to the dense run, payload bytes below it); the
+   gym phase's real-size data under ``hash`` (cold and warm seconds,
+   payload bytes and peak device memory against the gym phase's dense
+   run — at most ``WIRE_PEAK_RATIO_MAX`` times it — rows == numpy); and
+   ``plan="auto"`` with the packed wire on the bench and real families
+   and the skew phase's real ``S_8_heavy``, whose chosen plan key must
+   equal the advisor's on the host from the same statistics, with every
+   gym and codec kernel launched (the plan keeps the ``'cuda'`` backend).
+   Before any phase the codec kernels are held exactly equal to the plain
+   versions at edge cases (arity 0, negative 32-bit columns, c off a
+   multiple of 8 and c = 0, empty and full buckets, row_bits 2 to 257,
+   the golden fixture ``tests/fixtures/wire_s8_packed.npz``).  With both
+   sizes, the gym phase's dense counts must equal those from before the
+   packed wire (``DENSE_BASELINE``);
+9. (phase ``lm``) drives the port's LM serving path — ``generate`` over
    ``DecoderLM.prefill`` and ``decode_step`` — on gemma2-9b at full width
    and depth in bf16 with random weights from ``--seed``: a batch of two
    4608-token prompts, 16 greedy tokens, the ``'cuda'`` backend.  The
    flash kernel must launch exactly 42 times per ``generate`` (once per
    layer, in prefill), and the per-step logits must agree with a
    teacher-forced replay through the ``'torch'`` backend on the card;
-9. times each kernel at the largest inputs its path gave it (CUDA events,
+10. times each kernel at the largest inputs its path gave it (CUDA events,
    L2 flushed before each launch) beside its plain version, one PyTorch
    library call where one computes the same function, and its bound,
    prints the sorted probe's census of that call (the share of probes its
@@ -116,14 +135,30 @@ I32MAX = 2**31 - 1
 
 GYM_SOURCE = "src/repro_torch/csrc/gym_kernels.cu"
 FLASH_SOURCE = "src/repro_torch/csrc/flash_attention.cu"
+WIRE_SOURCE = "src/repro_torch/csrc/wire_codec.cu"
 GYM_KERNELS = ("hash_partition", "semijoin_probe", "sorted_probe_ranges")
+WIRE_KERNELS = ("wire_encode", "wire_decode")
 KERNELS = {
     # kernel name -> the TPU kernel (file:line of its body) it replaces
     "hash_partition": "src/repro/kernels/hash_partition.py:49",
     "semijoin_probe": "src/repro/kernels/semijoin_probe.py:33",
     "sorted_probe_ranges": "src/repro/kernels/sorted_probe.py:40",
     "flash_attention": "src/repro/kernels/flash_attention.py:34",
+    # the packed wire's codec has no TPU kernel: the reference computes it
+    # with XLA element-wise operations; these are its functions
+    "wire_encode": "src/repro/relational/wire.py:164",
+    "wire_decode": "src/repro/relational/wire.py:188",
 }
+# the dense gym phase's counts before the packed wire was ported (bench and
+# real size, PERF.md section 6): dispatches and padded slots of the
+# real-size runs, and the gym kernels' launches over the phase's 'cuda' runs
+DENSE_BASELINE = {
+    "dispatches": {"S_8": 45, "C_8": 53, "TC_9": 38},
+    "padded": {"S_8": 1945113472, "C_8": 374343680, "TC_9": 295700352},
+    "launches": {"hash_partition": 740, "semijoin_probe": 120, "sorted_probe_ranges": 156},
+}
+# the wire phase: packed peak device memory at most this multiple of dense's
+WIRE_PEAK_RATIO_MAX = 1.25
 # the log-depth phase: C_16 on real_chain(16, ident=LOGDEPTH_IDENT,
 # extra=64, domain=4096), about 256 tuples a relation, so that Log-GTA's
 # cross bag pi_A4(R4) x pi_A6(R6) x pi_A8(R8) holds about 256^3 = 2^24
@@ -724,6 +759,15 @@ def real_answer(seed: int, fam: str):
     return np_answer(q, data)
 
 
+def peak_reset(torch) -> int:
+    """Start a peak-memory window: returns the bytes already allocated
+    (the recorders' kept inputs, say), which the run's peak is taken
+    above, so a run's figure is the device memory it allocated itself."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    return torch.cuda.memory_allocated()
+
+
 def run_gym(torch, gym_mod, q, g, data, backend, strategy="hash"):
     cfg = gym_mod.GymConfig(strategy=strategy, seed=23, local_backend=backend)
     torch.cuda.synchronize()
@@ -763,7 +807,10 @@ def main_path(torch, seed: int, sizes=("bench", "real"), strategy="hash", audit=
             per_run.update({f"semijoin_probe/{k}": v
                             for k, v in K.semijoin_probe_path_counts().items()})
             check(K.launch_counts()["flash_attention"] == 0, "gym launched flash_attention")
+            check(all(K.launch_counts()[k] == 0 for k in WIRE_KERNELS), "dense gym launched the codec")
+            base = peak_reset(torch)
             rows2, schema2, led2, warm = run_gym(torch, gym_mod, q, g, data, "cuda", strategy)
+            peak = torch.cuda.max_memory_allocated() - base
             for k in GYM_KERNELS:
                 totals[k] += K.launch_counts()[k]
             for k, v in K.semijoin_probe_path_counts().items():
@@ -803,6 +850,7 @@ def main_path(torch, seed: int, sizes=("bench", "real"), strategy="hash", audit=
                 f"rounds={led.rounds} dispatches={led.measured_dispatches} "
                 f"measure_dispatches={led.measure_dispatches} retries={led.retries} "
                 f"comm={led.comm_tuples}{hash_comm} padded_slots={led.padded_slots} "
+                f"payload_bytes={led.payload_bytes} warm_peak_bytes={peak} "
                 f"launches_per_run={per_run} cuda==torch rows+ledger: yes"
                 + (" rows==numpy join: yes" if size == "real" else ""),
                 flush=True,
@@ -810,6 +858,7 @@ def main_path(torch, seed: int, sizes=("bench", "real"), strategy="hash", audit=
             summary[f"{fam}/{size}"] = dict(cold_s=cold, warm_s=warm, out=led.output_tuples,
                                             dispatches=led.measured_dispatches,
                                             comm=led.comm_tuples, padded=led.padded_slots,
+                                            payload_bytes=led.payload_bytes, peak=peak,
                                             records=recs, launches=per_run)
     return summary, totals
 
@@ -1265,6 +1314,277 @@ def skew_phase(torch, seed: int, audit, gym_summary=None, sizes=("bench", "real"
     return summary, totals
 
 
+# ------------------------------------------------------------ packed wire
+def wire_edge_checks(torch, dev):
+    """The codec kernels' bytes exactly equal to the plain bit-plane
+    version's, and decode the exact inverse, at edge cases: arity 0,
+    negative 32-bit columns, c off a multiple of 8 and c = 0, empty and
+    full buckets, row_bits from 2 to 1 + 8 * 32, many segments, and the
+    golden fixture's bytes."""
+    from repro_torch.kernels import wire_codec as WC
+    from repro_torch.relational import wire as W
+
+    rng = np.random.default_rng(11)
+    n_checks = 0
+    cases = [((), 5, 37, "random"), ((32, 32), 3, 64, "random"), ((6,) * 7, 8, 33, "random"),
+             ((6,) * 7, 8, 0, "random"), ((5, 1, 17), 4, 40, "empty"), ((5, 1, 17), 4, 40, "full"),
+             ((21,) * 7, 64, 4099, "random")]
+    cases += [((b,) * k, 3, 24, "random") for b, k in ((1, 1), (3, 1), (31, 1), (32, 1), (7, 5),
+                                                        (32, 4), (32, 8))]
+    for col_bits, segs, c, occ in cases:
+        cols = []
+        for nb in col_bits:
+            lo = -(2**31) if nb == 32 else 0
+            cols.append(rng.integers(lo, 2**nb if nb < 32 else 2**31, (segs, c)).astype(np.int32))
+        buf = np.stack(cols, -1) if cols else np.zeros((segs, c, 0), np.int32)
+        valid = {"empty": np.zeros((segs, c), bool), "full": np.ones((segs, c), bool)}.get(
+            occ, rng.random((segs, c)) < 0.6)
+        fmt = W.WireFormat(col_bits)
+        tb, tv = torch.from_numpy(buf).to(dev), torch.from_numpy(valid).to(dev)
+        got = WC.wire_encode(tb, tv, fmt)
+        check(torch.equal(got, W.wire_encode(tb, tv, fmt)),
+              f"wire_encode != plain at bits {col_bits} segments {segs} c {c} {occ}")
+        b2, v2 = WC.wire_decode(got, fmt, c)
+        check(torch.equal(b2, tb) and torch.equal(v2, tv),
+              f"wire_decode does not invert encode at bits {col_bits} c {c} {occ}")
+        n_checks += 2
+    z = np.load(os.path.join(HERE, "tests", "fixtures", "wire_s8_packed.npz"))
+    fmt = W.WireFormat(tuple(int(b) for b in z["col_bits"]))
+    packed = torch.from_numpy(z["wire"]).to(dev)
+    b2, v2 = WC.wire_decode(packed, fmt, int(z["c_out"]))
+    pb, pv = W.wire_decode(packed, fmt, int(z["c_out"]))
+    check(torch.equal(b2, pb) and torch.equal(v2, pv), "wire_decode != plain on the golden fixture")
+    check(torch.equal(WC.wire_encode(b2, v2, fmt), packed), "wire_encode != the golden fixture bytes")
+    torch.cuda.synchronize()
+    return n_checks + 2
+
+
+def advisor_key(q, g, data, wire_format, p=8, deduped=False):
+    """The plan ``GymConfig(plan="auto")`` should choose, computed on the
+    host from the same statistics ``GymDriver`` uses (``deduped``: every
+    relation is already a set, as ``real_chain``/``real_star`` make them,
+    so the distinct counts are the row counts)."""
+    from repro_torch.core import optimizer as O
+    from repro_torch.core.costs import DEFAULT_DISPATCH_OVERHEAD_SLOTS
+    from repro_torch.relational.wire import WirePolicy, wire_gain
+
+    rows = {a.alias: (np.asarray(data[a.rel], np.int32) if deduped
+                      else np.unique(np.asarray(data[a.rel], np.int32), axis=0)) for a in q.atoms}
+    stats = {a.rel: int(rows[a.alias].shape[0]) for a in q.atoms}
+    skew = {a.rel: O.skew_share(rows[a.alias]) for a in q.atoms}
+    pol = WirePolicy.from_columns([(a.attrs, rows[a.alias]) for a in q.atoms])
+    wg = wire_gain([pol.format_for(a.attrs) for a in q.atoms]) if wire_format == "packed" else 1.0
+    return O.choose_plan(
+        q, stats, profile=O.MachineProfile(p=p, dispatch_overhead=DEFAULT_DISPATCH_OVERHEAD_SLOTS),
+        hand_ghd=g, local_backend=None, calibrate_shuffle=True, skew=skew,
+        calibrate_options=(True, False), wire_gain=wg,
+    ).key
+
+
+def wire_phase(torch, seed: int, audit, gym_summary=None, sizes=("bench", "real")):
+    """The packed wire and the plan advisor (see the module doc).  Returns
+    (summary, launches over the phase's 'cuda' runs, recorded codec calls)."""
+    from repro_torch.core import gym as G
+    from repro_torch.kernels import ops as K
+    from repro_torch.kernels import wire_codec as WC
+    from repro_torch.relational.spmd import SPMD
+
+    kernels = GYM_KERNELS + WIRE_KERNELS
+    totals = {k: 0 for k in kernels}
+    summary = {}
+
+    def run(q, g, data, backend, **cfg):
+        """One query: (rows, schema, ledger, seconds, the chosen plan's key,
+        engine and backend, the executor's backend).  Nothing of the
+        driver is kept, so its device tables are freed before the next."""
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        drv = G.GymDriver(q, g, data, SPMD(8, device="cuda"),
+                          G.GymConfig(seed=23, local_backend=backend, **cfg))
+        out = drv.run()
+        rows = out.to_numpy()
+        torch.cuda.synchronize()
+        plan = None if drv.plan is None else (
+            drv.plan.key, drv.plan.engine, drv.plan.local_backend, drv.executor.local_backend)
+        return rows, out.schema, drv.ledger, time.perf_counter() - t0, plan
+
+    def counted(fn):
+        K.reset_launch_counts()
+        audit.reset()
+        res = fn()
+        per = {k: K.launch_counts()[k] for k in kernels}
+        for k in kernels:
+            totals[k] += per[k]
+        return res, per
+
+    def same(a, b, what):
+        check(tuple(a[1]) == tuple(b[1]), f"{what}: schema")
+        check(np.array_equal(a[0], b[0]), f"{what}: rows")
+        check([dataclasses.asdict(r) for r in a[2].records] == [dataclasses.asdict(r) for r in b[2].records],
+              f"{what}: ledger records")
+        check((a[2].retries, a[2].output_tuples) == (b[2].retries, b[2].output_tuples),
+              f"{what}: retries/output")
+
+    recorders = {"wire_encode": Recorder(torch, WC, "wire_encode"),
+                 "wire_decode": Recorder(torch, WC, "wire_decode")}
+    try:
+        if "bench" in sizes:
+            for fam, (q, g, data) in families(seed, False).items():
+                want = np_answer(q, data)
+                for engine in ("hash", "grid", "hybrid"):
+                    name = f"wire {fam} bench {engine}"
+                    packed, per = counted(lambda: run(q, g, data, "cuda", strategy=engine,
+                                                      wire_format="packed"))
+                    audit.check(name)
+                    check(all(per[k] > 0 for k in kernels), f"{name}: a kernel never launched {per}")
+                    K.reset_launch_counts()
+                    tpacked = run(q, g, data, "torch", strategy=engine, wire_format="packed")
+                    check(sum(K.launch_counts().values()) == 0, "'torch' backend launched a kernel")
+                    same(packed, tpacked, f"{name} cuda vs torch")
+                    dense, _ = counted(lambda: run(q, g, data, "cuda", strategy=engine))
+                    lp, ld = packed[2], dense[2]
+                    check(np.array_equal(np.unique(packed[0].astype(np.int64), axis=0), want),
+                          f"{name}: rows != numpy join")
+                    check(np.array_equal(packed[0], dense[0]) and lp.comm_tuples == ld.comm_tuples
+                          and lp.retries == ld.retries and lp.useful_bytes == ld.useful_bytes,
+                          f"{name}: packed and dense disagree in rows, comm, retries or useful bytes")
+                    check(lp.payload_bytes < ld.payload_bytes, f"{name}: packed bytes >= dense")
+                    print(f"{name}: out={lp.output_tuples} comm={lp.comm_tuples} retries={lp.retries} "
+                          f"payload_bytes packed={lp.payload_bytes} dense={ld.payload_bytes} "
+                          f"(ratio {lp.payload_bytes / ld.payload_bytes:.4f}) padded_slots "
+                          f"packed={lp.padded_slots} dense={ld.padded_slots} dispatches "
+                          f"packed={lp.measured_dispatches} dense={ld.measured_dispatches} "
+                          f"cold_s={packed[3]:.4f} launches={per} cuda==torch rows+ledger: yes "
+                          "rows==numpy join: yes", flush=True)
+                    summary[f"{fam}/bench/{engine}"] = dict(
+                        payload=lp.payload_bytes, dense_payload=ld.payload_bytes, launches=per)
+        if "real" in sizes:
+            for fam, (q, g, data) in families(seed, True).items():
+                name = f"wire {fam} real hash"
+                want = real_answer(seed, fam)
+                cold, per = counted(lambda: run(q, g, data, "cuda", wire_format="packed"))
+                audit.check(name)
+                base = peak_reset(torch)
+                warm, _ = counted(lambda: run(q, g, data, "cuda", wire_format="packed"))
+                peak = torch.cuda.max_memory_allocated() - base
+                check(all(per[k] > 0 for k in kernels), f"{name}: a kernel never launched {per}")
+                same(cold, warm, f"{name} warm run")
+                check(np.array_equal(cold[0].astype(np.int64), want) and len(want) > 0,
+                      f"{name}: rows != numpy join")
+                gs = (gym_summary or {}).get(f"{fam}/real")
+                if gs is None:  # the gym phase did not run: run its dense query here
+                    base = peak_reset(torch)
+                    d = run(q, g, data, "cuda")
+                    gs = dict(payload_bytes=d[2].payload_bytes,
+                              peak=torch.cuda.max_memory_allocated() - base,
+                              comm=d[2].comm_tuples, warm_s=d[3])
+                led = cold[2]
+                check(led.comm_tuples == gs["comm"] and led.retries == 0,
+                      f"{name}: comm or retries differ from the dense run")
+                check(led.payload_bytes < gs["payload_bytes"], f"{name}: packed bytes >= dense")
+                check(peak <= WIRE_PEAK_RATIO_MAX * gs["peak"],
+                      f"{name}: packed peak {peak} > {WIRE_PEAK_RATIO_MAX} x dense {gs['peak']}")
+                print(f"{name}: out={led.output_tuples} comm={led.comm_tuples} retries={led.retries} "
+                      f"payload_bytes packed={led.payload_bytes} dense={gs['payload_bytes']} "
+                      f"(ratio {led.payload_bytes / gs['payload_bytes']:.4f}) padded_slots="
+                      f"{led.padded_slots} dispatches={led.measured_dispatches} peak_bytes "
+                      f"packed={peak} dense={gs['peak']} (ratio {peak / gs['peak']:.4f}) "
+                      f"cold_s={cold[3]:.4f} warm_s={warm[3]:.4f} dense_warm_s={gs['warm_s']:.4f} "
+                      f"launches={per} rows==numpy join: yes", flush=True)
+                summary[f"{fam}/real"] = dict(payload=led.payload_bytes, dense_payload=gs["payload_bytes"],
+                                              peak=peak, dense_peak=gs["peak"], cold_s=cold[3],
+                                              warm_s=warm[3], launches=per)
+        # the advisor: plan="auto" with the packed wire (so the codec runs
+        # too), its key against the host-side choice from the same statistics
+        auto = [(f"{fam} bench", q, g, data, False) for fam, (q, g, data) in
+                (families(seed, False).items() if "bench" in sizes else [])]
+        if "real" in sizes:
+            auto += [(f"{fam} real", q, g, data, True) for fam, (q, g, data) in
+                     families(seed, True).items()]
+            q, g, data = skew_families(seed, True)["S_8_heavy"]
+            auto.append(("S_8_heavy real", q, g, data, True))
+        for name, q, g, data, real in auto:
+            key = advisor_key(q, g, data, "packed", deduped=real)
+            # local_backend None: the device's default, which the plan must keep
+            res, per = counted(lambda: run(q, g, data, None, plan="auto", wire_format="packed"))
+            audit.check(f"wire auto {name}")
+            rows, _, led, sec, (pkey, pengine, pbackend, ebackend) = res
+            check(pkey == key, f"auto {name}: chose {pkey}, the host advisor {key}")
+            check(pbackend is None and ebackend == "cuda",
+                  f"auto {name}: the plan turned the kernels off")
+            check(all(per[k] > 0 for k in kernels), f"auto {name}: a kernel never launched {per}")
+            want = np_answer(q, data) if name.startswith("S_8_heavy") or not real else real_answer(
+                seed, name.split()[0])
+            check(np.array_equal(np.unique(rows.astype(np.int64), axis=0), want) and len(want) > 0,
+                  f"auto {name}: rows != numpy join")
+            if not real:
+                K.reset_launch_counts()
+                tres = run(q, g, data, "torch", plan="auto", wire_format="packed")
+                check(sum(K.launch_counts().values()) == 0, "'torch' backend launched a kernel")
+                same(res, tres, f"auto {name} cuda vs torch")
+                check(tres[4][0] == pkey, f"auto {name}: the 'torch' run chose {tres[4][0]}")
+            print(f"wire auto {name}: plan={pkey} (host advisor: same) engine="
+                  f"{pengine} out={led.output_tuples} comm={led.comm_tuples} "
+                  f"rounds={led.rounds} retries={led.retries} dispatches={led.measured_dispatches} "
+                  f"payload_bytes={led.payload_bytes} cold_s={sec:.4f} launches={per} "
+                  "rows==numpy join: yes", flush=True)
+            summary[f"auto/{name}"] = dict(key=pkey, launches=per, cold_s=sec)
+    finally:
+        for r in recorders.values():
+            r.restore()
+    return summary, totals, {k: (r.best, r.kw) for k, r in recorders.items()}
+
+
+def wire_timing(torch, recorded, launches, reps):
+    """Time the codec kernels at the largest calls the wire phase gave
+    them, beside the plain bit-plane versions (no library call computes
+    the codec).  Returns the kernel records of the JSON line."""
+    from repro_torch.kernels import wire_codec as WC
+    from repro_torch.relational import wire as W
+
+    dev = torch.device("cuda")
+    flush = torch.empty(128 * 2**20 // 4, dtype=torch.int32, device=dev)
+    (buf, valid, fmt), _ = recorded["wire_encode"]
+    (packed, dfmt, c_out), _ = recorded["wire_decode"]
+    got = WC.wire_encode(buf, valid, fmt)
+    enc_err = 0 if torch.equal(got, W.wire_encode(buf, valid, fmt)) else 1
+    db, dv = WC.wire_decode(packed, dfmt, c_out)
+    pb, pv = W.wire_decode(packed, dfmt, c_out)
+    dec_err = max(int((db.long() - pb.long()).abs().max()) if db.numel() else 0,
+                  int((dv != pv).sum()))
+    plain_reps = max(1, min(reps, 5))
+    rows = [
+        dict(name="wire_encode", shape=f"buf {tuple(buf.shape)} bits {fmt.col_bits}",
+             ms=time_cold(torch, lambda: WC.wire_encode(buf, valid, fmt), reps, flush),
+             plain_ms=time_cold(torch, lambda: W.wire_encode(buf, valid, fmt), plain_reps, flush),
+             err=enc_err, nbytes=buf.numel() * 4 + valid.numel() + got.numel(),
+             ops=valid.numel() * fmt.row_bits * 3),
+        dict(name="wire_decode", shape=f"packed {tuple(packed.shape)} c_out {c_out} bits {dfmt.col_bits}",
+             ms=time_cold(torch, lambda: WC.wire_decode(packed, dfmt, c_out), reps, flush),
+             plain_ms=time_cold(torch, lambda: W.wire_decode(packed, dfmt, c_out), plain_reps, flush),
+             err=dec_err, nbytes=packed.numel() + db.numel() * 4 + dv.numel(),
+             ops=dv.numel() * dfmt.row_bits * 3),
+    ]
+    recs = []
+    for r in rows:
+        t_bytes = r["nbytes"] / HBM_BYTES_PER_S * 1e3
+        t_ops = r["ops"] / INT32_OPS_PER_S * 1e3
+        bound = max(t_bytes, t_ops)
+        print(f"kernel {r['name']}: {r['shape']} kernel_ms={r['ms']:.5f} plain_ms={r['plain_ms']:.5f} "
+              f"library_ms=None bound_ms={bound:.6f} ({'bytes' if t_bytes >= t_ops else 'operations'}: "
+              f"{r['nbytes']} B, {r['ops']} int ops) share_of_bound={bound / r['ms']:.4f} "
+              f"max_abs_err={r['err']} launches={launches[r['name']]}", flush=True)
+        check(r["err"] == 0, f"{r['name']} disagrees with its plain version")
+        recs.append({
+            "name": r["name"], "route": "cuda", "source": WIRE_SOURCE,
+            "replaces": KERNELS[r["name"]], "launches": launches[r["name"]],
+            "max_abs_err": r["err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": bound, "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": None,
+        })
+    return recs
+
+
 # ------------------------------------------------------- flash attention
 def _visible(torch, sq, sk, causal, window, dev):
     rows = torch.arange(sq, device=dev)[:, None]
@@ -1591,19 +1911,20 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--reps", type=int, default=30)
-    ap.add_argument("--phases", default="gym,grid,skew,logdepth,lm",
+    ap.add_argument("--phases", default="gym,grid,skew,logdepth,wire,lm",
                     help="comma-separated main paths to drive: gym (the join path), "
                          "grid (the grid engine), skew (the hybrid engine beside hash "
                          "and grid on skewed data), logdepth (Log-GTA, Log-GTA', Shares), "
-                         "lm (gemma2-9b serving)")
+                         "wire (the packed wire and plan='auto'), lm (gemma2-9b serving)")
     ap.add_argument("--sizes", default="bench,real",
-                    help="comma-separated gym, grid and skew sizes to drive: bench, real")
+                    help="comma-separated gym, grid, skew and wire sizes to drive: bench, real")
     ap.add_argument("--profile", default="",
                     help="comma-separated families (S_8,C_8,TC_9) to profile at real size, "
                          "and lm to profile the LM serving path")
     ap.add_argument("--profile-out", default=os.path.join(HERE, "chiprun_out", "profile"))
     args = ap.parse_args(argv)
     phases = set(args.phases.split(","))
+    t_start = time.perf_counter()
 
     import torch
 
@@ -1652,6 +1973,9 @@ def main(argv=None) -> int:
           f"bitmap path), every gym CUDA kernel == its plain version", flush=True)
     print(f"semijoin_probe bitmap path, a key >= bound in a child process: trapped "
           f"({bitmap_trap_check()})", flush=True)
+    n_wire = wire_edge_checks(torch, dev)
+    print(f"wire codec edge cases: {n_wire} checks, wire_encode/wire_decode == their plain "
+          f"versions and decode inverts encode (the golden fixture included)", flush=True)
     n, worst = flash_edge_checks(torch, dev)
     print(f"flash_attention edge cases: {n} checks within {FLASH_TOL} of the plain version "
           f"(worst |d|/max(1,|o|): {worst}), fully masked rows exactly 0; "
@@ -1674,6 +1998,17 @@ def main(argv=None) -> int:
                 r.restore()
         print(f"main path launches (cuda gym runs): {launches}", flush=True)
         check(all(launches[k] > 0 for k in GYM_KERNELS), f"a kernel never launched: {launches}")
+        sizes = set(args.sizes.split(","))
+        if {"bench", "real"} <= sizes:
+            # the dense path is unchanged: the counts from before the packed wire
+            got = {
+                "dispatches": {f: summary[f"{f}/real"]["dispatches"] for f in ("S_8", "C_8", "TC_9")},
+                "padded": {f: summary[f"{f}/real"]["padded"] for f in ("S_8", "C_8", "TC_9")},
+                "launches": {k: launches[k] for k in GYM_KERNELS},
+            }
+            check(got == DENSE_BASELINE, f"dense gym counts {got} != the baseline {DENSE_BASELINE}")
+            print(f"dense baseline: dispatches, padded slots and launches equal those from "
+                  f"before the packed wire {DENSE_BASELINE}", flush=True)
         check(launches["semijoin_probe/hash"] == 0
               and launches["semijoin_probe/bitmap"] == launches["semijoin_probe"],
               f"a main-path semijoin_probe launch took the hash path: {launches}")
@@ -1683,7 +2018,8 @@ def main(argv=None) -> int:
         fams = [f for f in args.profile.split(",") if f and f != "lm"]
         if fams:
             profile_queries(torch, args.seed, fams, args.profile_out)
-    for path in ("grid", "skew", "logdepth"):
+    wire_recorded = None
+    for path in ("grid", "skew", "logdepth", "wire"):
         if path not in phases:
             continue
         t0 = time.perf_counter()
@@ -1696,21 +2032,29 @@ def main(argv=None) -> int:
             elif path == "skew":
                 _, launches = skew_phase(torch, args.seed, audit, summary,
                                          tuple(args.sizes.split(",")))
+            elif path == "wire":
+                _, launches, wire_recorded = wire_phase(torch, args.seed, audit, summary,
+                                                        tuple(args.sizes.split(",")))
             else:
                 _, launches = logdepth_phase(torch, args.seed, audit)
         finally:
             audit.restore()
         print(f"{path} path launches (cuda runs): {launches}; phase {time.perf_counter() - t0:.1f} s",
               flush=True)
-        check(all(launches[k] > 0 for k in GYM_KERNELS), f"{path}: a kernel never launched: {launches}")
+        want = GYM_KERNELS + (WIRE_KERNELS if path == "wire" else ())
+        check(all(launches[k] > 0 for k in want), f"{path}: a kernel never launched: {launches}")
         by_path[path] = launches
+    if wire_recorded is not None:
+        kernels += wire_timing(torch, wire_recorded, by_path["wire"], args.reps)
     for rec in kernels:
-        rec["launches_by_path"] = {p: n[rec["name"]] for p, n in by_path.items()}
+        rec["launches_by_path"] = {p: n.get(rec["name"], 0) for p, n in by_path.items()}
     if "lm" in phases:
         lm, flash_call, per_generate = lm_phase(
             torch, args.seed, args.profile_out if "lm" in args.profile.split(",") else "")
         kernels.append(flash_timing(torch, flash_call, per_generate, args.reps))
     torch.cuda.synchronize()
+    print(f"chip_smoke phases {sorted(phases)}: total_s={time.perf_counter() - t_start:.1f}",
+          flush=True)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

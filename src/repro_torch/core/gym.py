@@ -11,9 +11,15 @@ Given any complete GHD D(T, chi, lam) of a query Q:
 The driver is a thin schedule walker; lowering, round fusion, capacity
 sizing and the abort-retry loop live in ``core.physical``.
 
-Entry point: ``gym(query, data, p=..., config=..., device=...)``.  It runs
-on the CUDA card unless the caller passes ``device="cpu"``; with no card
-and no device it raises instead of quietly running on the CPU.
+Entry point: ``gym(query, data, p=..., config=..., plan=..., device=...)``.
+It runs on the CUDA card unless the caller passes ``device="cpu"``; with
+no card and no device it raises instead of quietly running on the CPU.
+``GymConfig(wire_format="packed")`` ships every exchange bit-packed to the
+base relations' value widths (``relational/wire.py``);
+``GymConfig(plan="auto")`` lets the cost-based advisor
+(``core/optimizer.py``) choose GHD, schedule, engine, fusion and capacity
+policy from the data's statistics, and ``plan=<Plan>`` runs a plan the
+caller chose.
 """
 from __future__ import annotations
 
@@ -27,16 +33,15 @@ from ..relational.ledger import Ledger
 from ..relational.localops import LOCAL_BACKENDS, default_backend
 from ..relational.spmd import SPMD, resolve_device
 from ..relational.table import DTable
+from ..relational.wire import WirePolicy, wire_gain
 from .ghd import GHD
 from .hypergraph import Query
 from .physical import ENGINES, CapacityManager, PhysicalExecutor
 from .physical import pow2 as _pow2
 from .planner import Round, get_schedule
 
-#: ROADMAP queue A items that port the features the first slice leaves out
+#: ROADMAP queue A items that port the features later slices add
 LATER = {
-    "plan": "ROADMAP queue A, item 'advisor' (plan='auto')",
-    "wire_format": "ROADMAP queue A, item 'packed wire'",
     "save": "ROADMAP queue A, item 'save/load and step_gen'",
 }
 
@@ -74,8 +79,16 @@ class GymConfig:
     # hard per-shard capacity ceiling (tuples); None derives 64 * M from
     # Assumption 3's M = 4*IN/p
     max_cap_tuples: Optional[int] = None
-    wire_format: str = "dense"  # only the dense wire is ported
-    plan: str = "manual"  # only manual plans are ported
+    # exchange encoding: 'dense' ships (p, c_out, arity) int32 buffers +
+    # bool valid planes; 'packed' bit-packs rows to the base relations'
+    # observed value widths (relational/wire.py) and ships one segmented
+    # uint8 buffer per fused group.  Rows, comm_tuples and retries are
+    # the same either way; only the wire bytes change.
+    wire_format: str = "dense"
+    # 'manual' = run exactly the knobs above; 'auto' = let the advisor
+    # (core/optimizer.py) pick GHD/schedule/engine/fusion from the data's
+    # statistics.  After resolution the field holds the chosen Plan.key.
+    plan: str = "manual"
     # where the query runs: None = the CUDA card (raises without one)
     device: Optional[str] = None
 
@@ -85,14 +98,9 @@ class GymConfig:
                 f"unknown strategy {self.strategy!r}; registered engines: "
                 f"{sorted(ENGINES)}"
             )
-        if self.wire_format != "dense":
-            raise NotImplementedError(
-                f"wire_format={self.wire_format!r}: only 'dense' is ported "
-                f"({LATER['wire_format']})"
-            )
-        if self.plan != "manual":
-            raise NotImplementedError(
-                f"plan={self.plan!r}: only 'manual' is ported ({LATER['plan']})"
+        if self.wire_format not in ("dense", "packed"):
+            raise ValueError(
+                f"unknown wire_format {self.wire_format!r}; valid: ['dense', 'packed']"
             )
         if self.local_backend is not None and self.local_backend not in LOCAL_BACKENDS:
             raise ValueError(
@@ -111,11 +119,33 @@ class GymDriver:
         data: Dict[str, np.ndarray],
         spmd: SPMD,
         config: Optional[GymConfig] = None,
+        plan=None,  # Optional[optimizer.Plan]: execute this plan directly
     ):
         self.query = query
         self.config = config or GymConfig()
         self.spmd = spmd
         dev = spmd.device
+        # dedup base relations once (relations are sets); the distinct row
+        # counts double as the advisor's table statistics
+        dedup_rows: Dict[str, np.ndarray] = {}
+        for atom in query.atoms:
+            rows = np.asarray(data[atom.rel], dtype=np.int32).reshape(-1, len(atom.attrs))
+            if rows.shape[0]:
+                rows = np.unique(rows, axis=0)
+            dedup_rows[atom.alias] = rows
+        # sound per-attribute bit widths from the base relations' value
+        # ranges (joins never create values, so they cover every
+        # intermediate); applied only when wire_format == 'packed'
+        self._wire_policy = WirePolicy.from_columns(
+            [(atom.attrs, dedup_rows[atom.alias]) for atom in query.atoms]
+        )
+        if plan is None and self.config.plan == "auto":
+            plan = self._choose_plan(query, ghd, dedup_rows)
+        self.plan = plan
+        if plan is not None:
+            # the plan decides GHD + engine knobs; config mirrors it
+            ghd = plan.ghd
+            self.config = plan.to_config(self.config)
         backend = self.config.local_backend or default_backend(dev)
         if backend == "cuda" and dev.type != "cuda":
             raise ValueError(
@@ -123,13 +153,6 @@ class GymDriver:
                 "local_backend='torch' (the default on the CPU)"
             )
         self.local_backend = backend
-        # dedup base relations once (relations are sets)
-        dedup_rows: Dict[str, np.ndarray] = {}
-        for atom in query.atoms:
-            rows = np.asarray(data[atom.rel], dtype=np.int32).reshape(-1, len(atom.attrs))
-            if rows.shape[0]:
-                rows = np.unique(rows, axis=0)
-            dedup_rows[atom.alias] = rows
         self.ghd = ghd.make_complete(query)
         self.ledger = Ledger()
 
@@ -157,20 +180,7 @@ class GymDriver:
         )
         for v in self.ghd.nodes():
             self.capman.ensure(v, self._init_cap(v))
-        self.executor = PhysicalExecutor(
-            spmd,
-            cfg.strategy,
-            self.capman,
-            seed=cfg.seed,
-            max_retries=cfg.max_retries,
-            count_retries_comm=cfg.count_retries_comm,
-            fuse=cfg.fused,
-            calibrate=cfg.calibrate_shuffle,
-            local_backend=backend,
-            skew_threshold=cfg.skew_threshold,
-            caps_cache=cfg.caps_cache,
-            prefetch=cfg.prefetch_measures,
-        )
+        self.executor = self._make_executor()
 
         self.schedule: List[Round] = get_schedule(cfg.schedule).fn(self.ghd)
         self.tables: Dict[int, DTable] = {}
@@ -180,6 +190,61 @@ class GymDriver:
         self.cursor: int = -1  # -1 = materialization pending
         self.done = False
         self.result: Optional[DTable] = None
+
+    def _choose_plan(self, query: Query, ghd: GHD, dedup_rows):
+        """``plan="auto"``: the advisor's argmin over the candidate plans,
+        priced from the deduped base relations' sizes and skew and, for a
+        packed run, the packed wire's row compression."""
+        from .costs import DEFAULT_DISPATCH_OVERHEAD_SLOTS
+        from .optimizer import MachineProfile, choose_plan, skew_share
+
+        cfg = self.config
+        stats = {a.rel: int(dedup_rows[a.alias].shape[0]) for a in query.atoms}
+        # max single-value column share per relation: the advisor's skew
+        # statistic (skewed instances steer to the hybrid engine)
+        skew = {a.rel: skew_share(dedup_rows[a.alias]) for a in query.atoms}
+        wg = (
+            wire_gain([self._wire_policy.format_for(a.attrs) for a in query.atoms])
+            if cfg.wire_format == "packed" else 1.0
+        )
+        return choose_plan(
+            query,
+            stats,
+            # calibrated plans pay their predicted measure dispatches at the
+            # dispatch-overhead price, fixed plans the ~p-fold pad factor
+            profile=MachineProfile(
+                p=self.spmd.p, dispatch_overhead=DEFAULT_DISPATCH_OVERHEAD_SLOTS,
+            ),
+            hand_ghd=ghd,
+            local_backend=cfg.local_backend,
+            calibrate_shuffle=cfg.calibrate_shuffle,
+            skew=skew,
+            skew_threshold=cfg.skew_threshold,
+            calibrate_options=(True, False),
+            wire_gain=wg,
+        )
+
+    def _make_executor(self) -> PhysicalExecutor:
+        cfg = self.config
+        wp = self._wire_policy if cfg.wire_format == "packed" else None
+        kw = dict(
+            seed=cfg.seed,
+            max_retries=cfg.max_retries,
+            count_retries_comm=cfg.count_retries_comm,
+            calibrate=cfg.calibrate_shuffle,
+            skew_threshold=cfg.skew_threshold,
+            caps_cache=cfg.caps_cache,
+            prefetch=cfg.prefetch_measures,
+            wire_policy=wp,
+        )
+        if self.plan is not None:
+            return PhysicalExecutor.from_plan(
+                self.spmd, self.plan, self.capman, local_backend=self.local_backend, **kw
+            )
+        return PhysicalExecutor(
+            self.spmd, cfg.strategy, self.capman, fuse=cfg.fused,
+            local_backend=self.local_backend, **kw,
+        )
 
     def _max_cap(self) -> int:
         """Per-shard capacity ceiling: the configured bound, or 64x the
@@ -300,16 +365,24 @@ def gym(
     ghd: Optional[GHD] = None,
     p: int = 4,
     config: Optional[GymConfig] = None,
+    plan=None,  # Optional[optimizer.Plan]
     device=None,
 ) -> Tuple[np.ndarray, Tuple[str, ...], Ledger]:
     """Evaluate Q with GYM.  Returns (rows, schema, ledger).
+
+    Three ways to pick the physical plan: manual (default: ``ghd`` +
+    ``GymConfig`` knobs as given); ``config=GymConfig(plan="auto")`` (the
+    cost-based advisor enumerates GHD x schedule x engine x fusion
+    candidates and executes the argmin; ``ghd``, if given, joins the
+    candidates as the 'hand' GHD); ``plan=<Plan>`` (a plan the caller
+    already chose, e.g. from ``optimizer.enumerate_plans``).
 
     ``device`` (else ``config.device``) picks where the query runs; None
     means the CUDA card, and raises when there is none."""
     from .decompose import ghd_for
 
-    g = ghd if ghd is not None else ghd_for(query)
+    g = ghd if ghd is not None else (plan.ghd if plan is not None else ghd_for(query))
     dev = device if device is not None else (config.device if config else None)
-    drv = GymDriver(query, g, data, SPMD(p, device=resolve_device(dev)), config)
+    drv = GymDriver(query, g, data, SPMD(p, device=resolve_device(dev)), config, plan=plan)
     out = drv.run()
     return out.to_numpy(), out.schema, drv.ledger

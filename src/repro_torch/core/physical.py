@@ -27,6 +27,13 @@ measuring group of a stage shares ONE combined count dispatch
 ``CapsCache``, and the next round's combined pre-pass is queued behind
 the current round's payload work (measure prefetch).  The ledger splits
 ``measure_dispatches`` from payload dispatches.
+
+Packed wire (``wire_policy=``, from ``GymConfig(wire_format="packed")``):
+every exchange ships its rows bit-packed to the widths the policy derives
+from the base relations (``relational.wire``), each side in the format
+``RoutePolicy`` projects onto its schema; the hash join's fused pre-count
+then guesses the uniform share rather than 4x it.  ``PhysicalExecutor.
+from_plan`` builds an executor from an advisor ``Plan`` (``core/optimizer.py``).
 """
 from __future__ import annotations
 
@@ -43,7 +50,7 @@ from ..relational.shuffle import pow2
 from ..relational.skew import DEFAULT_SKEW_THRESHOLD
 from ..relational.spmd import SPMD
 from ..relational.table import DTable
-from ..relational.wire import count_wire_bytes
+from ..relational.wire import WireFormat, WirePolicy, count_wire_bytes
 from .caps_cache import CapsCache
 from .ghd import GHD
 from .planner import Op, Round
@@ -68,6 +75,7 @@ def register_engine(name: str):
 def get_engine(
     name: str, spmd: SPMD, local_backend: str = "torch",
     skew_threshold: Optional[float] = None,
+    wire_policy: Optional[WirePolicy] = None,
 ) -> "Engine":
     try:
         cls = ENGINES[name]
@@ -75,7 +83,7 @@ def get_engine(
         raise ValueError(
             f"unknown engine strategy {name!r}; registered: {sorted(ENGINES)}"
         ) from None
-    return cls(spmd, local_backend, skew_threshold=skew_threshold)
+    return cls(spmd, local_backend, skew_threshold=skew_threshold, wire_policy=wire_policy)
 
 
 class Engine:
@@ -98,10 +106,16 @@ class Engine:
     def __init__(
         self, spmd: SPMD, local_backend: str = "torch",
         skew_threshold: Optional[float] = None,
+        wire_policy: Optional[WirePolicy] = None,
     ):
         self.spmd = spmd
         self.local_backend = local_backend
+        # the routing policy: wire encoding + heavy-hitter sensitivity,
+        # shared by every exchange of the query.  The wire policy (None =
+        # dense exchanges) comes from the base relations' value ranges, so
+        # any format built from it is sound for every intermediate.
         self.route = RoutePolicy(
+            wire_policy=wire_policy,
             skew_threshold=(
                 DEFAULT_SKEW_THRESHOLD if skew_threshold is None else skew_threshold
             ),
@@ -110,6 +124,23 @@ class Engine:
     @property
     def skew_threshold(self) -> float:
         return self.route.skew_threshold
+
+    @property
+    def wire_policy(self) -> Optional[WirePolicy]:
+        return self.route.wire_policy
+
+    # -- packed wire formats (delegates to the routing policy) --------------
+    def _fmt_for(self, schemas) -> Optional[WireFormat]:
+        return self.route.fmt_for(schemas)
+
+    def _pair_fmts(self, lhs, rhs, xcaps, rhs_keys_only: bool = False):
+        return self.route.pair_fmts(
+            [t.schema for t in lhs], [t.schema for t in rhs], xcaps,
+            rhs_keys_only=rhs_keys_only,
+        )
+
+    def _single_fmt(self, ts, xcaps):
+        return self.route.single_fmt([t.schema for t in ts], xcaps)
 
     # -- calibration pre-pass ----------------------------------------------
     def measure_group(self, kind: str, lhs, rhs, seeds) -> Optional[GroupMeasure]:
@@ -156,7 +187,8 @@ class Engine:
         raise NotImplementedError
 
     def intersect_many(self, as_, bs, cap: int, seeds, xcaps=None):
-        kw = {}
+        fmts, xcaps = self._pair_fmts(as_, bs, xcaps)
+        kw = {"fmts": fmts}
         if xcaps is not None:
             kw["c_out"] = (xcaps.lhs.c_out, xcaps.rhs.c_out)
             kw["cap_recv"] = (max(cap, xcaps.lhs.cap_recv), xcaps.rhs.cap_recv)
@@ -168,7 +200,8 @@ class Engine:
         return outs, stats, 1
 
     def dedup_many(self, ts, cap: int, seeds, xcaps=None):
-        kw = {"cap_recv": cap}
+        fmt, xcaps = self._single_fmt(ts, xcaps)
+        kw = {"cap_recv": cap, "fmt": fmt}
         if xcaps is not None:
             kw["c_out"] = xcaps.lhs.c_out
             kw["cap_recv"] = max(cap, xcaps.lhs.cap_recv)
@@ -202,9 +235,13 @@ class Engine:
             return parts[0], {
                 "sent": 0, "dropped": 0, "padded": 0, "wire_bytes": 0, "ubytes": 0,
             }, 0
+        fmts = (
+            None if self.wire_policy is None
+            else [self.wire_policy.format_for(t.schema) for t in parts]
+        )
         out, st = G.grid_multiway_join(
             self.spmd, parts, out_cap=cap, calibrate=calibrate, cals=cal,
-            backend=self.local_backend,
+            fmts=fmts, backend=self.local_backend,
         )
         return out, st, 1
 
@@ -237,12 +274,15 @@ class HashEngine(Engine):
             if kind == "join":
                 # fuse the output pre-count into the same dispatch; the
                 # keys-only exchanges ride at a static guess (4x the
-                # uniform per-destination share) the counts verify post hoc
+                # uniform per-destination share, dense) the counts verify
+                # post hoc.  Packed runs ship the key projections
+                # bit-packed (an exact count) instead of a hashed column.
                 return B.join_pair_measure_spec(
                     self.spmd, lhs, rhs, a_keys, b_keys, seeds,
                     g_a=self._keys_guess(lhs[0].cap),
                     g_b=self._keys_guess(rhs[0].cap),
                     skew_threshold=self.skew_threshold,
+                    fmt=self._fmt_for([tuple(sh) for sh in shareds]),
                 )
             return B.pair_measure_spec(
                 self.spmd, lhs, rhs, a_keys, b_keys, seeds, dedup_b=True,
@@ -252,7 +292,13 @@ class HashEngine(Engine):
 
     def _keys_guess(self, cap: int) -> int:
         per = -(-cap // self.spmd.p)  # ceil: the uniform share
-        return pow2(min(cap, max(8, 4 * per)))
+        # Headroom avoids the fallback join_need_many dispatch an
+        # undershot guess costs, but every guessed slot ships.  Dense pays
+        # 5 bytes a slot elsewhere, so 4x headroom is cheap insurance; a
+        # packed run's contract is byte-minimality, so it guesses the
+        # uniform share and accepts the (rare, still exact) fallback.
+        mult = 1 if self.wire_policy is not None else 4
+        return pow2(min(cap, max(8, mult * per)))
 
     def measure_finish(self, kind, lhs, rhs, seeds, m):
         if kind == "semijoin":
@@ -271,7 +317,8 @@ class HashEngine(Engine):
         return kind == "join"
 
     def semijoin_many(self, ss, rs, cap, seeds, xcaps=None):
-        kw = {}
+        fmts, xcaps = self._pair_fmts(ss, rs, xcaps, rhs_keys_only=True)
+        kw = {"fmts": fmts}
         if xcaps is not None:
             kw["c_out"] = (xcaps.lhs.c_out, xcaps.rhs.c_out)
             # S receives the output: never below the managed capacity
@@ -284,7 +331,8 @@ class HashEngine(Engine):
         return outs, stats, 1
 
     def join_many(self, as_, bs, cap, seeds, xcaps=None):
-        kw = {}
+        fmts, xcaps = self._pair_fmts(as_, bs, xcaps)
+        kw = {"fmts": fmts}
         if xcaps is not None:
             kw["c_out"] = (xcaps.lhs.c_out, xcaps.rhs.c_out)
             kw["cap_recv"] = (xcaps.lhs.cap_recv, xcaps.rhs.cap_recv)
@@ -323,6 +371,17 @@ class HashEngine(Engine):
             kw = {}
             if cal is not None:
                 kw["c_out"], kw["cap_recv"] = cal
+            shared = [x for x in parts[0].schema if x in parts[1].schema]
+            if self.wire_policy is not None and shared:
+                # packed runs route the materialization 2-way join through
+                # the batched exchange (same shard semantics, fmt-aware
+                # wire) — sequential dist_join ships dense only
+                fmts, _ = self._pair_fmts([parts[0]], [parts[1]], None)
+                outs, stats = B.dist_join_many(
+                    self.spmd, [parts[0]], [parts[1]], seeds=[seed],
+                    out_cap=cap, fmts=fmts, backend=self.local_backend, **kw,
+                )
+                return outs[0], stats[0], 1
             out, st = R.dist_join(
                 self.spmd, parts[0], parts[1], seed=seed, out_cap=cap,
                 calibrate=calibrate, backend=self.local_backend, **kw,
@@ -368,22 +427,24 @@ class HybridEngine(HashEngine):
     def semijoin_many(self, ss, rs, cap, seeds, xcaps=None):
         if xcaps is None or not xcaps.hybrid_routed:
             return HashEngine.semijoin_many(self, ss, rs, cap, seeds, xcaps)
+        fmts, xcaps = self._pair_fmts(ss, rs, xcaps, rhs_keys_only=True)
         outs, stats = B.hybrid_semijoin_many(
             self.spmd, ss, rs, seeds=seeds, heavy=xcaps.heavy,
             c_out=(xcaps.lhs.c_out, xcaps.rhs.c_out),
             cap_recv=(max(cap, xcaps.lhs.cap_recv), xcaps.rhs.cap_recv),
-            backend=self.local_backend,
+            fmts=fmts, backend=self.local_backend,
         )
         return outs, stats, 1
 
     def join_many(self, as_, bs, cap, seeds, xcaps=None):
         if xcaps is None or not xcaps.hybrid_routed:
             return HashEngine.join_many(self, as_, bs, cap, seeds, xcaps)
+        fmts, xcaps = self._pair_fmts(as_, bs, xcaps)
         outs, stats = B.hybrid_join_many(
             self.spmd, as_, bs, seeds=seeds, out_cap=cap, heavy=xcaps.heavy,
             c_out=(xcaps.lhs.c_out, xcaps.rhs.c_out),
             cap_recv=(xcaps.lhs.cap_recv, xcaps.rhs.cap_recv),
-            swap=xcaps.swap_spread, backend=self.local_backend,
+            swap=xcaps.swap_spread, fmts=fmts, backend=self.local_backend,
         )
         return outs, stats, 1
 
@@ -421,7 +482,8 @@ class GridEngine(Engine):
         return Engine.measure_spec(self, kind, lhs, rhs, seeds)
 
     def semijoin_many(self, ss, rs, cap, seeds, xcaps=None):
-        kw = {}
+        fmts, xcaps = self._pair_fmts(ss, rs, xcaps, rhs_keys_only=True)
+        kw = {"fmts": fmts}
         if xcaps is not None:
             kw["c_out"] = (xcaps.lhs.c_out, xcaps.rhs.c_out)
             kw["cap_recv"] = (xcaps.lhs.cap_recv, xcaps.rhs.cap_recv)
@@ -432,7 +494,8 @@ class GridEngine(Engine):
         return outs, stats, 2
 
     def join_many(self, as_, bs, cap, seeds, xcaps=None):
-        kw = {}
+        fmts, xcaps = self._pair_fmts(as_, bs, xcaps)
+        kw = {"fmts": fmts}
         if xcaps is not None:
             kw["c_out"] = (xcaps.lhs.c_out, xcaps.rhs.c_out)
             kw["cap_recv"] = (xcaps.lhs.cap_recv, xcaps.rhs.cap_recv)
@@ -724,9 +787,12 @@ class PhysicalExecutor:
         skew_threshold: Optional[float] = None,
         caps_cache: "bool | CapsCache" = True,
         prefetch: bool = True,
+        wire_policy: Optional[WirePolicy] = None,
     ):
         self.spmd = spmd
-        self.engine = get_engine(strategy, spmd, local_backend, skew_threshold)
+        self.engine = get_engine(
+            strategy, spmd, local_backend, skew_threshold, wire_policy=wire_policy
+        )
         self.local_backend = local_backend
         self.capman = capman
         self.seed = seed
@@ -743,6 +809,43 @@ class PhysicalExecutor:
             self.caps_cache = CapsCache() if (caps_cache and self.calibrate) else None
         self.prefetch = bool(prefetch) and self.calibrate
         self._pending: Optional[Dict] = None
+
+    @classmethod
+    def from_plan(
+        cls,
+        spmd: SPMD,
+        plan,  # optimizer.Plan
+        capman: CapacityManager,
+        *,
+        local_backend: str,
+        seed: int = 0,
+        max_retries: int = 12,
+        count_retries_comm: bool = True,
+        calibrate: bool = True,
+        skew_threshold: Optional[float] = None,
+        caps_cache: "bool | CapsCache" = True,
+        prefetch: bool = True,
+        wire_policy: Optional[WirePolicy] = None,
+    ) -> "PhysicalExecutor":
+        """Build an executor straight from an advisor ``Plan``: engine
+        strategy and round fusion come from the plan; the local backend is
+        the plan's, else ``local_backend`` (the device's default — the
+        plan never turns the card's kernels off)."""
+        return cls(
+            spmd,
+            plan.engine,
+            capman,
+            seed=seed,
+            max_retries=max_retries,
+            count_retries_comm=count_retries_comm,
+            fuse=plan.fused,
+            calibrate=calibrate,
+            local_backend=plan.local_backend or local_backend,
+            skew_threshold=skew_threshold,
+            caps_cache=caps_cache,
+            prefetch=prefetch,
+            wire_policy=wire_policy,
+        )
 
     def _next_seed(self) -> int:
         self._seed_ctr += 1
@@ -860,7 +963,16 @@ class PhysicalExecutor:
             for gi in join_gis:
                 _, lhs, rhs, seeds = operands(gi)
                 items.append((lhs, rhs, seeds, measures[gi]))
-            needs = B.join_need_many(self.spmd, items, backend=self.local_backend)
+            fmts = [
+                self.engine._fmt_for([
+                    tuple(x for x in a.schema if x in set(b.schema))
+                    for a, b in zip(lhs, rhs)
+                ]) if self.engine.wire_policy is not None else None
+                for lhs, rhs, _, _ in items
+            ]
+            needs = B.join_need_many(
+                self.spmd, items, fmts=fmts, backend=self.local_backend
+            )
             for gi, m in zip(join_gis, needs):
                 measures[gi] = m
         if self.caps_cache is not None:

@@ -7,7 +7,11 @@ Python and numpy — never by importing it.
 - ``dtable_from_numpy``: a ``(data, valid, schema)`` numpy triple -> a
   ``DTable`` on a given device;
 - ``lm_params_from_numpy``: the reference ``DecoderLM.init`` param tree,
-  converted to numpy -> the port's ``DecoderLM`` state dict.
+  converted to numpy -> the port's ``DecoderLM`` state dict;
+- ``wire_policy_from_tuple``: a ``WirePolicy.attr_bits`` tuple -> the
+  port's ``WirePolicy``;
+- ``plan_from_fields``: an advisor ``Plan``'s fields (its GHD as a
+  ``GHD.to_dict()`` dictionary) -> the port's ``Plan``.
 """
 from __future__ import annotations
 
@@ -18,8 +22,10 @@ import torch
 
 from .core.ghd import GHD
 from .core.hypergraph import Atom, Query
+from .core.optimizer import Plan
 from .models.common import ArchConfig
 from .relational.table import DTable
+from .relational.wire import WirePolicy
 
 
 def ghd_from_dict(d: Dict[str, Any]) -> GHD:
@@ -70,3 +76,23 @@ def lm_params_from_numpy(
                     put(f"layers.{layer + i}.{part}.{key}", np.asarray(arr)[i])
         layer += count
     return state
+
+
+def wire_policy_from_tuple(
+    attr_bits: Iterable[Tuple[str, int]], *, default_bits: int = 32, codec: str = "raw"
+) -> WirePolicy:
+    return WirePolicy(
+        tuple((str(a), int(b)) for a, b in attr_bits), default_bits=int(default_bits),
+        codec=codec,
+    )
+
+
+def plan_from_fields(
+    fields: Dict[str, Any], ghd: Dict[str, Any], *, local_backend: Optional[str] = None
+) -> Plan:
+    """A ``Plan`` from another package's plan fields (plain Python values)
+    and its GHD's ``to_dict()``.  The backend names do not carry over, so
+    ``local_backend`` (None: the executing device's default) replaces the
+    source's."""
+    kw = {k: v for k, v in fields.items() if k not in ("ghd", "local_backend")}
+    return Plan(ghd=GHD.from_dict(ghd), local_backend=local_backend, **kw)

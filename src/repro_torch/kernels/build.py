@@ -123,8 +123,13 @@ def load() -> ctypes.CDLL:
     lib.gym_flash_attention.argtypes = [
         vp, vp, vp, vp, ci, ll, ll, ll, ll, ll, ci, cf, ci, ci, cf, vp,
     ]
+    # buf, valid, col_bits, out, segments, c, arity, row_bits, stream
+    lib.gym_wire_encode.argtypes = [vp, vp, vp, vp, ll, ll, ci, ci, vp]
+    # packed, col_bits, buf, valid, segments, c, arity, row_bits, stream
+    lib.gym_wire_decode.argtypes = [vp, vp, vp, vp, ll, ll, ci, ci, vp]
     for fn in (lib.gym_hash_partition, lib.gym_semijoin_probe, lib.gym_semijoin_bitmap,
-               lib.gym_sorted_probe, lib.gym_flash_attention):
+               lib.gym_sorted_probe, lib.gym_flash_attention, lib.gym_wire_encode,
+               lib.gym_wire_decode):
         fn.restype = ci
     _lib = lib
     return lib

@@ -13,11 +13,14 @@ from typing import Dict, Optional
 
 import torch
 
+from ..relational import wire as _wire
+
 from . import flash_attention as _fa
 from . import hash_partition as _hp
 from . import ref
 from . import semijoin_probe as _sp
 from . import sorted_probe as _so
+from . import wire_codec as _wc
 
 
 def _want_cuda(t: torch.Tensor, use_cuda: Optional[bool], name: str) -> bool:
@@ -68,6 +71,21 @@ def hash_partition(
     return ref.hash_partition_ref(keys, valid, p, seeds)
 
 
+def wire_encode(buf, valid, fmt, *, use_cuda: Optional[bool] = None) -> torch.Tensor:
+    """Packed-wire bytes ``(S, nbytes)`` of ``buf (S, c, ar)`` + ``valid
+    (S, c)`` under ``fmt`` (``relational.wire.WireFormat``)."""
+    if _want_cuda(valid, use_cuda, "wire_encode"):
+        return _wc.wire_encode(buf, valid, fmt)
+    return _wire.wire_encode(buf, valid, fmt)
+
+
+def wire_decode(packed, fmt, c_out: int, *, use_cuda: Optional[bool] = None):
+    """Inverse of ``wire_encode``: ``(buf (S, c_out, ar), valid (S, c_out))``."""
+    if _want_cuda(packed, use_cuda, "wire_decode"):
+        return _wc.wire_decode(packed, fmt, c_out)
+    return _wire.wire_decode(packed, fmt, c_out)
+
+
 def attention(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -105,6 +123,8 @@ def launch_counts() -> Dict[str, int]:
         "semijoin_probe": _sp.launches,
         "sorted_probe_ranges": _so.launches,
         "flash_attention": _fa.launches,
+        "wire_encode": _wc.encode_launches,
+        "wire_decode": _wc.decode_launches,
     }
 
 
@@ -119,3 +139,5 @@ def reset_launch_counts() -> None:
     _sp.path_launches.update(bitmap=0, hash=0)
     _so.launches = 0
     _fa.launches = 0
+    _wc.encode_launches = 0
+    _wc.decode_launches = 0

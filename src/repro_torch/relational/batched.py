@@ -56,18 +56,41 @@ from .shuffle import (
     bucket_counts,
     exchange,
     exchange_counts,
+    exchange_finish,
     exchange_multi,
+    exchange_start,
     padded_slots,
     pow2,
+    ship_segments,
 )
 from .skew import DEFAULT_SKEW_THRESHOLD, bcast_dests, heavy_dest_flags_many, split_dests
 from .spmd import SPMD
 from .table import DTable, schema_join
-from .wire import count_wire_bytes, dense_wire_bytes
+from .wire import WireFormat, count_wire_bytes, dense_wire_bytes, packed_wire_bytes
 
 
 def _host(x) -> np.ndarray:
     return x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+
+def _xbytes(p: int, c_out: int, arity: int, fmt: Optional[WireFormat]) -> int:
+    """Bytes ONE exchange of this shape ships end-to-end: dense cells +
+    valid plane when ``fmt`` is None, the packed bit stream otherwise."""
+    if fmt is None:
+        return dense_wire_bytes(p, c_out, arity)
+    return packed_wire_bytes(p, c_out, fmt)
+
+
+# Width of the packed join pre-count's key hash when the actual key
+# projection is wider (see ``join_pair_measure_spec``), the reference's
+# choice, kept for parity.  Narrower than the packed keys on any
+# multi-attribute schema; its extra collisions only OVER-count the join
+# output.  Over a few thousand distinct keys that stays inside the pow2
+# rounding of the derived ``out_need``; over about 2^20 each hash value
+# stands for some 16 keys, and ``out_need`` (so the output capacity) can
+# come out several times the dense run's.
+JOIN_HASH_BITS = 16
+_JOIN_HASH_FMT = WireFormat((JOIN_HASH_BITS,))
 
 
 # ------------------------------------------------------------ stack helpers
@@ -136,6 +159,9 @@ class SideCaps:
 
     c_out: int
     cap_recv: int
+    # packed wire format of this side's exchange (None = dense), recorded
+    # by the engine when a WirePolicy is active
+    fmt: Optional[WireFormat] = None
 
     @staticmethod
     def from_counts(out_counts, recv_tot) -> "SideCaps":
@@ -209,17 +235,60 @@ def _hashed_key(keys: torch.Tensor, seed) -> torch.Tensor:
     return u32_to_i32(h).unsqueeze(-1)
 
 
+def _measure_keys(akeys, bkeys, seed, fmt):
+    """Shared key-source policy of the fused and fallback join counts:
+    dense ships the key projection itself (``fmt=None``); packed ships the
+    key projection when it bit-packs narrower than a hashed column (exact
+    count), else a ``JOIN_HASH_BITS``-bit hash (equal keys keep equal
+    hashes, so the count only OVER-counts — sound).  Returns (sa, sb, key
+    column ids, wire format to ship with)."""
+    kc = tuple(range(akeys.shape[-1]))
+    if fmt is not None and fmt.row_bits <= _JOIN_HASH_FMT.row_bits:
+        return akeys, bkeys, kc, fmt
+    if fmt is not None:
+        mask = (1 << JOIN_HASH_BITS) - 1
+        sa = (hash_columns(akeys, kc, seed) & mask).to(torch.int32).unsqueeze(-1)
+        sb = (hash_columns(bkeys, kc, seed) & mask).to(torch.int32).unsqueeze(-1)
+        return sa, sb, (0,), _JOIN_HASH_FMT
+    return akeys, bkeys, kc, None
+
+
+def _pair_ship(sa, av, da, sb, bv, db, *, p, c_out_a, c_out_b, cap_a, cap_b,
+               fmt_a, fmt_b, backend):
+    """Both sides of a two-sided exchange: two dense exchanges, or (both
+    formats given) one segmented packed all_to_all.  Returns ((a2, a2v,
+    sent_a, dropped_a), (b2, b2v, sent_b, dropped_b)), drops summed over
+    the send and receive stages."""
+    if fmt_a is not None and fmt_b is not None:
+        aw, sent_a, dsa = exchange_start(sa, av, da, p=p, c_out=c_out_a, fmt=fmt_a,
+                                         backend=backend)
+        bw, sent_b, dsb = exchange_start(sb, bv, db, p=p, c_out=c_out_b, fmt=fmt_b,
+                                         backend=backend)
+        aw2, bw2 = ship_segments([aw, bw])
+        a2, a2v, dra = exchange_finish(aw2, p=p, c_out=c_out_a, cap_recv=cap_a, fmt=fmt_a,
+                                       backend=backend)
+        b2, b2v, drb = exchange_finish(bw2, p=p, c_out=c_out_b, cap_recv=cap_b, fmt=fmt_b,
+                                       backend=backend)
+    else:
+        a2, a2v, sent_a, dsa, dra = exchange(sa, av, da, p=p, c_out=c_out_a, cap_recv=cap_a)
+        b2, b2v, sent_b, dsb, drb = exchange(sb, bv, db, p=p, c_out=c_out_b, cap_recv=cap_b)
+    return (a2, a2v, sent_a, dsa + dra), (b2, b2v, sent_b, dsb + drb)
+
+
 def _join_count_shard_b(ad, av, bd, bv, seed, ak, bk, *,
-                        p, c_out_a, c_out_b, cap_a, cap_b, backend):
+                        p, c_out_a, c_out_b, cap_a, cap_b, fmt=None, backend):
     """Keys-only exchange at the ALREADY-CALIBRATED tight capacities,
-    then the exact per-shard join output count."""
+    then the exact per-shard join output count (``_measure_keys`` picks
+    what ships under a packed ``fmt``)."""
     akeys = _take(ad, ak)
     da = _dests(akeys, av, p, seed, backend)
     bkeys = _take(bd, bk)
     db = _dests(bkeys, bv, p, seed, backend)
-    kc = tuple(range(ak.shape[-1]))
-    a2, a2v, *_ = exchange(akeys, av, da, p=p, c_out=c_out_a, cap_recv=cap_a)
-    b2, b2v, *_ = exchange(bkeys, bv, db, p=p, c_out=c_out_b, cap_recv=cap_b)
+    sa, sb, kc, sfmt = _measure_keys(akeys, bkeys, seed, fmt)
+    (a2, a2v, *_), (b2, b2v, *_) = _pair_ship(
+        sa, av, da, sb, bv, db, p=p, c_out_a=c_out_a, c_out_b=c_out_b,
+        cap_a=cap_a, cap_b=cap_b, fmt_a=sfmt, fmt_b=sfmt, backend=backend,
+    )
     return local_join_count(a2, a2v, b2, b2v, kc, kc, backend)
 
 
@@ -231,17 +300,22 @@ def _heavy_array(heavy: np.ndarray, p: int, device) -> torch.Tensor:
     return h.to(device).expand((p,) + tuple(h.shape))
 
 
-def _hybrid_exchange(data, valid, dest, hw, *, p, c_out, cap_recv, spread):
+def _hybrid_exchange(data, valid, dest, hw, *, p, c_out, cap_recv, spread,
+                     fmt=None, backend=None):
     """One side of a hybrid exchange: ``spread=True`` deals the heavy rows
     round-robin (single-dest ``exchange``), ``spread=False`` broadcasts
     them to every reducer (``exchange_multi``).  Returns (rdata, rvalid,
     sent, dropped, heavy_sends)."""
     if spread:
         d2, hvy = split_dests(dest, hw, p)
-        rd, rv, sent, ds, dr = exchange(data, valid, d2, p=p, c_out=c_out, cap_recv=cap_recv)
+        rd, rv, sent, ds, dr = exchange(
+            data, valid, d2, p=p, c_out=c_out, cap_recv=cap_recv, fmt=fmt, backend=backend
+        )
         return rd, rv, sent, ds + dr, hvy.sum(-1)
     d2, hvy = bcast_dests(dest, hw, p)
-    rd, rv, sent, ds, dr = exchange_multi(data, valid, d2, p=p, c_out=c_out, cap_recv=cap_recv)
+    rd, rv, sent, ds, dr = exchange_multi(
+        data, valid, d2, p=p, c_out=c_out, cap_recv=cap_recv, fmt=fmt, backend=backend
+    )
     return rd, rv, sent, ds + dr, p * hvy.sum(-1)
 
 
@@ -289,7 +363,8 @@ def _hybrid_pair_counts(
 
 
 def _hybrid_join_count_shard_b(ad, av, bd, bv, seed, ak, bk, hw, *,
-                               p, c_out_a, c_out_b, cap_a, cap_b, swap, backend):
+                               p, c_out_a, c_out_b, cap_a, cap_b, swap, fmt=None,
+                               backend):
     """Keys-only exchange at the hybrid-calibrated capacities, then the
     exact per-shard join output count UNDER HYBRID PLACEMENT — the spread
     join's true requirement, not the hash join's one-reducer pile-up."""
@@ -297,12 +372,14 @@ def _hybrid_join_count_shard_b(ad, av, bd, bv, seed, ak, bk, hw, *,
     da = _dests(akeys, av, p, seed, backend)
     bkeys = _take(bd, bk)
     db = _dests(bkeys, bv, p, seed, backend)
-    kc = tuple(range(ak.shape[-1]))
+    sa, sb, kc, sfmt = _measure_keys(akeys, bkeys, seed, fmt)
     a2, a2v, *_ = _hybrid_exchange(
-        akeys, av, da, hw, p=p, c_out=c_out_a, cap_recv=cap_a, spread=not swap
+        sa, av, da, hw, p=p, c_out=c_out_a, cap_recv=cap_a, spread=not swap,
+        fmt=sfmt, backend=backend,
     )
     b2, b2v, *_ = _hybrid_exchange(
-        bkeys, bv, db, hw, p=p, c_out=c_out_b, cap_recv=cap_b, spread=swap
+        sb, bv, db, hw, p=p, c_out=c_out_b, cap_recv=cap_b, spread=swap,
+        fmt=sfmt, backend=backend,
     )
     return local_join_count(a2, a2v, b2, b2v, kc, kc, backend)
 
@@ -656,25 +733,49 @@ def pair_measure_spec(
 def join_pair_measure_spec(
     spmd: SPMD, as_, bs, a_keys, b_keys, seeds, *,
     g_a: int, g_b: int, skew_threshold: float = DEFAULT_SKEW_THRESHOLD,
+    fmt: Optional[WireFormat] = None,
 ) -> MeasureSpec:
     """Hash join pre-pass with the output count FUSED into the same
     dispatch: besides both sides' exchange counts, the program ships a
-    single hashed-key column per side at the STATIC guess capacities
+    keys-only exchange per side at the STATIC guess capacities
     ``g_a``/``g_b`` and counts the join output per destination.  The
     fetched counts prove post hoc whether the guess held; ``_finalize_spec``
-    only trusts the fused count when it did."""
+    only trusts the fused count when it did.
+
+    Dense (``fmt=None``) ships a single hashed-key column per side: the
+    count can only over-count, a sound ``out_need`` at width-1 wire cost.
+    Packed (``fmt`` = the group's shared-key ``WireFormat``) ships the key
+    projections bit-packed when they fit in fewer bits than a hashed
+    column (an exact count), else a bit-packed ``JOIN_HASH_BITS``-bit key
+    hash (``_measure_keys``)."""
     p, dev = spmd.p, spmd.device
     ad, av = _stack(as_)
     bd, bv = _stack(bs)
     k = len(as_)
-    # count vectors + the two hashed-key (width 1) dense exchanges
-    pad = 2 * k * p * p + k * p * p * (g_a + g_b)
-    byt = count_wire_bytes(p, 2 * k) + k * (
-        dense_wire_bytes(p, g_a, 1) + dense_wire_bytes(p, g_b, 1)
-    )
+    keyed = False
+    sfmt = fmt
+    if fmt is not None:
+        # the SHIPPED format after the _measure_keys policy (the entry
+        # keeps the original so the shard body resolves identically)
+        keyed = fmt.row_bits <= _JOIN_HASH_FMT.row_bits
+        if not keyed:
+            sfmt = _JOIN_HASH_FMT
+    if fmt is None:
+        # count vectors + the two hashed-key (width 1) dense exchanges
+        pad = 2 * k * p * p + k * p * p * (g_a + g_b)
+        byt = count_wire_bytes(p, 2 * k) + k * (
+            dense_wire_bytes(p, g_a, 1) + dense_wire_bytes(p, g_b, 1)
+        )
+    else:
+        # count vectors + the two packed keys-only exchanges (the slot
+        # metric stays width-weighted: one cell per shipped column)
+        pad = 2 * k * p * p + k * p * p * (g_a + g_b) * sfmt.arity
+        byt = count_wire_bytes(p, 2 * k) + k * (
+            packed_wire_bytes(p, g_a, sfmt) + packed_wire_bytes(p, g_b, sfmt)
+        )
     return MeasureSpec(
         tag="join_pair",
-        entry=("join_pair", k, g_a, g_b),
+        entry=("join_pair", k, g_a, g_b, fmt, keyed),
         arrays=(
             ad, av, bd, bv, _seed_array(seeds, p, dev),
             _key_array(a_keys, p, dev), _key_array(b_keys, p, dev),
@@ -757,20 +858,28 @@ def _measure_round_shard(*arrays, entries, p, backend):
             db = _dests(bkeys, bv2, p, seed, backend)
             blocks += [bucket_counts(da, p), bucket_counts(db, p)]
         elif tag == "join_pair":
-            _, k, g_a, g_b = e
+            _, k, g_a, g_b, jfmt, _keyed = e
             ad, av, bd, bv, seed, ak, bk = arrays[i: i + 7]
             i += 7
             akeys = _take(ad, ak)
             da = _dests(akeys, av, p, seed, backend)
             bkeys = _take(bd, bk)
             db = _dests(bkeys, bv, p, seed, backend)
-            # a single hashed-key column stands in for the nk-wide key
-            # projection: the count can only over-count — a sound out_need
-            sa = _hashed_key(akeys, seed)
-            sb = _hashed_key(bkeys, seed)
-            a2, a2v, *_ = exchange(sa, av, da, p=p, c_out=g_a, cap_recv=p * g_a)
-            b2, b2v, *_ = exchange(sb, bv, db, p=p, c_out=g_b, cap_recv=p * g_b)
-            jc = local_join_count(a2, a2v, b2, b2v, (0,), (0,), backend)
+            if jfmt is not None:
+                # packed: the bit-packed key projection (narrow keys, exact
+                # count) or a JOIN_HASH_BITS-bit hash (wide keys, sound
+                # over-count); one segmented collective either way
+                sa, sb, kc, sfmt = _measure_keys(akeys, bkeys, seed, jfmt)
+            else:
+                # dense: a single hashed-key column stands in for the
+                # nk-wide key projection: the count can only over-count —
+                # a sound out_need
+                sa, sb, kc, sfmt = _hashed_key(akeys, seed), _hashed_key(bkeys, seed), (0,), None
+            (a2, a2v, *_), (b2, b2v, *_) = _pair_ship(
+                sa, av, da, sb, bv, db, p=p, c_out_a=g_a, c_out_b=g_b,
+                cap_a=p * g_a, cap_b=p * g_b, fmt_a=sfmt, fmt_b=sfmt, backend=backend,
+            )
+            jc = local_join_count(a2, a2v, b2, b2v, kc, kc, backend)
             blocks += [bucket_counts(da, p), bucket_counts(db, p)]
             jblocks.append(jc)
         elif tag == "single":
@@ -831,7 +940,7 @@ def _finalize_spec(
     if spec.tag == "join_pair":
         # trust the fused output count only when the counts prove the
         # hashed-key exchanges held every send (guess not exceeded)
-        _, _, g_a, g_b = spec.entry
+        _, _, g_a, g_b, _jfmt, _keyed = spec.entry
         if int(oa.max()) <= g_a and int(ob.max()) <= g_b:
             jc = jcnt[:, joff: joff + spec.join_rows]
             m = dataclasses.replace(m, out_need=pow2(max(1, int(jc.max()))))
@@ -896,33 +1005,42 @@ def _join_need_round_shard(*arrays, entries, p, backend):
     i = 0
     for e in entries:
         if e[0] == "hash":
-            _, k, coa, cob, ca, cb = e
+            _, k, coa, cob, ca, cb, fmt = e
             ad, av, bd, bv, seed, ak, bk = arrays[i: i + 7]
             i += 7
             outs.append(_join_count_shard_b(
                 ad, av, bd, bv, seed, ak, bk, p=p, c_out_a=coa, c_out_b=cob,
-                cap_a=ca, cap_b=cb, backend=backend,
+                cap_a=ca, cap_b=cb, fmt=fmt, backend=backend,
             ))
         else:  # hybrid placement
-            _, k, coa, cob, ca, cb, swap = e
+            _, k, coa, cob, ca, cb, swap, fmt = e
             ad, av, bd, bv, seed, ak, bk, hw = arrays[i: i + 8]
             i += 8
             outs.append(_hybrid_join_count_shard_b(
                 ad, av, bd, bv, seed, ak, bk, hw, p=p, c_out_a=coa,
-                c_out_b=cob, cap_a=ca, cap_b=cb, swap=swap, backend=backend,
+                c_out_b=cob, cap_a=ca, cap_b=cb, swap=swap, fmt=fmt, backend=backend,
             ))
     return torch.cat(outs, dim=1)  # (p, sum_k)
 
 
-def join_need_many(spmd: SPMD, items, *, backend: str = "torch") -> List[GroupMeasure]:
+def join_need_many(
+    spmd: SPMD, items, *, fmts: Optional[Sequence[Optional[WireFormat]]] = None,
+    backend: str = "torch",
+) -> List[GroupMeasure]:
     """ONE dispatch computing the exact join-output requirement for EVERY
     join group of a round stage; each returned measure carries
-    ``out_need`` with the keys-only exchange priced into ``padded``."""
+    ``out_need`` with the keys-only exchange priced into ``padded``.
+
+    ``fmts`` (one shared-key ``WireFormat`` or None per item) packs the
+    keys-only exchanges with the ``_measure_keys`` policy — the same wire
+    the fused pre-count would have used."""
     p, dev = spmd.p, spmd.device
+    if fmts is None:
+        fmts = [None] * len(items)
     arrays: List[torch.Tensor] = []
     entries = []
     nks = []
-    for as_, bs, seeds, m in items:
+    for (as_, bs, seeds, m), fmt in zip(items, fmts):
         a_keys, b_keys = _pair_keys(as_, bs)
         nks.append(len(a_keys[0]))
         ad, av = _stack(as_)
@@ -933,37 +1051,50 @@ def join_need_many(spmd: SPMD, items, *, backend: str = "torch") -> List[GroupMe
             _key_array(a_keys, p, dev), _key_array(b_keys, p, dev),
         ))
         if m.hybrid_routed:
-            entries.append(("hybrid", len(as_)) + caps + (m.swap_spread,))
+            entries.append(("hybrid", len(as_)) + caps + (m.swap_spread, fmt))
             arrays.append(_heavy_array(m.heavy, p, dev))
         else:
-            entries.append(("hash", len(as_)) + caps)
+            entries.append(("hash", len(as_)) + caps + (fmt,))
     cnt = _host(spmd.run(
         _join_need_round_shard, *arrays,
         entries=tuple(entries), p=p, backend=backend, measure=True,
     ))  # (p, sum_k)
     out = []
     off = 0
-    for (as_, bs, seeds, m), e, nk in zip(items, entries, nks):
+    for (as_, bs, seeds, m), e, nk, fmt in zip(items, entries, nks, fmts):
         k = e[1]
         c = cnt[:, off: off + k]
         off += k
+        if fmt is not None:
+            # the shipped format after the _measure_keys policy: the keys
+            # when narrow enough, the JOIN_HASH_BITS hash otherwise
+            sfmt = fmt if fmt.row_bits <= _JOIN_HASH_FMT.row_bits else _JOIN_HASH_FMT
+            pad_x = k * (
+                padded_slots(p, m.lhs.c_out, sfmt.arity)
+                + padded_slots(p, m.rhs.c_out, sfmt.arity)
+            )
+            byt_x = k * (
+                packed_wire_bytes(p, m.lhs.c_out, sfmt)
+                + packed_wire_bytes(p, m.rhs.c_out, sfmt)
+            )
+        else:
+            pad_x = k * (padded_slots(p, m.lhs.c_out, nk) + padded_slots(p, m.rhs.c_out, nk))
+            byt_x = k * (
+                dense_wire_bytes(p, m.lhs.c_out, nk) + dense_wire_bytes(p, m.rhs.c_out, nk)
+            )
         out.append(dataclasses.replace(
             m,
             out_need=pow2(max(1, int(c.max()))),
-            padded=m.padded + k * (
-                padded_slots(p, m.lhs.c_out, nk) + padded_slots(p, m.rhs.c_out, nk)
-            ),
-            wire_bytes=m.wire_bytes + k * (
-                dense_wire_bytes(p, m.lhs.c_out, nk)
-                + dense_wire_bytes(p, m.rhs.c_out, nk)
-            ),
+            padded=m.padded + pad_x,
+            wire_bytes=m.wire_bytes + byt_x,
         ))
     return out
 
 
 # ------------------------------------------------------------ hash semijoin
 def _semijoin_shard_b(sd, sv, rd, rv, seed, sk, rk, *,
-                      p, c_out_s, c_out_r, cap_s, cap_r, backend):
+                      p, c_out_s, c_out_r, cap_s, cap_r, fmt_s=None, fmt_r=None,
+                      backend):
     nk = rk.shape[-1]
     kcols = tuple(range(nk))
     # ship only the deduplicated key projection of R (S |>< R = S |><
@@ -973,19 +1104,24 @@ def _semijoin_shard_b(sd, sv, rd, rv, seed, sk, rk, *,
     rkeys = torch.where(rkv.unsqueeze(-1), rkeys, 0)
     rdest = _dests(rkeys, rkv, p, seed, backend)
     sdest = _dests(_take(sd, sk), sv, p, seed, backend)
-    rk2, rkv2, sent_r, dsr, drr = exchange(rkeys, rkv, rdest, p=p, c_out=c_out_r, cap_recv=cap_r)
-    s2, s2v, sent_s, dss, drs = exchange(sd, sv, sdest, p=p, c_out=c_out_s, cap_recv=cap_s)
+    # packed: both sides encode into ONE segmented buffer, one all_to_all
+    (rk2, rkv2, sent_r, dr_r), (s2, s2v, sent_s, dr_s) = _pair_ship(
+        rkeys, rkv, rdest, sd, sv, sdest, p=p, c_out_a=c_out_r, c_out_b=c_out_s,
+        cap_a=cap_r, cap_b=cap_s, fmt_a=fmt_r, fmt_b=fmt_s, backend=backend,
+    )
     rkv2 = local_dedup_mask(rk2, rkv2, kcols)
     mask = local_semijoin_mask(_take(s2, sk), s2v, kcols, rk2, rkv2, kcols, backend)
     s2 = torch.where(mask.unsqueeze(-1), s2, 0)
     ub = 4 * (nk * sent_r + sd.shape[-1] * sent_s)  # dense int32 bytes occupied
-    return s2, mask, sent_r + sent_s, dsr + drr + dss + drs, ub
+    return s2, mask, sent_r + sent_s, dr_r + dr_s, ub
 
 
 def dist_semijoin_many(
     spmd: SPMD, ss: Sequence[DTable], rs: Sequence[DTable], *,
     seeds: Sequence[int], cap_recv: Tuple[int, int],
-    c_out: Optional[Tuple[int, int]] = None, backend: str = "torch",
+    c_out: Optional[Tuple[int, int]] = None,
+    fmts: Optional[Tuple] = None,  # (fmt_s, fmt_r) or None = dense
+    backend: str = "torch",
 ) -> Tuple[List[DTable], List[Dict]]:
     """k-fold S_i |>< R_i in ONE dispatch."""
     p, dev = spmd.p, spmd.device
@@ -996,38 +1132,42 @@ def dist_semijoin_many(
     rd, rv = _stack(rs)
     sk = _key_array([s.cols(sh) for s, sh in zip(ss, shareds)], p, dev)
     rk = _key_array([r.cols(sh) for r, sh in zip(rs, shareds)], p, dev)
+    fmt_s, fmt_r = fmts if fmts is not None else (None, None)
     od, ov, sent, dropped, ub = spmd.run(
         _semijoin_shard_b,
         sd, sv, rd, rv, _seed_array(seeds, p, dev), sk, rk,
         p=p, c_out_s=c_out[0], c_out_r=c_out[1],
-        cap_s=cap_recv[0], cap_r=cap_recv[1], backend=backend,
+        cap_s=cap_recv[0], cap_r=cap_recv[1], fmt_s=fmt_s, fmt_r=fmt_r, backend=backend,
     )
     return _unstack(od, ov, [s.schema for s in ss]), _per_op_stats(
         sent, dropped,
         # S ships full rows; R ships its deduplicated key projection
         padded_slots(p, c_out[0], ss[0].arity)
         + padded_slots(p, c_out[1], len(shareds[0])),
-        wire_bytes=dense_wire_bytes(p, c_out[0], ss[0].arity)
-        + dense_wire_bytes(p, c_out[1], len(shareds[0])),
+        wire_bytes=_xbytes(p, c_out[0], ss[0].arity, fmt_s)
+        + _xbytes(p, c_out[1], len(shareds[0]), fmt_r),
         ubytes=ub,
     )
 
 
 # ---------------------------------------------------------------- hash join
 def _join_shard_b(ad, av, bd, bv, seed, ak, bk, bkeep, *,
-                  p, c_out_a, c_out_b, cap_a, cap_b, out_cap, backend):
+                  p, c_out_a, c_out_b, cap_a, cap_b, out_cap, fmt_a=None, fmt_b=None,
+                  backend):
     nk = ak.shape[-1]
     kcols = tuple(range(nk))
     adest = _dests(_take(ad, ak), av, p, seed, backend)
     bdest = _dests(_take(bd, bk), bv, p, seed, backend)
-    a2, a2v, sent_a, dsa, dra = exchange(ad, av, adest, p=p, c_out=c_out_a, cap_recv=cap_a)
-    b2, b2v, sent_b, dsb, drb = exchange(bd, bv, bdest, p=p, c_out=c_out_b, cap_recv=cap_b)
+    (a2, a2v, sent_a, dr_a), (b2, b2v, sent_b, dr_b) = _pair_ship(
+        ad, av, adest, bd, bv, bdest, p=p, c_out_a=c_out_a, c_out_b=c_out_b,
+        cap_a=cap_a, cap_b=cap_b, fmt_a=fmt_a, fmt_b=fmt_b, backend=backend,
+    )
     ra, rb = dense_ranks(_take(a2, ak), a2v, kcols, _take(b2, bk), b2v, kcols)
     out, out_v, over = local_join_ranked(
         a2, a2v, ra, b2, b2v, rb, bkeep, out_cap, backend
     )
     ub = 4 * (ad.shape[-1] * sent_a + bd.shape[-1] * sent_b)
-    return out, out_v, sent_a + sent_b, dsa + dra + dsb + drb + over, ub
+    return out, out_v, sent_a + sent_b, dr_a + dr_b + over, ub
 
 
 def dist_join_many(
@@ -1035,6 +1175,7 @@ def dist_join_many(
     seeds: Sequence[int], out_cap: int,
     c_out: Optional[Tuple[int, int]] = None,
     cap_recv: Optional[Tuple[int, int]] = None,
+    fmts: Optional[Tuple] = None,  # (fmt_a, fmt_b) or None = dense
     backend: str = "torch",
 ) -> Tuple[List[DTable], List[Dict]]:
     """k-fold A_i |><| B_i in ONE dispatch."""
@@ -1055,25 +1196,28 @@ def dist_join_many(
     ak = _key_array([a.cols(sh) for a, sh in zip(as_, shareds)], p, dev)
     bk = _key_array([b.cols(sh) for b, sh in zip(bs, shareds)], p, dev)
     bkeep = _key_array(keeps, p, dev)
+    fmt_a, fmt_b = fmts if fmts is not None else (None, None)
     od, ov, sent, dropped, ub = spmd.run(
         _join_shard_b,
         ad, av, bd, bv, _seed_array(seeds, p, dev), ak, bk, bkeep,
         p=p, c_out_a=c_out[0], c_out_b=c_out[1],
-        cap_a=cap_recv[0], cap_b=cap_recv[1], out_cap=out_cap, backend=backend,
+        cap_a=cap_recv[0], cap_b=cap_recv[1], out_cap=out_cap,
+        fmt_a=fmt_a, fmt_b=fmt_b, backend=backend,
     )
     return _unstack(od, ov, schemas), _per_op_stats(
         sent, dropped,
         padded_slots(p, c_out[0], as_[0].arity)
         + padded_slots(p, c_out[1], bs[0].arity),
-        wire_bytes=dense_wire_bytes(p, c_out[0], as_[0].arity)
-        + dense_wire_bytes(p, c_out[1], bs[0].arity),
+        wire_bytes=_xbytes(p, c_out[0], as_[0].arity, fmt_a)
+        + _xbytes(p, c_out[1], bs[0].arity, fmt_b),
         ubytes=ub,
     )
 
 
 # ------------------------------------------- hybrid (heavy-hitter) semijoin
 def _hybrid_semijoin_shard_b(sd, sv, rd, rv, seed, sk, rk, hw, *,
-                             p, c_out_s, c_out_r, cap_s, cap_r, backend):
+                             p, c_out_s, c_out_r, cap_s, cap_r, fmt_s=None, fmt_r=None,
+                             backend):
     """``_semijoin_shard_b`` with hybrid routing: S (the output side)
     spread, R's deduplicated key projection broadcast for heavy keys.  An
     S row lands on exactly one reducer either way, and every R key it can
@@ -1086,12 +1230,12 @@ def _hybrid_semijoin_shard_b(sd, sv, rd, rv, seed, sk, rk, hw, *,
     rkeys = torch.where(rkv.unsqueeze(-1), rkeys, 0)
     rk2, rkv2, sent_r, dr_r, hvy_r = _hybrid_exchange(
         rkeys, rkv, _dests(rkeys, rkv, p, seed, backend), hw,
-        p=p, c_out=c_out_r, cap_recv=cap_r, spread=False,
+        p=p, c_out=c_out_r, cap_recv=cap_r, spread=False, fmt=fmt_r, backend=backend,
     )
     rkv2 = local_dedup_mask(rk2, rkv2, kcols)
     s2, s2v, sent_s, dr_s, hvy_s = _hybrid_exchange(
         sd, sv, _dests(_take(sd, sk), sv, p, seed, backend), hw,
-        p=p, c_out=c_out_s, cap_recv=cap_s, spread=True,
+        p=p, c_out=c_out_s, cap_recv=cap_s, spread=True, fmt=fmt_s, backend=backend,
     )
     mask = local_semijoin_mask(_take(s2, sk), s2v, kcols, rk2, rkv2, kcols, backend)
     s2 = torch.where(mask.unsqueeze(-1), s2, 0)
@@ -1102,7 +1246,9 @@ def _hybrid_semijoin_shard_b(sd, sv, rd, rv, seed, sk, rk, hw, *,
 def hybrid_semijoin_many(
     spmd: SPMD, ss: Sequence[DTable], rs: Sequence[DTable], *,
     seeds: Sequence[int], heavy: np.ndarray, cap_recv: Tuple[int, int],
-    c_out: Optional[Tuple[int, int]] = None, backend: str = "torch",
+    c_out: Optional[Tuple[int, int]] = None,
+    fmts: Optional[Tuple] = None,  # (fmt_s, fmt_r) or None = dense
+    backend: str = "torch",
 ) -> Tuple[List[DTable], List[Dict]]:
     """k-fold skew-resilient S_i |>< R_i in ONE dispatch: light keys hash,
     heavy keys (``heavy`` (k, p) per-instance flags) spread/broadcast.
@@ -1117,27 +1263,29 @@ def hybrid_semijoin_many(
     sd, sv = _stack(ss)
     rd, rv = _stack(rs)
     sk, rk = (_key_array(ks, p, dev) for ks in _pair_keys(ss, rs))
+    fmt_s, fmt_r = fmts if fmts is not None else (None, None)
     od, ov, sent, dropped, hvy, ub = spmd.run(
         _hybrid_semijoin_shard_b,
         sd, sv, rd, rv, _seed_array(seeds, p, dev), sk, rk,
         _heavy_array(heavy, p, dev),
         p=p, c_out_s=c_out[0], c_out_r=c_out[1],
-        cap_s=cap_recv[0], cap_r=cap_recv[1], backend=backend,
+        cap_s=cap_recv[0], cap_r=cap_recv[1], fmt_s=fmt_s, fmt_r=fmt_r, backend=backend,
     )
     return _unstack(od, ov, [s.schema for s in ss]), _per_op_stats(
         sent, dropped,
         padded_slots(p, c_out[0], ss[0].arity)
         + padded_slots(p, c_out[1], len(shareds[0])),
         heavy=hvy,
-        wire_bytes=dense_wire_bytes(p, c_out[0], ss[0].arity)
-        + dense_wire_bytes(p, c_out[1], len(shareds[0])),
+        wire_bytes=_xbytes(p, c_out[0], ss[0].arity, fmt_s)
+        + _xbytes(p, c_out[1], len(shareds[0]), fmt_r),
         ubytes=ub,
     )
 
 
 # ----------------------------------------------- hybrid (heavy-hitter) join
 def _hybrid_join_shard_b(ad, av, bd, bv, seed, ak, bk, bkeep, hw, *,
-                         p, c_out_a, c_out_b, cap_a, cap_b, out_cap, swap, backend):
+                         p, c_out_a, c_out_b, cap_a, cap_b, out_cap, swap,
+                         fmt_a=None, fmt_b=None, backend):
     """``_join_shard_b`` with hybrid routing: one side spread, the other
     broadcast for heavy keys (``swap`` picks which).  A heavy pair (a, b)
     meets exactly once — at the unique reducer holding the spread copy;
@@ -1146,11 +1294,11 @@ def _hybrid_join_shard_b(ad, av, bd, bv, seed, ak, bk, bkeep, hw, *,
     kcols = tuple(range(ak.shape[-1]))
     a2, a2v, sent_a, dr_a, hvy_a = _hybrid_exchange(
         ad, av, _dests(_take(ad, ak), av, p, seed, backend), hw,
-        p=p, c_out=c_out_a, cap_recv=cap_a, spread=not swap,
+        p=p, c_out=c_out_a, cap_recv=cap_a, spread=not swap, fmt=fmt_a, backend=backend,
     )
     b2, b2v, sent_b, dr_b, hvy_b = _hybrid_exchange(
         bd, bv, _dests(_take(bd, bk), bv, p, seed, backend), hw,
-        p=p, c_out=c_out_b, cap_recv=cap_b, spread=swap,
+        p=p, c_out=c_out_b, cap_recv=cap_b, spread=swap, fmt=fmt_b, backend=backend,
     )
     ra, rb = dense_ranks(_take(a2, ak), a2v, kcols, _take(b2, bk), b2v, kcols)
     out, out_v, over = local_join_ranked(
@@ -1165,7 +1313,9 @@ def hybrid_join_many(
     seeds: Sequence[int], out_cap: int, heavy: np.ndarray,
     c_out: Optional[Tuple[int, int]] = None,
     cap_recv: Optional[Tuple[int, int]] = None,
-    swap: bool = False, backend: str = "torch",
+    swap: bool = False,
+    fmts: Optional[Tuple] = None,  # (fmt_a, fmt_b) or None = dense
+    backend: str = "torch",
 ) -> Tuple[List[DTable], List[Dict]]:
     """k-fold skew-resilient A_i |><| B_i in ONE dispatch; same row sets
     as ``dist_join_many`` with heavy keys routed spread/broadcast.
@@ -1183,43 +1333,49 @@ def hybrid_join_many(
     ad, av = _stack(as_)
     bd, bv = _stack(bs)
     ak, bk = (_key_array(ks, p, dev) for ks in _pair_keys(as_, bs))
+    fmt_a, fmt_b = fmts if fmts is not None else (None, None)
     od, ov, sent, dropped, hvy, ub = spmd.run(
         _hybrid_join_shard_b,
         ad, av, bd, bv, _seed_array(seeds, p, dev), ak, bk,
         _key_array(keeps, p, dev), _heavy_array(heavy, p, dev),
         p=p, c_out_a=c_out[0], c_out_b=c_out[1],
         cap_a=cap_recv[0], cap_b=cap_recv[1], out_cap=out_cap, swap=swap,
-        backend=backend,
+        fmt_a=fmt_a, fmt_b=fmt_b, backend=backend,
     )
     return _unstack(od, ov, schemas), _per_op_stats(
         sent, dropped,
         padded_slots(p, c_out[0], as_[0].arity)
         + padded_slots(p, c_out[1], bs[0].arity),
         heavy=hvy,
-        wire_bytes=dense_wire_bytes(p, c_out[0], as_[0].arity)
-        + dense_wire_bytes(p, c_out[1], bs[0].arity),
+        wire_bytes=_xbytes(p, c_out[0], as_[0].arity, fmt_a)
+        + _xbytes(p, c_out[1], bs[0].arity, fmt_b),
         ubytes=ub,
     )
 
 
 # ----------------------------------------------------------- hash intersect
 def _intersect_shard_b(ad, av, bd, bv, seed, bcols, *,
-                       p, c_out_a, c_out_b, cap_a, cap_b, backend):
+                       p, c_out_a, c_out_b, cap_a, cap_b, fmt_a=None, fmt_b=None,
+                       backend):
     acols = tuple(range(ad.shape[-1]))
     adest = _dests(ad, av, p, seed, backend)
     bdest = _dests(_take(bd, bcols), bv, p, seed, backend)
-    a2, a2v, sent_a, dsa, dra = exchange(ad, av, adest, p=p, c_out=c_out_a, cap_recv=cap_a)
-    b2, b2v, sent_b, dsb, drb = exchange(bd, bv, bdest, p=p, c_out=c_out_b, cap_recv=cap_b)
+    (a2, a2v, sent_a, dr_a), (b2, b2v, sent_b, dr_b) = _pair_ship(
+        ad, av, adest, bd, bv, bdest, p=p, c_out_a=c_out_a, c_out_b=c_out_b,
+        cap_a=cap_a, cap_b=cap_b, fmt_a=fmt_a, fmt_b=fmt_b, backend=backend,
+    )
     mask = local_semijoin_mask(a2, a2v, acols, _take(b2, bcols), b2v, acols, backend)
     a2 = torch.where(mask.unsqueeze(-1), a2, 0)
     ub = 4 * (ad.shape[-1] * sent_a + bd.shape[-1] * sent_b)
-    return a2, mask, sent_a + sent_b, dsa + dra + dsb + drb, ub
+    return a2, mask, sent_a + sent_b, dr_a + dr_b, ub
 
 
 def dist_intersect_many(
     spmd: SPMD, as_: Sequence[DTable], bs: Sequence[DTable], *,
     seeds: Sequence[int], cap_recv: Tuple[int, int],
-    c_out: Optional[Tuple[int, int]] = None, backend: str = "torch",
+    c_out: Optional[Tuple[int, int]] = None,
+    fmts: Optional[Tuple] = None,  # (fmt_a, fmt_b) or None = dense
+    backend: str = "torch",
 ) -> Tuple[List[DTable], List[Dict]]:
     """k-fold A_i ^ B_i (same attr sets) in ONE dispatch."""
     p, dev = spmd.p, spmd.device
@@ -1229,26 +1385,28 @@ def dist_intersect_many(
     ad, av = _stack(as_)
     bd, bv = _stack(bs)
     bcols = _key_array([b.cols(a.schema) for a, b in zip(as_, bs)], p, dev)
+    fmt_a, fmt_b = fmts if fmts is not None else (None, None)
     od, ov, sent, dropped, ub = spmd.run(
         _intersect_shard_b,
         ad, av, bd, bv, _seed_array(seeds, p, dev), bcols,
         p=p, c_out_a=c_out[0], c_out_b=c_out[1],
-        cap_a=cap_recv[0], cap_b=cap_recv[1], backend=backend,
+        cap_a=cap_recv[0], cap_b=cap_recv[1], fmt_a=fmt_a, fmt_b=fmt_b, backend=backend,
     )
     return _unstack(od, ov, [a.schema for a in as_]), _per_op_stats(
         sent, dropped,
         padded_slots(p, c_out[0], as_[0].arity)
         + padded_slots(p, c_out[1], bs[0].arity),
-        wire_bytes=dense_wire_bytes(p, c_out[0], as_[0].arity)
-        + dense_wire_bytes(p, c_out[1], bs[0].arity),
+        wire_bytes=_xbytes(p, c_out[0], as_[0].arity, fmt_a)
+        + _xbytes(p, c_out[1], bs[0].arity, fmt_b),
         ubytes=ub,
     )
 
 
 # --------------------------------------------------------------- hash dedup
-def _dedup_shard_b(d, v, seed, *, p, c_out, cap_recv, backend):
+def _dedup_shard_b(d, v, seed, *, p, c_out, cap_recv, fmt=None, backend):
     d2, v2, sent, ds, dr = exchange(
-        d, v, _dests(d, v, p, seed, backend), p=p, c_out=c_out, cap_recv=cap_recv
+        d, v, _dests(d, v, p, seed, backend), p=p, c_out=c_out, cap_recv=cap_recv,
+        fmt=fmt, backend=backend,
     )
     mask = local_dedup_mask(d2, v2, tuple(range(d.shape[-1])))
     d2 = torch.where(mask.unsqueeze(-1), d2, 0)
@@ -1257,18 +1415,19 @@ def _dedup_shard_b(d, v, seed, *, p, c_out, cap_recv, backend):
 
 def dist_dedup_many(
     spmd: SPMD, ts: Sequence[DTable], *, seeds: Sequence[int], cap_recv: int,
-    c_out: Optional[int] = None, backend: str = "torch",
+    c_out: Optional[int] = None, fmt: Optional[WireFormat] = None,
+    backend: str = "torch",
 ) -> Tuple[List[DTable], List[Dict]]:
     p, dev = spmd.p, spmd.device
     c_out = c_out or ts[0].cap
     d, v = _stack(ts)
     od, ov, sent, dropped = spmd.run(
         _dedup_shard_b, d, v, _seed_array(seeds, p, dev),
-        p=p, c_out=c_out, cap_recv=cap_recv, backend=backend,
+        p=p, c_out=c_out, cap_recv=cap_recv, fmt=fmt, backend=backend,
     )
     return _unstack(od, ov, [t.schema for t in ts]), _per_op_stats(
         sent, dropped, padded_slots(p, c_out, ts[0].arity),
-        wire_bytes=dense_wire_bytes(p, c_out, ts[0].arity),
+        wire_bytes=_xbytes(p, c_out, ts[0].arity, fmt),
         # single exchange: useful bytes are 4 * arity * sent, host-side
         ubytes=4 * ts[0].arity * _host(sent),
     )
@@ -1277,7 +1436,7 @@ def dist_dedup_many(
 # ---------------------------------------------- grid semijoin (Lemma 10)
 def _grid_semijoin_mark_b(sd, sv, rd, rv, sk, rk, *,
                           g_s, g_r, s_cap, r_cap, p, c_out_s, c_out_r,
-                          cap_s, cap_r, backend):
+                          cap_s, cap_r, fmt_s=None, fmt_r=None, backend):
     """Round 1 of Lemma 10 for every instance of the group: S by position
     to its g_r cells, R's deduplicated key projection by position to its
     g_s cells, then each cell marks its S rows matched by its R block."""
@@ -1286,7 +1445,7 @@ def _grid_semijoin_mark_b(sd, sv, rd, rv, sk, rk, *,
     grp_s = _position_groups(sv, g_s, s_cap, p)
     dest_s = _grid_dests(grp_s, g_s, g_r, range(g_r), p)
     s2, s2v, sent_s, dss, drs = exchange_multi(
-        sd, sv, dest_s, p=p, c_out=c_out_s, cap_recv=cap_s
+        sd, sv, dest_s, p=p, c_out=c_out_s, cap_recv=cap_s, fmt=fmt_s, backend=backend
     )
     rkeys = _take(rd, rk)
     rkv = local_dedup_mask(rkeys, rv, kcols)
@@ -1294,7 +1453,7 @@ def _grid_semijoin_mark_b(sd, sv, rd, rv, sk, rk, *,
     grp_r = _position_groups(rkv, g_r, r_cap, p)
     dest_r = _grid_dests(grp_r, g_r, 1, [c * g_r for c in range(g_s)], p)
     r2, r2v, sent_r, dsr, drr = exchange_multi(
-        rkeys, rkv, dest_r, p=p, c_out=c_out_r, cap_recv=cap_r
+        rkeys, rkv, dest_r, p=p, c_out=c_out_r, cap_recv=cap_r, fmt=fmt_r, backend=backend
     )
     mask = local_semijoin_mask(_take(s2, sk), s2v, kcols, r2, r2v, kcols, backend)
     s2 = torch.where(mask.unsqueeze(-1), s2, 0)
@@ -1311,6 +1470,7 @@ def grid_semijoin_many(
     out_cap: int,
     c_out: Optional[Tuple[int, int]] = None,
     cap_recv: Optional[Tuple[int, int]] = None,
+    fmts: Optional[Tuple] = None,  # (fmt_s, fmt_rkeys) or None = dense
     backend: str = "torch",
 ) -> Tuple[List[DTable], List[Dict]]:
     """k-fold Lemma-10 grid semijoin: one MARK dispatch for the whole group
@@ -1330,25 +1490,26 @@ def grid_semijoin_many(
     rd, rv = _stack(rs)
     sk = _key_array([s.cols(sh) for s, sh in zip(ss, shareds)], p, dev)
     rk = _key_array([r.cols(sh) for r, sh in zip(rs, shareds)], p, dev)
+    fmt_s, fmt_r = fmts if fmts is not None else (None, None)
     md, mv, sent, dropped, ub = spmd.run(
         _grid_semijoin_mark_b,
         sd, sv, rd, rv, sk, rk,
         g_s=g_s, g_r=g_r, s_cap=s0.cap, r_cap=r0.cap, p=p,
         c_out_s=c_out[0], c_out_r=c_out[1],
-        cap_s=cap_recv[0], cap_r=cap_recv[1], backend=backend,
+        cap_s=cap_recv[0], cap_r=cap_recv[1], fmt_s=fmt_s, fmt_r=fmt_r, backend=backend,
     )
     marked = _unstack(md, mv, [s.schema for s in ss])
     mark_stats = _per_op_stats(
         sent, dropped,
         padded_slots(p, c_out[0], s0.arity)
         + padded_slots(p, c_out[1], len(shareds[0])),
-        wire_bytes=dense_wire_bytes(p, c_out[0], s0.arity)
-        + dense_wire_bytes(p, c_out[1], len(shareds[0])),
+        wire_bytes=_xbytes(p, c_out[0], s0.arity, fmt_s)
+        + _xbytes(p, c_out[1], len(shareds[0]), fmt_r),
         ubytes=ub,
     )
     ded, ded_stats = dist_dedup_many(
         spmd, marked, seeds=[s + 7 for s in seeds],
-        c_out=marked[0].cap, cap_recv=out_cap, backend=backend,
+        c_out=marked[0].cap, cap_recv=out_cap, fmt=fmt_s, backend=backend,
     )
     return ded, [_sum_stats(m, d) for m, d in zip(mark_stats, ded_stats)]
 
@@ -1376,6 +1537,7 @@ def grid_join_many(
     out_cap: int,
     c_out: Optional[Tuple[int, int]] = None,
     cap_recv: Optional[Tuple[int, int]] = None,
+    fmts: Optional[Tuple] = None,  # (fmt_a, fmt_b) or None = dense
     backend: str = "torch",
 ) -> Tuple[List[DTable], List[Dict]]:
     """k-fold Lemma-8 grid join (w=2): two batched position-group send
@@ -1399,15 +1561,16 @@ def grid_join_many(
         d, v = _stack(tables)
         co = c_out[i] if c_out else t0.cap * (g[0] * g[1] // g_self)
         cr = cap_recv[i] if cap_recv else -(-(t0.p * t0.cap) // g_self)
+        fmt = fmts[i] if fmts is not None else None
         rd, rv, stats = spmd.run(
             _grid_send_one, d, v,
             g_self=g_self, stride=stride, offsets=offs, p=p, cap=t0.cap,
-            c_out=co, cap_recv=cr,
+            c_out=co, cap_recv=cr, fmt=fmt, backend=backend,
         )
         parts.append((rd, rv))
         send_stats.append(_per_op_stats(
             stats["sent"], stats["dropped"], padded_slots(p, co, t0.arity),
-            wire_bytes=dense_wire_bytes(p, co, t0.arity), ubytes=stats["ubytes"],
+            wire_bytes=_xbytes(p, co, t0.arity, fmt), ubytes=stats["ubytes"],
         ))
     shareds = [[x for x in a.schema if x in b.schema] for a, b in zip(as_, bs)]
     keeps = [

@@ -26,10 +26,7 @@ from .ops import _stats, agg_stats, dist_dedup, local_multiway_join
 from .shuffle import exchange, exchange_counts, exchange_multi, padded_slots, pow2
 from .spmd import SPMD
 from .table import DTable
-from .wire import count_wire_bytes, dense_wire_bytes
-
-#: the ROADMAP item that ports the packed wire (``fmts``)
-PACKED_ITEM = "ROADMAP queue A, item 'packed wire'"
+from .wire import count_wire_bytes, dense_wire_bytes, packed_wire_bytes
 
 
 def _shard_index(x: torch.Tensor) -> torch.Tensor:
@@ -195,12 +192,8 @@ def grid_multiway_join(
     accounting.  ``c_out``/``cap_recv`` fix every relation's send and
     receive capacity (they also turn ``calibrate`` off), and ``sizes``
     replaces the relations' global slot counts in the grid shares.
-    Only the dense wire is ported (``fmts`` must be None)."""
-    if fmts is not None:
-        raise NotImplementedError(
-            f"grid exchanges with wire formats (fmts=...) need the packed wire, "
-            f"which is not ported yet ({PACKED_ITEM})"
-        )
+    ``fmts`` (one ``wire.WireFormat`` per relation, or None = dense) packs
+    each relation's position-group send."""
     w = len(tables)
     assert w >= 1
     p = spmd.p
@@ -240,17 +233,15 @@ def grid_multiway_join(
         else:
             co = c_out if c_out is not None else t.cap * n_other
             cr = cap_recv if cap_recv is not None else -(-(t.p * t.cap) // g[i])
+        fmt = fmts[i] if fmts is not None else None
         rd, rv, stats = spmd.run(
             _grid_send_one, t.data, t.valid,
             g_self=g[i], stride=strides[i], offsets=all_offs[i], p=p,
-            cap=t.cap, c_out=co, cap_recv=cr,
+            cap=t.cap, c_out=co, cap_recv=cr, fmt=fmt, backend=backend,
         )
         parts.append(DTable(rd, rv, t.schema))
-        s = agg_stats(
-            stats,
-            padded_slots(p, co, t.arity) + count_pad,
-            wire_bytes=dense_wire_bytes(p, co, t.arity) + count_b,
-        )
+        xb = packed_wire_bytes(p, co, fmt) if fmt is not None else dense_wire_bytes(p, co, t.arity)
+        s = agg_stats(stats, padded_slots(p, co, t.arity) + count_pad, wire_bytes=xb + count_b)
         for key in stats_total:
             stats_total[key] += s[key]
 
@@ -284,13 +275,15 @@ def _grid_send_count_round(*valids, entries, p):
     return torch.stack(outs, dim=1), torch.stack(recvs, dim=1)
 
 
-def _grid_send_one(data, valid, *, g_self, stride, offsets, p, cap, c_out, cap_recv):
+def _grid_send_one(data, valid, *, g_self, stride, offsets, p, cap, c_out, cap_recv,
+                   fmt=None, backend=None):
     """One relation's position-group send over (p, *K, n, ar) tables: each
-    live row goes to every grid cell on its own coordinate."""
+    live row goes to every grid cell on its own coordinate (``fmt``: the
+    packed wire, coded by ``backend``)."""
     grp = _position_groups(valid, g_self, cap, p)
     dests = _grid_dests(grp, g_self, stride, offsets, p)
     rd, rv, sent, ds, dr = exchange_multi(
-        data, valid, dests, p=p, c_out=c_out, cap_recv=cap_recv
+        data, valid, dests, p=p, c_out=c_out, cap_recv=cap_recv, fmt=fmt, backend=backend
     )
     return rd, rv, _stats(sent, ds + dr, ubytes=4 * data.shape[-1] * sent)
 

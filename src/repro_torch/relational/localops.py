@@ -19,6 +19,10 @@ ranges — go through a **local backend registry**
 - ``'cuda'``  — the hand-written Hopper kernels (``kernels``), for CUDA
   tensors only; CPU tensors raise.
 
+The packed wire's codec (``wire_encode`` / ``wire_decode``) rides the
+same registry: ``'torch'`` runs ``relational.wire``'s plain bit-plane
+loop, ``'cuda'`` the codec kernels.
+
 Both are bit-identical; the engine threads the choice down from
 ``GymConfig.local_backend``.
 """
@@ -99,6 +103,16 @@ class LocalBackend:
         """(lo, hi) = left/right searchsorted of q in sorted_keys."""
         raise NotImplementedError
 
+    def wire_encode(self, buf: torch.Tensor, valid: torch.Tensor, fmt) -> torch.Tensor:
+        """Packed-wire bytes ``(*B, nbytes)`` of the buckets ``buf (*B, c,
+        ar)`` + ``valid (*B, c)`` (``relational.wire``'s layout)."""
+        raise NotImplementedError
+
+    def wire_decode(self, packed: torch.Tensor, fmt, c_out: int):
+        """Inverse of ``wire_encode``: ``(buf (*B, c_out, ar), valid (*B,
+        c_out))``."""
+        raise NotImplementedError
+
 
 @register_local_backend("torch")
 class TorchBackend(LocalBackend):
@@ -114,6 +128,12 @@ class TorchBackend(LocalBackend):
     def probe_ranges(self, q, sorted_keys):
         lo, hi = K.sorted_probe_ranges(_seg(q, 1), _seg(sorted_keys, 1), use_cuda=False)
         return lo.reshape(q.shape), hi.reshape(q.shape)
+
+    def wire_encode(self, buf, valid, fmt):
+        return K.wire_encode(buf, valid, fmt, use_cuda=False)
+
+    def wire_decode(self, packed, fmt, c_out):
+        return K.wire_decode(packed, fmt, c_out, use_cuda=False)
 
 
 @register_local_backend("cuda")
@@ -156,6 +176,21 @@ class CudaBackend(LocalBackend):
             use_cuda=True,
         )
         return lo.reshape(q.shape), hi.reshape(q.shape)
+
+    def wire_encode(self, buf, valid, fmt):
+        self._need_cuda(valid)
+        lead = tuple(valid.shape[:-1])
+        out = K.wire_encode(
+            _seg(buf, 2).to(torch.int32).contiguous(), _seg(valid, 1).contiguous(), fmt,
+            use_cuda=True,
+        )
+        return out.reshape(lead + (out.shape[-1],))
+
+    def wire_decode(self, packed, fmt, c_out):
+        self._need_cuda(packed)
+        lead = tuple(packed.shape[:-1])
+        buf, valid = K.wire_decode(_seg(packed, 1).contiguous(), fmt, c_out, use_cuda=True)
+        return buf.reshape(lead + (c_out, fmt.arity)), valid.reshape(lead + (c_out,))
 
 
 # --------------------------------------------------------------------------
@@ -235,32 +270,39 @@ def local_join_ranked(
     rb_key = torch.where(bv, rbv, torch.full_like(rbv, I32MAX))
     rb_sorted, order_b = torch.sort(rb_key, dim=-1, stable=True)
     lo, hi = be.probe_ranges(rav, rb_sorted)
+    del rb_key, rb_sorted
     counts = torch.where(av, (hi - lo).to(torch.int64), 0)
     offsets = torch.cumsum(counts, -1)
     total = offsets[:, -1] if na else torch.zeros((s,), dtype=torch.int64, device=dev)
+    # The per-output-slot work below is (s, out_cap) wide, and out_cap may
+    # be far above the true output (a pre-count over a hashed key
+    # over-counts), so each temporary is freed, or reused in place, as
+    # soon as it is spent: the peak is the output plus two index planes.
     # i[t] = #{j : offsets[j] <= t}: the a-row output slot t expands
     hist = torch.zeros((s, out_cap + 1), dtype=torch.int64, device=dev)
     hist.scatter_add_(1, offsets.clamp(max=out_cap), torch.ones_like(offsets))
-    i = torch.cumsum(hist[:, :out_cap], -1)
-    i_c = i.clamp(0, max(na - 1, 0))
-    prev = torch.where(
-        i_c > 0, offsets.gather(-1, (i_c - 1).clamp(min=0)), 0
-    )
+    i_c = torch.cumsum(hist[:, :out_cap], -1).clamp_(0, max(na - 1, 0))
+    del hist
     t = torch.arange(out_cap, device=dev)
-    within = t - prev
-    j_sorted = (lo.to(torch.int64).gather(-1, i_c) + within).clamp(0, max(nb - 1, 0))
-    j = order_b.gather(-1, j_sorted)
+    # within = t - offsets[i - 1] (0 for i = 0): the slot's rank in its run
+    within = offsets.gather(-1, (i_c - 1).clamp_(min=0)).masked_fill_(i_c == 0, 0)
+    within.neg_().add_(t)
+    j = lo.to(torch.int64).gather(-1, i_c).add_(within).clamp_(0, max(nb - 1, 0))
+    del within
+    j = order_b.gather(-1, j)
     out_valid = t < total[:, None]
-    left = ad.gather(1, i_c.unsqueeze(-1).expand(-1, -1, a_ar))
-    right = bd.gather(1, j.unsqueeze(-1).expand(-1, -1, b_ar))
     if isinstance(b_keep, torch.Tensor):
-        right = take_cols(right, _seg(b_keep, 1))
+        kept = take_cols(bd, _seg(b_keep, 1))
     else:
-        right = take_cols(right, tuple(b_keep))
-    out = torch.cat([left, right], dim=-1)
-    out = torch.where(out_valid.unsqueeze(-1), out, 0)
+        kept = take_cols(bd, tuple(b_keep))
+    w = a_ar + kept.shape[-1]
+    out = torch.empty((s, out_cap, w), dtype=ad.dtype, device=dev)
+    out[..., :a_ar] = ad.gather(1, i_c.unsqueeze(-1).expand(-1, -1, a_ar))
+    del i_c
+    out[..., a_ar:] = kept.gather(1, j.unsqueeze(-1).expand(-1, -1, w - a_ar))
+    del j
+    out.masked_fill_(~out_valid.unsqueeze(-1), 0)
     overflow = (total - out_cap).clamp(min=0)
-    w = out.shape[-1]
     return (
         out.reshape(lead + (out_cap, w)),
         out_valid.reshape(lead + (out_cap,)),

@@ -1,4 +1,4 @@
-"""The routed all-to-all exchange primitive (dense wire).
+"""The routed all-to-all exchange primitive (dense and packed wire).
 
 ``routed_all_to_all(data, valid, dests, ...)`` routes rows to destination
 shards.  Tensors carry the reducer axis first and any further batch axes
@@ -11,19 +11,26 @@ destinations deduplicated.
 
 Map stage: ``_bucketize`` scatters each shard's rows into ``(p, c_out)``
 destination buckets with one stable sort.  Network: the ``all_to_all`` is
-a swap of the (source, destination) axes.  Reduce stage: ``compact``.
+a swap of the (source, destination) axes — of the dense data and valid
+buckets, or of ONE bit-packed uint8 buffer when a ``wire.WireFormat`` is
+given (``fmt=``; the local backend's codec encodes and decodes it, the
+kernels on the card).  ``routed_start`` / ``ship_segments`` /
+``routed_finish`` split a packed exchange around its collective, so a
+fused group ships every op's and side's bytes in one segmented buffer.
+Reduce stage: ``compact``.
 Overflow anywhere is reported, never silently dropped — the join engine
 abort-retries with larger capacities.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import NamedTuple, Optional, Tuple
+from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
-from .localops import _seg, compact
+from .localops import _seg, compact, default_backend, get_local_backend
 from .skew import DEFAULT_SKEW_THRESHOLD, heavy_dest_flags, heavy_dest_flags_many, split_dests
+from .wire import WireFormat, WirePolicy, get_codec, pack_segments, split_segments
 
 
 def pow2(x: int) -> int:
@@ -128,6 +135,41 @@ def route_counts(dest: torch.Tensor, p: int) -> Tuple[torch.Tensor, torch.Tensor
     return out, recv.sum(-1)
 
 
+# ------------------------------------------------------------- collective
+def _codec_backend(backend: Optional[str], t: torch.Tensor):
+    """The local backend that runs the wire codec: the caller's, else the
+    tensor's device default (the kernels on the card)."""
+    return get_local_backend(backend or default_backend(t.device))
+
+
+def _wire_ship(
+    buf: torch.Tensor, buf_valid: torch.Tensor, fmt: WireFormat, c_out: int,
+    backend: Optional[str] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Packed collective: encode the buckets ``(p, *K, p, c_out, ar)`` +
+    valid plane into one bit-packed uint8 buffer, run ONE all_to_all (in
+    place of the dense path's data + valid pair), decode back.  The codec
+    hook wraps the bytes around the collective."""
+    be = _codec_backend(backend, buf_valid)
+    wire = be.wire_encode(buf, buf_valid, fmt)  # (p, *K, p, nbytes)
+    enc, dec = get_codec(fmt.codec)
+    payload, aux = enc(wire)
+    rpayload = payload.transpose(0, payload.dim() - 2)  # all_to_all
+    return be.wire_decode(dec(rpayload, aux), fmt, c_out)
+
+
+def _ship(
+    buf: torch.Tensor, buf_valid: torch.Tensor, fmt: Optional[WireFormat], c_out: int,
+    backend: Optional[str] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The collective of one exchange over ``(p, *K, p, c_out[, ar])``
+    buckets: the dense data + valid pair (an axis swap each) or one packed
+    uint8 buffer.  Shard s's bucket d becomes shard d's segment s."""
+    if fmt is None:
+        return buf.transpose(0, buf.dim() - 3), buf_valid.transpose(0, buf_valid.dim() - 2)
+    return _wire_ship(buf, buf_valid, fmt, c_out, backend)
+
+
 # --------------------------------------------------------------- primitive
 class RoutedResult(NamedTuple):
     """One routed exchange's received rows + stats (per shard/instance)."""
@@ -140,24 +182,9 @@ class RoutedResult(NamedTuple):
     heavy_sent: torch.Tensor    # rows routed via the heavy-hitter spread
 
 
-def routed_all_to_all(
-    data: torch.Tensor,
-    valid: torch.Tensor,
-    dests: torch.Tensor,
-    *,
-    p: int,
-    c_out: int,
-    cap_recv: int,
-    heavy: Optional[torch.Tensor] = None,
-) -> RoutedResult:
-    """Route rows to destination shards over the dense wire (the packed
-    wire is not ported yet).
-
-    ``heavy`` (p, *K, p) bool, single-destination sends only: rows bound
-    for a destination the count pre-pass flagged heavy are spread
-    round-robin over all p shards (``skew.split_dests`` — Lemma 8's
-    position-partitioned side, restricted to the heavy keys).  The
-    consumer owns putting the matching state everywhere."""
+def _map_stage(data, valid, dests, *, p: int, c_out: int, heavy=None):
+    """Route and bucketize every shard's rows: returns (buf (p, *K, p,
+    c_out, ar), buf_valid, sent, dropped_send, heavy_sent), stats (p, *K)."""
     lead = tuple(data.shape[:-2])
     ar = data.shape[-1]
     assert lead[0] == p, (lead, p)
@@ -174,39 +201,163 @@ def routed_all_to_all(
     buf, bufv, sent, dropped_send = _bucketize(
         _seg(rows, 2), _seg(flat_dest, 1), p, c_out
     )
-    # all_to_all: shard s's bucket d becomes shard d's segment s
-    buf = buf.reshape(lead + (p, c_out, ar)).transpose(0, len(lead))
-    bufv = bufv.reshape(lead + (p, c_out)).transpose(0, len(lead))
-    rdata, rv, dropped_recv = compact(
-        buf.reshape(lead + (p * c_out, ar)), bufv.reshape(lead + (p * c_out,)),
-        cap_recv,
-    )
     if heavy_sent is None:
         heavy_sent = torch.zeros(lead, dtype=torch.int64, device=data.device)
-    return RoutedResult(
-        rdata, rv, sent.reshape(lead), dropped_send.reshape(lead), dropped_recv,
-        heavy_sent,
+    return (
+        buf.reshape(lead + (p, c_out, ar)), bufv.reshape(lead + (p, c_out)),
+        sent.reshape(lead), dropped_send.reshape(lead), heavy_sent,
     )
+
+
+def _reduce_stage(rbuf, rvalid, *, p: int, c_out: int, cap_recv: int):
+    """Compact the received ``(p, *K, p, c_out[, ar])`` segments."""
+    lead = tuple(rvalid.shape[:-2])
+    ar = rbuf.shape[-1]
+    return compact(
+        rbuf.reshape(lead + (p * c_out, ar)), rvalid.reshape(lead + (p * c_out,)),
+        cap_recv,
+    )
+
+
+def routed_all_to_all(
+    data: torch.Tensor,
+    valid: torch.Tensor,
+    dests: torch.Tensor,
+    *,
+    p: int,
+    c_out: int,
+    cap_recv: int,
+    fmt: Optional[WireFormat] = None,
+    heavy: Optional[torch.Tensor] = None,
+    backend: Optional[str] = None,
+) -> RoutedResult:
+    """Route rows to destination shards.
+
+    ``heavy`` (p, *K, p) bool, single-destination sends only: rows bound
+    for a destination the count pre-pass flagged heavy are spread
+    round-robin over all p shards (``skew.split_dests`` — Lemma 8's
+    position-partitioned side, restricted to the heavy keys).  The
+    consumer owns putting the matching state everywhere.
+
+    ``fmt=None`` ships the dense buckets + bool valid plane; a
+    ``WireFormat`` ships one bit-packed uint8 buffer, encoded and decoded
+    by ``backend``'s codec (None: the device default).  Rows out are
+    bit-identical either way."""
+    buf, bufv, sent, dropped_send, heavy_sent = _map_stage(
+        data, valid, dests, p=p, c_out=c_out, heavy=heavy
+    )
+    rbuf, rvalid = _ship(buf, bufv, fmt, c_out, backend)
+    rdata, rv, dropped_recv = _reduce_stage(rbuf, rvalid, p=p, c_out=c_out, cap_recv=cap_recv)
+    return RoutedResult(rdata, rv, sent, dropped_send, dropped_recv, heavy_sent)
+
+
+# ------------------------------------------- segmented (fused-group) exchange
+# An exchange split around its collective: ``routed_start`` buckets and
+# encodes one op's send into a (p, *K, p, nbytes) segment, ``ship_segments``
+# runs ONE all_to_all over every segment of a fused op group concatenated
+# (mixed schemas/arities each keep their own format), and ``routed_finish``
+# decodes and compacts each op's received segment.
+def routed_start(
+    data: torch.Tensor,
+    valid: torch.Tensor,
+    dests: torch.Tensor,
+    *,
+    p: int,
+    c_out: int,
+    fmt: WireFormat,
+    heavy: Optional[torch.Tensor] = None,
+    backend: Optional[str] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Map stage of a packed routed exchange: returns (wire segment
+    (p, *K, p, nbytes), sent, dropped_send, heavy_sent).  Accepts the same
+    destination shapes as ``routed_all_to_all``."""
+    buf, bufv, sent, dropped_send, heavy_sent = _map_stage(
+        data, valid, dests, p=p, c_out=c_out, heavy=heavy
+    )
+    wire = _codec_backend(backend, bufv).wire_encode(buf, bufv, fmt)
+    return wire, sent, dropped_send, heavy_sent
+
+
+def ship_segments(wires: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+    """ONE all_to_all for a whole fused group: concatenate each exchange's
+    (p, *K, p, nbytes_i) segment, swap the (source, destination) axes,
+    split back."""
+    seg = pack_segments(wires)
+    rseg = seg.transpose(0, seg.dim() - 2)
+    return split_segments(rseg, [w.shape[-1] for w in wires])
+
+
+def routed_finish(
+    rwire: torch.Tensor, *, p: int, c_out: int, cap_recv: int, fmt: WireFormat,
+    backend: Optional[str] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Reduce stage of a packed routed exchange: decode the received
+    segment and compact.  Returns (rdata, rvalid, dropped_recv)."""
+    rbuf, rvalid = _codec_backend(backend, rwire).wire_decode(rwire, fmt, c_out)
+    return _reduce_stage(rbuf, rvalid, p=p, c_out=c_out, cap_recv=cap_recv)
 
 
 # ----------------------------------------------------------------- policy
 @dataclasses.dataclass(frozen=True)
 class RoutePolicy:
     """Per-consumer routing configuration: the wire encoding and the
-    heavy-hitter sensitivity, shared by every exchange of a query.
+    heavy-hitter sensitivity, shared by every exchange of a query, so
+    format soundness and skew decisions are consistent across rounds.
 
-    ``wire_policy``: packed formats (only None — dense — is ported).
-    ``skew_threshold``: a destination is heavy when its measured arrival
-    exceeds this multiple of the balanced share."""
+    ``wire_policy``: column-range-derived packed formats (None = dense
+    exchanges).  ``skew_threshold``: a destination is heavy when its
+    measured arrival exceeds this multiple of the balanced share."""
 
-    wire_policy: None = None
+    wire_policy: Optional[WirePolicy] = None
     skew_threshold: float = DEFAULT_SKEW_THRESHOLD
 
-    def __post_init__(self):
-        if self.wire_policy is not None:
-            raise NotImplementedError(
-                "RoutePolicy: the packed wire is not ported yet (ROADMAP queue A)"
+    # -- packed wire formats ------------------------------------------------
+    def fmt_for(self, schemas: Sequence[Sequence[str]]) -> Optional[WireFormat]:
+        """Group-uniform packed format of one exchange side: the widest-
+        per-column union over the group's instances (wider is sound)."""
+        if self.wire_policy is None:
+            return None
+        return WireFormat.union([self.wire_policy.format_for(s) for s in schemas])
+
+    def pair_fmts(
+        self,
+        lhs_schemas: Sequence[Sequence[str]],
+        rhs_schemas: Sequence[Sequence[str]],
+        xcaps,
+        rhs_keys_only: bool = False,
+    ):
+        """Formats of a two-sided exchange group.  ``rhs_keys_only``: the
+        rhs ships its deduplicated shared-key projection (semijoins), so
+        its format covers the key columns only.  The formats are recorded
+        per side in the measurement's ``SideCaps``.  Returns (fmts, xcaps)."""
+        if self.wire_policy is None:
+            return None, xcaps
+        fmt_l = self.fmt_for(lhs_schemas)
+        if rhs_keys_only:
+            rschemas = [
+                tuple(x for x in l if x in set(r))
+                for l, r in zip(lhs_schemas, rhs_schemas)
+            ]
+        else:
+            rschemas = list(rhs_schemas)
+        fmt_r = self.fmt_for(rschemas)
+        if xcaps is not None:
+            xcaps = dataclasses.replace(
+                xcaps,
+                lhs=dataclasses.replace(xcaps.lhs, fmt=fmt_l),
+                rhs=None if xcaps.rhs is None else dataclasses.replace(xcaps.rhs, fmt=fmt_r),
             )
+        return (fmt_l, fmt_r), xcaps
+
+    def single_fmt(self, schemas: Sequence[Sequence[str]], xcaps):
+        """Format of a one-sided exchange group (dedup), recorded in the
+        measurement's ``SideCaps``.  Returns (fmt, xcaps)."""
+        if self.wire_policy is None:
+            return None, xcaps
+        fmt = self.fmt_for(schemas)
+        if xcaps is not None:
+            xcaps = dataclasses.replace(xcaps, lhs=dataclasses.replace(xcaps.lhs, fmt=fmt))
+        return fmt, xcaps
 
     # -- heavy-hitter detection ---------------------------------------------
     def heavy_flags(self, out_counts, p: int):

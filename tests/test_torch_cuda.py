@@ -4,10 +4,11 @@ runs on a machine with PyTorch alone:
 
     python -m pytest -q -m cuda tests/test_torch_cuda.py
 
-Each gym kernel must equal its plain PyTorch version exactly, the flash
-attention kernel must agree with its plain version within the f32/bf16
-tolerances stated below, and the default ``gym()``, the grid and hybrid engines and
-the log-depth entry points with the ``'cuda'`` backend must equal the
+Each gym kernel and the packed wire's codec kernels must equal their plain
+PyTorch versions exactly, the flash attention kernel must agree with its
+plain version within the f32/bf16 tolerances stated below, and the default
+``gym()``, the grid and hybrid engines, the packed wire, ``plan="auto"``
+and the log-depth entry points with the ``'cuda'`` backend must equal the
 ``'torch'`` backend in rows and ledger."""
 from __future__ import annotations
 
@@ -478,3 +479,137 @@ def test_cuda_hybrid_engine_planted_star_matches_torch_backend(cuda_device):
         dataclasses.asdict(r) for r in tled.records
     ]
     assert led.heavy_tuples > 0 and led.retries == 0
+
+
+# ------------------------------------------------------ packed wire codec
+def _codec_case(rng, col_bits, s, c, occupancy):
+    cols = []
+    for nb in col_bits:
+        if nb == 32:
+            col = rng.integers(-(2**31), 2**31, (s, c), dtype=np.int64)
+        else:
+            col = rng.integers(0, 2**nb, (s, c), dtype=np.int64)
+        cols.append(col.astype(np.int32))
+    buf = np.stack(cols, axis=-1) if cols else np.zeros((s, c, 0), np.int32)
+    if occupancy == "empty":
+        valid = np.zeros((s, c), bool)
+    elif occupancy == "full":
+        valid = np.ones((s, c), bool)
+    else:
+        valid = rng.random((s, c)) < 0.6
+    return buf, valid
+
+
+CODEC_CASES = [
+    # (col_bits, segments, c, occupancy)
+    ((), 5, 37, "random"),                 # arity 0: the valid bit alone
+    ((32, 32), 3, 64, "random"),           # 32-bit columns, negative values
+    ((6,) * 7, 8, 33, "random"),           # c off a multiple of 8
+    ((6,) * 7, 8, 0, "random"),            # c = 0
+    ((5, 1, 17), 4, 40, "empty"),
+    ((5, 1, 17), 4, 40, "full"),
+    ((1,), 2, 8, "random"),                # row_bits = 2
+    ((32,) * 8, 3, 96, "random"),          # row_bits = 1 + 8 * 32
+    ((21,) * 7, 64, 4099, "random"),       # many segments, many warps
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("col_bits,s,c,occupancy", CODEC_CASES)
+def test_cuda_wire_codec_matches_plain_versions(cuda_device, col_bits, s, c, occupancy):
+    """The codec kernels' bytes equal the plain bit-plane version's, and
+    decode inverts them exactly (decode also equals the plain decode)."""
+    from repro_torch.kernels import wire_codec as WC
+    from repro_torch.relational import wire as W
+
+    rng = np.random.default_rng(len(col_bits) * 1000 + c)
+    buf, valid = _codec_case(rng, col_bits, s, c, occupancy)
+    fmt = W.WireFormat(col_bits)
+    tb = torch.from_numpy(buf).to(cuda_device)
+    tv = torch.from_numpy(valid).to(cuda_device)
+    n0 = WC.encode_launches
+    got = WC.wire_encode(tb, tv, fmt)
+    want = W.wire_encode(tb, tv, fmt)
+    assert got.dtype == torch.uint8 and torch.equal(got, want)
+    b2, v2 = WC.wire_decode(got, fmt, c)
+    pb, pv = W.wire_decode(want, fmt, c)
+    assert torch.equal(b2, tb) and torch.equal(v2, tv)
+    assert torch.equal(b2, pb) and torch.equal(v2, pv)
+    assert WC.encode_launches - n0 == (1 if got.numel() else 0)
+
+
+@pytest.mark.cuda
+def test_cuda_wire_codec_golden_fixture(cuda_device):
+    import os
+
+    from repro_torch.kernels import wire_codec as WC
+    from repro_torch.relational import wire as W
+
+    z = np.load(os.path.join(os.path.dirname(__file__), "fixtures", "wire_s8_packed.npz"))
+    fmt = W.WireFormat(tuple(z["col_bits"].tolist()))
+    packed = torch.from_numpy(z["wire"]).to(cuda_device)
+    buf, valid = WC.wire_decode(packed, fmt, int(z["c_out"]))
+    assert torch.equal(WC.wire_encode(buf, valid, fmt), packed)
+    pb, pv = W.wire_decode(packed.cpu(), fmt, int(z["c_out"]))
+    assert torch.equal(buf.cpu(), pb) and torch.equal(valid.cpu(), pv)
+
+
+def _run_both(q, g, data, p, **cfg):
+    from repro_torch.core.gym import GymConfig, gym
+    from repro_torch.kernels import ops as K
+
+    K.reset_launch_counts()
+    out = gym(q, data, ghd=g, p=p, device="cuda", config=GymConfig(**cfg))
+    launches = K.launch_counts()
+    K.reset_launch_counts()
+    ref = gym(q, data, ghd=g, p=p, device="cuda", config=GymConfig(local_backend="torch", **cfg))
+    assert sum(K.launch_counts().values()) == 0
+    assert tuple(out[1]) == tuple(ref[1])
+    np.testing.assert_array_equal(out[0], ref[0])
+    assert [dataclasses.asdict(r) for r in out[2].records] == [
+        dataclasses.asdict(r) for r in ref[2].records
+    ]
+    return out, launches
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("strategy", ["hash", "grid", "hybrid"])
+def test_cuda_packed_gym_matches_torch_backend(cuda_device, strategy):
+    """``wire_format="packed"`` with the 'cuda' backend (codec kernels)
+    equals the 'torch' backend (plain codec) in rows and every record, and
+    ships fewer payload bytes than the dense run."""
+    from repro_torch.core.queries import chain_ghd, chain_query
+    from repro_torch.data.synthetic import chain_data_sparse
+
+    q, g = chain_query(8), chain_ghd(8)
+    data = chain_data_sparse(8, domain=256, ident=64, extra=192, seed=24)
+    (rows, _, led), launches = _run_both(q, g, data, 8, strategy=strategy, seed=23,
+                                         wire_format="packed")
+    assert all(launches[k] > 0 for k in GYM_KERNELS + ("wire_encode", "wire_decode"))
+    (drows, _, dled), _ = _run_both(q, g, data, 8, strategy=strategy, seed=23)
+    assert sorted(map(tuple, rows)) == sorted(map(tuple, drows))
+    assert led.comm_tuples == dled.comm_tuples and led.payload_bytes < dled.payload_bytes
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wire", ["dense", "packed"])
+def test_cuda_auto_plan_launches_the_kernels(cuda_device, wire):
+    """``plan="auto"`` on the card keeps the 'cuda' backend: the chosen
+    plan's ``local_backend`` is None and the kernels launch."""
+    from repro_torch.core.gym import GymConfig, GymDriver
+    from repro_torch.core.queries import star_ghd, star_query
+    from repro_torch.data.synthetic import star_data_sparse
+    from repro_torch.kernels import ops as K
+    from repro_torch.relational.spmd import SPMD
+
+    q, g = star_query(8), star_ghd(8)
+    data = star_data_sparse(8, domain=64, hub_rows=256, spoke_extra=64, seed=21)
+    K.reset_launch_counts()
+    drv = GymDriver(q, g, data, SPMD(8, device="cuda"),
+                    GymConfig(plan="auto", seed=23, wire_format=wire))
+    drv.run()
+    assert drv.plan.local_backend is None and drv.local_backend == "cuda"
+    assert drv.executor.local_backend == "cuda"
+    want = GYM_KERNELS + (("wire_encode", "wire_decode") if wire == "packed" else ())
+    assert all(K.launch_counts()[k] > 0 for k in want), K.launch_counts()
+    _run_both(q, g, data, 8, plan="auto", seed=23, wire_format=wire)

@@ -95,9 +95,26 @@ def test_grid_multiway_join_matches(p, shape, path):
 
 
 def test_grid_multiway_join_refuses_packed_wire():
-    ts = _port(_tables(5, SHARING, 4))
-    with pytest.raises(NotImplementedError, match="packed wire"):
-        TG.grid_multiway_join(TSPMD(4, device="cpu"), ts, out_cap=8, fmts=[None] * 3)
+    """The grid multiway join once refused wire formats (``fmts``); with
+    the packed wire ported it ships each relation's send packed and equals
+    the reference's packed join, stats (``wire_bytes``) included."""
+    from repro.relational.wire import WireFormat as JWireFormat
+
+    from repro_torch.relational.wire import WireFormat as TWireFormat
+
+    ts = _tables(5, SHARING, 4)
+    bits = [(2, 2), (2, 3), (3, 2)]
+    jo, js = JG.grid_multiway_join(_REF[4], ts, out_cap=64, calibrate=True,
+                                   fmts=[JWireFormat(b) for b in bits])
+    to, tst = TG.grid_multiway_join(TSPMD(4, device="cpu"), _port(ts), out_cap=64,
+                                    calibrate=True, backend="torch",
+                                    fmts=[TWireFormat(b) for b in bits])
+    _same_table(to, jo)
+    assert tst == js
+    dense = TG.grid_multiway_join(TSPMD(4, device="cpu"), _port(ts), out_cap=64,
+                                  calibrate=True, backend="torch")
+    _same_table(dense[0], jo)
+    assert tst["wire_bytes"] < dense[1]["wire_bytes"]
 
 
 @pytest.mark.parametrize("p", [4, 8])
