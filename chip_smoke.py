@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port of GYM on one CUDA card.
 
-    python3 chip_smoke.py [--seed N] [--reps N] [--phases gym,grid,skew,logdepth,wire,lm]
+    python3 chip_smoke.py [--seed N] [--reps N]
+                          [--phases gym,grid,skew,logdepth,wire,snapshot,joinserve,lm]
 
 Run from the root of a checkout on a machine with a CUDA card (sm_90a,
 an H100) and the CUDA toolkit.  In order it:
@@ -83,14 +84,50 @@ an H100) and the CUDA toolkit.  In order it:
    the golden fixture ``tests/fixtures/wire_s8_packed.npz``).  With both
    sizes, the gym phase's dense counts must equal those from before the
    packed wire (``DENSE_BASELINE``);
-9. (phase ``lm``) drives the port's LM serving path — ``generate`` over
+9. (phase ``snapshot``) drives ``GymDriver.save`` / ``load``: at bench
+   size the reference's snapshot scenarios (``examples/gym_fault_tolerance.py``
+   — C_6, seed 9, p = 4, a snapshot after each of 4 steps — and its
+   snapshot tests: a plain chain, a warm caps cache, the hybrid engine,
+   the packed wire, two ``plan="auto"`` plans, a pinned backend and a
+   post-completion snapshot), each snapshotted mid-query and resumed in a
+   fresh driver built with another config, on ``'cuda'`` and on
+   ``'torch'``: the resumed rows must equal the uninterrupted run's and
+   the numpy join, resumed ``'cuda'`` must equal resumed ``'torch'``
+   record for record, and the card's snapshot must resume on the CPU
+   (``device="cpu"``, the ``'torch'`` backend) to the same rows and
+   records — or be refused there when it pins ``'cuda'``.  At real size
+   the gym phase's C_8 is snapshotted after materialization and half its
+   DYM rounds and resumed in a fresh driver on a fresh ``SPMD``: rows ==
+   numpy join, comm, rounds and retries == the gym phase's run; it prints
+   the snapshot's bytes, the save and load seconds and the launches;
+10. (phase ``joinserve``) drives the multi-tenant join server
+   (``serve.JoinServer``, cross-request fused dispatch) on
+   ``benchmarks/bench_serve.py``'s mix — ``zipf_mix`` of S_8, C_8 and TC_9,
+   p = 8, ``GymConfig(strategy="hash", seed=23)``, a shared ``CapsCache``.
+   At bench size (``max_in_flight=8``) the ``'cuda'`` server must equal the
+   ``'torch'`` server per ticket (rows, schema, every record, admit and
+   finish ticks) and in its ``ServerLedger``, every ticket its standalone
+   ``gym()`` in rows and comm, with 0 retries and dispatches saved.  At
+   real size (the gym phase's data) ``max_in_flight`` is the largest (at
+   most 8) whose reckoned peak stays under ``SERVE_PEAK_SHARE_MAX`` of the
+   card's memory (the in-flight queries' live sets plus the larger of the
+   largest solo transient and one tick's merged payloads, each measured
+   by a solo run a family driven through ``step_gen``); each
+   ticket's rows must equal the numpy join and its comm the gym phase's
+   run, with 0 retries, dispatches saved, the measured peak under that
+   share, every gym kernel launched and every semijoin launch on the
+   bitmap path; it prints the drain's seconds and queries/s beside the
+   sequential estimate (the gym phase's warm seconds over the mix),
+   per-ticket latency in ticks and seconds (p50/p99), the fusion counters,
+   the server's dispatches against the standalone runs' and the peak;
+11. (phase ``lm``) drives the port's LM serving path — ``generate`` over
    ``DecoderLM.prefill`` and ``decode_step`` — on gemma2-9b at full width
    and depth in bf16 with random weights from ``--seed``: a batch of two
    4608-token prompts, 16 greedy tokens, the ``'cuda'`` backend.  The
    flash kernel must launch exactly 42 times per ``generate`` (once per
    layer, in prefill), and the per-step logits must agree with a
    teacher-forced replay through the ``'torch'`` backend on the card;
-10. times each kernel at the largest inputs its path gave it (CUDA events,
+12. times each kernel at the largest inputs its path gave it (CUDA events,
    L2 flushed before each launch) beside its plain version, one PyTorch
    library call where one computes the same function, and its bound,
    prints the sorted probe's census of that call (the share of probes its
@@ -116,6 +153,7 @@ import dataclasses
 import functools
 import json
 import os
+import random
 import subprocess
 import sys
 import time
@@ -857,6 +895,7 @@ def main_path(torch, seed: int, sizes=("bench", "real"), strategy="hash", audit=
             )
             summary[f"{fam}/{size}"] = dict(cold_s=cold, warm_s=warm, out=led.output_tuples,
                                             dispatches=led.measured_dispatches,
+                                            rounds=led.rounds, retries=led.retries,
                                             comm=led.comm_tuples, padded=led.padded_slots,
                                             payload_bytes=led.payload_bytes, peak=peak,
                                             records=recs, launches=per_run)
@@ -1586,6 +1625,436 @@ def wire_timing(torch, recorded, launches, reps):
 
 
 # ------------------------------------------------------- flash attention
+# ------------------------------------------------------- snapshot phase
+def _rand_data(q, rng, dom: int = 6, rows: int = 12):
+    """Random relations over a small shared domain, drawn as the
+    reference's ``tests/test_gym_engine.py::rand_data`` draws them."""
+    out = {}
+    for atom in q.atoms:
+        n = rng.randint(1, rows)
+        out[atom.rel] = np.array(
+            [[rng.randint(0, dom - 1) for _ in atom.attrs] for _ in range(n)], dtype=np.int32)
+    return out
+
+
+def _small_chain(n: int, seed: int, rows: int, hi: int):
+    """``tests/test_local_backend.py``'s chain data: ``rows`` random links
+    over [0, hi] per relation."""
+    rng = random.Random(seed)
+    return {f"R{i}": np.asarray([[rng.randint(0, hi), rng.randint(0, hi)] for _ in range(rows)],
+                                np.int32) for i in range(1, n + 1)}
+
+
+def snapshot_cases():
+    """The reference's snapshot scenarios at their own sizes (p = 4):
+    ``examples/gym_fault_tolerance.py`` and the snapshot tests of
+    ``tests/test_gym_engine.py``, ``test_caps_cache.py``,
+    ``test_skew_hybrid.py``, ``test_wire_format.py``, ``test_optimizer.py``
+    (two) and ``test_local_backend.py`` (two).  Each is (name, query, ghd,
+    data, config, steps before the snapshot (None: to completion),
+    resuming config); the resuming config is the test's, which the
+    snapshot's must override."""
+    from repro_torch.core import queries as Q
+    from repro_torch.core.decompose import ghd_for
+    from repro_torch.data import synthetic as D
+
+    c3, c4, c5, c6 = (Q.chain_query(n) for n in (3, 4, 5, 6))
+    s8 = (Q.star_query(8), Q.star_ghd(8))
+    wire = dict(strategy="hash", seed=3, calibrate_shuffle=True, wire_format="packed")
+    return [
+        ("fault_tolerance", c6, ghd_for(c6), D.chain_data_sparse(6, seed=5), dict(seed=9), 4,
+         dict(seed=9)),
+        ("driver", c5, ghd_for(c5), _rand_data(c5, random.Random(42)), dict(seed=1), 2,
+         dict(seed=1)),
+        ("caps_cache", Q.star_query(4), Q.star_ghd(4), D.star_data_sparse(4, seed=7),
+         dict(seed=11), 2, dict(seed=11)),
+        ("hybrid", *s8, D.star_data_heavy(8, hub_rows=64, heavy_share=0.8, domain=32,
+                                          spoke_extra=8, seed=5),
+         dict(strategy="hybrid", seed=3, skew_threshold=3.0), 2, dict(seed=3)),
+        ("wire", c4, Q.chain_ghd(4), D.chain_data_sparse(4, seed=7), wire, 1,
+         dict(wire, wire_format="dense")),
+        ("plan_star", *s8, D.star_data_sparse(8, seed=21), dict(plan="auto", seed=2), 2,
+         dict(plan="auto", seed=2)),
+        ("plan_tc", Q.triangle_chain_query(3), Q.triangle_chain_ghd(3),
+         D.tc_data_sparse(3, seed=22), dict(plan="auto", seed=3), 2, dict(seed=3)),
+        # the backend is pinned (the reference pins 'pallas'; here each run's)
+        ("backend", c4, ghd_for(c4), _small_chain(4, 42, 10, 5), dict(seed=1, pin=True), 2,
+         dict(seed=1)),
+        ("completed", c3, ghd_for(c3), _small_chain(3, 7, 8, 4), dict(seed=1), None,
+         dict(seed=1)),
+    ]
+
+
+def snapshot_phase(torch, seed: int, audit, gym_summary=None, sizes=("bench", "real")):
+    """Snapshot / resume (see the module doc).  Returns (summary, launches
+    over the phase's 'cuda' runs)."""
+    import tempfile
+
+    from repro_torch.core import gym as G
+    from repro_torch.kernels import ops as K
+    from repro_torch.relational.spmd import SPMD
+
+    totals = {k: 0 for k in GYM_KERNELS}
+    totals.update({"semijoin_probe/bitmap": 0, "semijoin_probe/hash": 0})
+    summary = {}
+
+    def tally():
+        for k in GYM_KERNELS:
+            totals[k] += K.launch_counts()[k]
+        for k, v in K.semijoin_probe_path_counts().items():
+            totals[f"semijoin_probe/{k}"] += v
+
+    def records(led):
+        return [dataclasses.asdict(r) for r in led.records]
+
+    out_dir = os.path.join(HERE, "chiprun_out")
+    os.makedirs(out_dir, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=out_dir, prefix="snapshots-") as tmp:
+        if "bench" in sizes:
+            for name, q, g, data, cfg, steps, resume in snapshot_cases():
+                want = np_answer(q, data)
+                runs = {}
+                for be in ("cuda", "torch"):
+                    c = {k: v for k, v in cfg.items() if k != "pin"}
+                    if be == "torch" or cfg.get("pin"):
+                        c["local_backend"] = be
+                    snap = os.path.join(tmp, f"{name}-{be}.npz")
+                    K.reset_launch_counts()
+                    audit.reset()
+                    drv = G.GymDriver(q, g, data, SPMD(4, device="cuda"), G.GymConfig(**c))
+                    if steps is None:
+                        drv.run()
+                        drv.save(snap)
+                    for i in range(steps or 0):
+                        drv.step()
+                        if name == "fault_tolerance" or i == steps - 1:
+                            drv.save(snap)  # the scenario snapshots after every step
+                    full = drv.run().to_numpy()
+                    drv2 = G.GymDriver(q, g, data, SPMD(4, device="cuda"), G.GymConfig(**resume))
+                    drv2.load(snap)
+                    check(drv2.local_backend == be and drv2.executor.local_backend == be,
+                          f"snapshot {name}: resumed on {drv2.local_backend}, snapshot {be}")
+                    out = drv2.run()
+                    rows = out.to_numpy()
+                    if be == "cuda":
+                        tally()
+                        audit.check(f"snapshot {name}")
+                    else:
+                        check(sum(K.launch_counts().values()) == 0,
+                              "'torch' backend launched a kernel")
+                    check(np.array_equal(rows, full), f"snapshot {name} {be}: resumed rows != "
+                          "the uninterrupted run's")
+                    check(np.array_equal(np.unique(full.astype(np.int64), axis=0), want),
+                          f"snapshot {name} {be}: rows != numpy join")
+                    runs[be] = (rows, tuple(out.schema), records(drv2.ledger), drv2.ledger.retries,
+                                snap)
+                check(np.array_equal(runs["cuda"][0], runs["torch"][0])
+                      and runs["cuda"][1:4] == runs["torch"][1:4],
+                      f"snapshot {name}: resumed cuda != resumed torch")
+                # the card's snapshot, resumed on the CPU when asked for
+                cpu = G.GymDriver(q, g, data, SPMD(4, device="cpu"), G.GymConfig(**resume))
+                if cfg.get("pin"):  # it pins 'cuda': the CPU must refuse it
+                    try:
+                        cpu.load(runs["cuda"][4])
+                    except ValueError:
+                        cpu_note = "refused ('cuda' pinned)"
+                    else:
+                        raise SmokeFailure(f"snapshot {name}: a 'cuda' snapshot loaded on the CPU")
+                else:
+                    cpu.load(runs["cuda"][4])
+                    check(cpu.local_backend == "torch", f"snapshot {name}: CPU resume backend")
+                    crows = cpu.run().to_numpy()
+                    check(np.array_equal(crows, runs["cuda"][0])
+                          and records(cpu.ledger) == runs["cuda"][2],
+                          f"snapshot {name}: CPU resume != the card's")
+                    cpu_note = "== the card's rows and records"
+                print(f"snapshot {name} bench: out={len(runs['cuda'][0])} "
+                      f"records={len(runs['cuda'][2])} resumed rows == uninterrupted == numpy "
+                      f"join, cuda == torch record for record; CPU resume {cpu_note}", flush=True)
+        if "real" in sizes:
+            q, g, data = families(seed, True)["C_8"]
+            want = real_answer(seed, "C_8")
+            gs = (gym_summary or {}).get("C_8/real")
+            if gs is None:  # the gym phase did not run: its query runs here
+                rows, _, led, _ = run_gym(torch, G, q, g, data, "cuda")
+                gs = dict(comm=led.comm_tuples, rounds=led.rounds, retries=led.retries)
+            K.reset_launch_counts()
+            audit.reset()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            drv = G.GymDriver(q, g, data, SPMD(8, device="cuda"), G.GymConfig(seed=23))
+            setup_s = time.perf_counter() - t0
+            n_steps = 1 + len(drv.schedule) // 2  # materialization + half the DYM rounds
+            for _ in range(n_steps):
+                drv.step()
+            snap = os.path.join(tmp, "C_8-real.npz")
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            drv.save(snap)
+            save_s = time.perf_counter() - t0
+            nbytes = os.path.getsize(snap)
+            del drv
+            t0 = time.perf_counter()
+            drv2 = G.GymDriver(q, g, data, SPMD(8, device="cuda"), G.GymConfig(seed=23))
+            setup2_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            drv2.load(snap)
+            torch.cuda.synchronize()
+            load_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            rows = drv2.run().to_numpy()
+            torch.cuda.synchronize()
+            finish_s = time.perf_counter() - t0
+            led = drv2.ledger
+            per = {k: K.launch_counts()[k] for k in GYM_KERNELS}
+            per.update({f"semijoin_probe/{k}": v for k, v in K.semijoin_probe_path_counts().items()})
+            tally()
+            audit.check("snapshot C_8 real")
+            check(all(per[k] > 0 for k in GYM_KERNELS), f"snapshot C_8 real: a kernel never "
+                  f"launched {per}")
+            check(np.array_equal(rows.astype(np.int64), want) and len(want) > 0,
+                  "snapshot C_8 real: resumed rows != numpy join")
+            check((led.comm_tuples, led.rounds, led.retries) == (gs["comm"], gs["rounds"],
+                                                                  gs["retries"]),
+                  f"snapshot C_8 real: comm/rounds/retries {(led.comm_tuples, led.rounds, led.retries)}"
+                  f" != the uninterrupted run's {(gs['comm'], gs['rounds'], gs['retries'])}")
+            print(f"snapshot C_8 real: inputs={sum(len(v) for v in data.values())} "
+                  f"out={led.output_tuples} snapshot after {n_steps} of {len(drv2.schedule) + 1} "
+                  f"steps, bytes={nbytes} save_s={save_s:.4f} load_s={load_s:.4f} "
+                  f"setup_s={setup_s:.4f} / {setup2_s:.4f} (driver, resumed driver) "
+                  f"finish_s={finish_s:.4f} comm={led.comm_tuples} rounds={led.rounds} "
+                  f"retries={led.retries} dispatches={led.measured_dispatches} (uninterrupted: "
+                  f"comm={gs['comm']} rounds={gs['rounds']} retries={gs['retries']}) "
+                  f"launches={per} rows==numpy join: yes", flush=True)
+            summary["C_8/real"] = dict(bytes=nbytes, save_s=save_s, load_s=load_s, launches=per)
+            del drv2
+    return summary, totals
+
+
+# ------------------------------------------------------ joinserve phase
+# benchmarks/bench_serve.py: the whole mix in flight, the hash engine
+SERVE_MAX_IN_FLIGHT = 8
+# the served real mix must peak below this share of the card's memory
+SERVE_PEAK_SHARE_MAX = 0.9
+
+
+def zipf_mix(names, n, *, s: float = 1.5, seed: int = 0):
+    """``benchmarks/bench_serve.py``'s deterministic zipf-weighted arrival
+    mix: rank r of ``names`` gets probability ~ 1/r^s."""
+    w = np.array([1.0 / (r + 1) ** s for r in range(len(names))])
+    rng = np.random.default_rng(seed)
+    return [names[i] for i in rng.choice(len(names), size=n, p=w / w.sum())]
+
+
+def solo_profile(torch, q, g, data):
+    """One standalone real-size 'cuda' run driven through ``step_gen`` with
+    a synchronize around every payload dispatch: its comm, dispatches and
+    seconds, the most device bytes it holds between steps (``live``), and
+    the most it allocates above the bytes held before each part:
+    materialization (``mat``), a DYM round's payload dispatches
+    (``payload``, the only work the join server merges across queries)
+    and the rest of a round (``other``: measure pre-passes, caps, the
+    final projection)."""
+    from repro_torch.core import gym as G
+    from repro_torch.core.physical import dispatch_work
+    from repro_torch.relational.spmd import SPMD
+
+    base = peak_reset(torch)
+    t0 = time.perf_counter()
+    drv = G.GymDriver(q, g, data, SPMD(8, device="cuda"), G.GymConfig(strategy="hash", seed=23))
+    live = torch.cuda.memory_allocated() - base
+    grown = {"mat": 0, "payload": 0, "other": 0}
+
+    def grew(part, before):
+        torch.cuda.synchronize()
+        grown[part] = max(grown[part], torch.cuda.max_memory_allocated() - before)
+
+    more = True
+    while more:
+        part = "mat" if drv.cursor < 0 else "other"
+        gen = drv.step_gen()
+        before = peak_reset(torch)
+        try:
+            works = next(gen)
+            while True:
+                grew(part, before)
+                before = peak_reset(torch)
+                results = [dispatch_work(w) for w in works]
+                grew("payload", before)
+                before = peak_reset(torch)
+                works = gen.send(results)
+        except StopIteration as stop:
+            more = stop.value
+        grew(part, before)
+        live = max(live, torch.cuda.memory_allocated() - base)
+    drv.result.to_numpy()
+    secs = time.perf_counter() - t0
+    led = drv.ledger
+    return dict(comm=led.comm_tuples, dispatches=led.measured_dispatches, warm_s=secs,
+                live=live, **grown)
+
+
+def serve(torch, fams, mix, backend, max_in_flight):
+    """Submit the whole mix at tick 0 to a fresh server (shared caps cache)
+    on the card and drain it.  Returns (server, tickets, wall seconds,
+    seconds at the end of each tick)."""
+    from repro_torch.core.caps_cache import CapsCache
+    from repro_torch.core.gym import GymConfig
+    from repro_torch.relational.spmd import SPMD
+    from repro_torch.serve import JoinServer
+
+    srv = JoinServer(SPMD(8, device="cuda"), max_in_flight=max_in_flight, caps_cache=CapsCache())
+    tickets = [srv.submit(f"tenant-{i}:{name}", *fams[name],
+                          GymConfig(strategy="hash", seed=23, local_backend=backend))
+               for i, name in enumerate(mix)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    done_at = {srv.tick: 0.0}
+    more = True
+    while more:
+        more = srv.step()
+        done_at[srv.tick] = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return srv, tickets, time.perf_counter() - t0, done_at
+
+
+def joinserve_phase(torch, seed: int, audit, gym_summary=None, sizes=("bench", "real")):
+    """The multi-tenant join server (see the module doc).  Returns
+    (summary, launches over the phase's 'cuda' runs)."""
+    from repro_torch.core import gym as G
+    from repro_torch.kernels import ops as K
+
+    totals = {k: 0 for k in GYM_KERNELS}
+    totals.update({"semijoin_probe/bitmap": 0, "semijoin_probe/hash": 0})
+    summary = {}
+    mix = zipf_mix(["S_8", "C_8", "TC_9"], 8)
+
+    def counted(fn):
+        K.reset_launch_counts()
+        audit.reset()
+        res = fn()
+        per = {k: K.launch_counts()[k] for k in GYM_KERNELS}
+        per.update({f"semijoin_probe/{k}": v for k, v in K.semijoin_probe_path_counts().items()})
+        for k, v in per.items():
+            totals[k] += v
+        return res, per
+
+    def ticket_state(t):
+        return (t.rows(), tuple(t.result.schema),
+                [dataclasses.asdict(r) for r in t.ledger.records], t.ledger.retries,
+                t.admit_tick, t.finish_tick)
+
+    def pct(xs, p):
+        return float(np.percentile(np.asarray(xs, np.float64), p))
+
+    if "bench" in sizes:
+        fams = {f: (q, g, d) for f, (q, g, d) in families(seed, False).items()}
+        (srv, tickets, secs, _), per = counted(
+            lambda: serve(torch, fams, mix, "cuda", SERVE_MAX_IN_FLIGHT))
+        audit.check("joinserve bench")
+        check(all(per[k] > 0 for k in GYM_KERNELS), f"joinserve bench: a kernel never launched {per}")
+        K.reset_launch_counts()
+        tsrv, ttickets, _, _ = serve(torch, fams, mix, "torch", SERVE_MAX_IN_FLIGHT)
+        check(sum(K.launch_counts().values()) == 0, "'torch' backend launched a kernel")
+        for t, tt in zip(tickets, ttickets):
+            a, b = ticket_state(t), ticket_state(tt)
+            check(np.array_equal(a[0], b[0]) and a[1:] == b[1:],
+                  f"joinserve bench {t.tenant}: cuda server != torch server")
+        check(srv.ledger.summary() == tsrv.ledger.summary()
+              and (srv.ledger.fused_dispatches, srv.ledger.fused_riders)
+              == (tsrv.ledger.fused_dispatches, tsrv.ledger.fused_riders),
+              "joinserve bench: ServerLedger cuda != torch")
+        solo = {}
+        for f in set(mix):
+            q, g, data = fams[f]
+            solo[f] = G.gym(q, data, ghd=g, p=8, device="cuda",
+                            config=G.GymConfig(strategy="hash", seed=23))
+        for name, t in zip(mix, tickets):
+            rows, _, led = solo[name]
+            check(np.array_equal(t.rows(), rows) and t.ledger.comm_tuples == led.comm_tuples,
+                  f"joinserve bench {t.tenant}: != its standalone gym()")
+        led = srv.ledger
+        check(led.retries == 0 and led.dispatches_saved > 0,
+              f"joinserve bench: retries {led.retries}, saved {led.dispatches_saved}")
+        seq_disp = sum(solo[f][2].measured_dispatches for f in mix)
+        print(f"joinserve bench: mix={mix} max_in_flight={SERVE_MAX_IN_FLIGHT} "
+              f"ticks={srv.tick} fused_dispatches={led.fused_dispatches} "
+              f"fused_riders={led.fused_riders} dispatches_saved={led.dispatches_saved} "
+              f"server_dispatches={led.measured_dispatches} standalone_dispatches={seq_disp} "
+              f"comm={led.comm_tuples} launches={per} cuda server == torch server per ticket "
+              f"(rows, schema, records, ticks) and ServerLedger: yes; every ticket == its "
+              f"standalone gym() (rows, comm): yes", flush=True)
+        summary["bench"] = dict(saved=led.dispatches_saved, launches=per)
+        del srv, tickets, tsrv, ttickets
+    if "real" in sizes:
+        fams = families(seed, True)
+        # one solo run a family, stepped by hand, gives the memory terms
+        prof = {f: solo_profile(torch, *fams[f]) for f in sorted(set(mix))}
+        stats = {f: (gym_summary or {}).get(f"{f}/real") or prof[f] for f in prof}
+        total = torch.cuda.get_device_properties(0).total_memory
+        base = peak_reset(torch)
+        counts = {f: mix.count(f) for f in prof}
+
+        def reckon(m):
+            """Peak with m queries in flight: the m largest live sets plus
+            the larger of the largest solo transient (a materialization,
+            inline at admission; a round's measure pre-passes and final
+            projection, one driver at a time) and one tick's payloads — every
+            family's merged dispatch, whose transient (outputs included) is
+            the sum of its riders', all held until the tick delivers."""
+            lives = sorted((prof[f]["live"] for f in mix), reverse=True)[:m]
+            solo = max(max(prof[f]["mat"], prof[f]["other"]) for f in prof)
+            tick = sum(min(m, counts[f]) * prof[f]["payload"] for f in prof)
+            return base + sum(lives) + max(solo, tick)
+
+        m = SERVE_MAX_IN_FLIGHT
+        while m > 1 and reckon(m) >= SERVE_PEAK_SHARE_MAX * total:
+            m -= 1
+        reckoned = reckon(m)
+        print(f"joinserve real: reckoned peak {reckoned} B for max_in_flight={m} against "
+              f"{SERVE_PEAK_SHARE_MAX} x {total} B ({base} B resident; per family live / "
+              f"materialization / payload / other round transient B: "
+              f"{ {f: (v['live'], v['mat'], v['payload'], v['other']) for f, v in prof.items()} }; "
+              f"max_in_flight=8 reckons {reckon(8)} B)", flush=True)
+        (srv, tickets, secs, done_at), per = counted(lambda: serve(torch, fams, mix, "cuda", m))
+        peak = torch.cuda.max_memory_allocated()
+        audit.check("joinserve real")
+        led = srv.ledger
+        check(all(per[k] > 0 for k in GYM_KERNELS), f"joinserve real: a kernel never launched {per}")
+        check(per["semijoin_probe/hash"] == 0, f"joinserve real: a semijoin launch took the hash "
+              f"path {per}")
+        for name, t in zip(mix, tickets):
+            want = real_answer(seed, name)
+            check(np.array_equal(t.rows().astype(np.int64), want) and len(want) > 0,
+                  f"joinserve real {t.tenant}: rows != numpy join")
+            check(t.ledger.comm_tuples == stats[name]["comm"] and t.ledger.retries == 0,
+                  f"joinserve real {t.tenant}: comm {t.ledger.comm_tuples} != the gym phase's "
+                  f"{stats[name]['comm']}, or retries")
+        check(led.retries == 0 and led.dispatches_saved > 0,
+              f"joinserve real: retries {led.retries}, saved {led.dispatches_saved}")
+        check(peak < SERVE_PEAK_SHARE_MAX * total, f"joinserve real: peak {peak} B >= "
+              f"{SERVE_PEAK_SHARE_MAX} x {total} B")
+        seq_s = sum(stats[f]["warm_s"] for f in mix)
+        seq_disp = sum(stats[f]["dispatches"] for f in mix)
+        lat_ticks = [t.latency_ticks for t in tickets]
+        lat_s = [done_at[t.finish_tick] for t in tickets]
+        print(f"joinserve real: mix={mix} max_in_flight={m} ticks={srv.tick} drain_s={secs:.4f} "
+              f"queries_per_s={len(mix) / secs:.4f} sequential_estimate_s={seq_s:.4f} "
+              f"(the solo runs' seconds over the mix, the gym phase's warm ones when it ran; "
+              f"{len(mix) / seq_s:.4f} queries/s) "
+              f"latency_ticks p50={pct(lat_ticks, 50)} p99={pct(lat_ticks, 99)} "
+              f"latency_s p50={pct(lat_s, 50):.4f} p99={pct(lat_s, 99):.4f} "
+              f"fused_dispatches={led.fused_dispatches} fused_riders={led.fused_riders} "
+              f"dispatches_saved={led.dispatches_saved} server_dispatches="
+              f"{led.measured_dispatches} standalone_dispatches={seq_disp} comm={led.comm_tuples} "
+              f"retries={led.retries} peak_bytes={peak} (reckoned {reckoned}; card {total}) "
+              f"launches={per} rows==numpy join and comm==standalone per ticket: yes", flush=True)
+        summary["real"] = dict(max_in_flight=m, drain_s=secs, seq_s=seq_s, peak=peak,
+                               saved=led.dispatches_saved, launches=per)
+        del srv, tickets
+    return summary, totals
+
+
 def _visible(torch, sq, sk, causal, window, dev):
     rows = torch.arange(sq, device=dev)[:, None]
     cols = torch.arange(sk, device=dev)[None, :]
@@ -1911,13 +2380,16 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--reps", type=int, default=30)
-    ap.add_argument("--phases", default="gym,grid,skew,logdepth,wire,lm",
+    ap.add_argument("--phases", default="gym,grid,skew,logdepth,wire,snapshot,joinserve,lm",
                     help="comma-separated main paths to drive: gym (the join path), "
                          "grid (the grid engine), skew (the hybrid engine beside hash "
                          "and grid on skewed data), logdepth (Log-GTA, Log-GTA', Shares), "
-                         "wire (the packed wire and plan='auto'), lm (gemma2-9b serving)")
+                         "wire (the packed wire and plan='auto'), snapshot (save/load "
+                         "mid-query), joinserve (the multi-tenant join server), lm "
+                         "(gemma2-9b serving)")
     ap.add_argument("--sizes", default="bench,real",
-                    help="comma-separated gym, grid, skew and wire sizes to drive: bench, real")
+                    help="comma-separated gym, grid, skew, wire, snapshot and joinserve "
+                         "sizes to drive: bench, real")
     ap.add_argument("--profile", default="",
                     help="comma-separated families (S_8,C_8,TC_9) to profile at real size, "
                          "and lm to profile the LM serving path")
@@ -2019,7 +2491,7 @@ def main(argv=None) -> int:
         if fams:
             profile_queries(torch, args.seed, fams, args.profile_out)
     wire_recorded = None
-    for path in ("grid", "skew", "logdepth", "wire"):
+    for path in ("grid", "skew", "logdepth", "wire", "snapshot", "joinserve"):
         if path not in phases:
             continue
         t0 = time.perf_counter()
@@ -2035,6 +2507,12 @@ def main(argv=None) -> int:
             elif path == "wire":
                 _, launches, wire_recorded = wire_phase(torch, args.seed, audit, summary,
                                                         tuple(args.sizes.split(",")))
+            elif path == "snapshot":
+                _, launches = snapshot_phase(torch, args.seed, audit, summary,
+                                             tuple(args.sizes.split(",")))
+            elif path == "joinserve":
+                _, launches = joinserve_phase(torch, args.seed, audit, summary,
+                                              tuple(args.sizes.split(",")))
             else:
                 _, launches = logdepth_phase(torch, args.seed, audit)
         finally:

@@ -9,7 +9,12 @@ Given any complete GHD D(T, chi, lam) of a query Q:
      semijoins, join phase — O(d + log n) rounds total.
 
 The driver is a thin schedule walker; lowering, round fusion, capacity
-sizing and the abort-retry loop live in ``core.physical``.
+sizing and the abort-retry loop live in ``core.physical``.  What remains
+here is the resumable state machine: between rounds the full state (node
+tables, cursor, ledger, capacities, the caps cache) can be snapshotted to
+disk (``save``) and a new driver can resume mid-query (``load``), and
+``step_gen`` hands each stage's prepared work to a caller that owns the
+dispatch (the join server, ``serve/join_server.py``).
 
 Entry point: ``gym(query, data, p=..., config=..., plan=..., device=...)``.
 It runs on the CUDA card unless the caller passes ``device="cpu"``; with
@@ -24,12 +29,16 @@ caller chose.
 from __future__ import annotations
 
 import dataclasses
+import json
+import os
+import tempfile
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
+import torch
 
 from ..relational import ops as R
-from ..relational.ledger import Ledger
+from ..relational.ledger import Ledger, RoundRecord
 from ..relational.localops import LOCAL_BACKENDS, default_backend
 from ..relational.spmd import SPMD, resolve_device
 from ..relational.table import DTable
@@ -39,11 +48,6 @@ from .hypergraph import Query
 from .physical import ENGINES, CapacityManager, PhysicalExecutor
 from .physical import pow2 as _pow2
 from .planner import Round, get_schedule
-
-#: ROADMAP queue A items that port the features later slices add
-LATER = {
-    "save": "ROADMAP queue A, item 'save/load and step_gen'",
-}
 
 
 # --------------------------------------------------------------------------
@@ -120,11 +124,16 @@ class GymDriver:
         spmd: SPMD,
         config: Optional[GymConfig] = None,
         plan=None,  # Optional[optimizer.Plan]: execute this plan directly
+        caps_cache=None,  # Optional[CapsCache]: SHARED across drivers
     ):
         self.query = query
         self.config = config or GymConfig()
         self.spmd = spmd
         dev = spmd.device
+        # a caller-owned CapsCache (the join server passes one cache to
+        # every tenant, so equal group signatures warm each other); None
+        # keeps the executor's own per-query cache
+        self._shared_caps_cache = caps_cache
         # dedup base relations once (relations are sets); the distinct row
         # counts double as the advisor's table statistics
         dedup_rows: Dict[str, np.ndarray] = {}
@@ -146,13 +155,7 @@ class GymDriver:
             # the plan decides GHD + engine knobs; config mirrors it
             ghd = plan.ghd
             self.config = plan.to_config(self.config)
-        backend = self.config.local_backend or default_backend(dev)
-        if backend == "cuda" and dev.type != "cuda":
-            raise ValueError(
-                f"local_backend='cuda' needs a CUDA device, got {dev}; use "
-                "local_backend='torch' (the default on the CPU)"
-            )
-        self.local_backend = backend
+        backend = self.local_backend = self._resolve_backend()
         self.ghd = ghd.make_complete(query)
         self.ledger = Ledger()
 
@@ -190,6 +193,19 @@ class GymDriver:
         self.cursor: int = -1  # -1 = materialization pending
         self.done = False
         self.result: Optional[DTable] = None
+        self._pending_works: list = []  # what a suspended step_gen yielded
+
+    def _resolve_backend(self) -> str:
+        """The config's local backend on this driver's device (None = the
+        device's default); ``'cuda'`` off a CUDA device raises."""
+        dev = self.spmd.device
+        backend = self.config.local_backend or default_backend(dev)
+        if backend == "cuda" and dev.type != "cuda":
+            raise ValueError(
+                f"local_backend='cuda' needs a CUDA device, got {dev}; use "
+                "local_backend='torch' (the default on the CPU)"
+            )
+        return backend
 
     def _choose_plan(self, query: Query, ghd: GHD, dedup_rows):
         """``plan="auto"``: the advisor's argmin over the candidate plans,
@@ -233,11 +249,20 @@ class GymDriver:
             count_retries_comm=cfg.count_retries_comm,
             calibrate=cfg.calibrate_shuffle,
             skew_threshold=cfg.skew_threshold,
-            caps_cache=cfg.caps_cache,
+            # a shared cache instance wins over the boolean knob (but an
+            # explicitly disabled cache stays disabled)
+            caps_cache=(
+                self._shared_caps_cache
+                if self._shared_caps_cache is not None and cfg.caps_cache
+                else cfg.caps_cache
+            ),
             prefetch=cfg.prefetch_measures,
             wire_policy=wp,
         )
         if self.plan is not None:
+            # config mirrors the plan by construction; load() clears
+            # self.plan before rebuilding, so a restored config never
+            # disagrees with this path
             return PhysicalExecutor.from_plan(
                 self.spmd, self.plan, self.capman, local_backend=self.local_backend, **kw
             )
@@ -254,6 +279,15 @@ class GymDriver:
         total = sum(self._base_counts.values())
         m = 4 * max(1, -(-total // self.spmd.p))
         return _pow2(max(1 << 16, 64 * m))
+
+    # caps live in the capacity manager; a property for snapshots
+    @property
+    def caps(self) -> Dict[int, int]:
+        return self.capman.caps
+
+    @caps.setter
+    def caps(self, value: Dict[int, int]) -> None:
+        self.capman.caps = dict(value)
 
     # -- capacity heuristics ------------------------------------------------
     def _init_cap(self, v: int) -> int:
@@ -298,10 +332,18 @@ class GymDriver:
             self._finish()
             return False
         rnd = self.schedule[self.cursor]
+        return self._commit_round(
+            rnd, self.executor.execute_round(rnd, self.tables, self.acc, self.ledger)
+        )
+
+    def _commit_round(self, rnd: Round, out) -> bool:
+        """Install a finished round's tables, queue the next round's
+        measure prefetch, record the round and advance the cursor; True
+        if more rounds remain."""
         (
             new_tab, new_acc, comm, padded, heavy, claimed, dispatches,
             measure_dispatches, wire_bytes, useful_bytes,
-        ) = self.executor.execute_round(rnd, self.tables, self.acc, self.ledger)
+        ) = out
         self.tables = {**self.tables, **new_tab}
         self.acc = {**self.acc, **new_acc}
         nxt = self.cursor + 1
@@ -327,6 +369,41 @@ class GymDriver:
             return False
         return True
 
+    def step_gen(self):
+        """Reentrant variant of ``step()`` for the serving layer: a
+        generator that YIELDS each stage's prepared ``GroupWork`` list and
+        RECEIVES the matching ``GroupResult`` list via ``send`` — the
+        caller owns the dispatch, so compatible groups from many drivers
+        can run as one merged dispatch.  Returns (``StopIteration.value``)
+        True if more rounds remain, as ``step()`` does.
+
+        The materialization round runs inline (no yields): it is one-time
+        per query, so there is nothing recurring to merge across requests,
+        and a driver's first drive may finish without yielding.  Seeds,
+        retries and capacity growth stay inside, so an interleaved drive
+        equals ``step()``."""
+        if self.done:
+            return False
+        if self.cursor < 0 or self.cursor >= len(self.schedule):
+            return self.step()
+        rnd = self.schedule[self.cursor]
+        gen = self.executor.round_steps(rnd, self.tables, self.acc, self.ledger)
+        try:
+            works = next(gen)
+            while True:
+                self._pending_works = works
+                results = yield works
+                works = gen.send(results)
+        except StopIteration as stop:
+            out = stop.value
+        self._pending_works = []
+        return self._commit_round(rnd, out)
+
+    def pending_groups(self):
+        """The ``GroupWork`` list an in-flight ``step_gen`` is suspended on
+        (empty when none) — what the server's bucketing sees."""
+        return list(self._pending_works)
+
     def _finish(self) -> None:
         root = self.ghd.root
         out = self.tables[root]
@@ -344,15 +421,106 @@ class GymDriver:
         assert self.result is not None
         return self.result
 
-    # -- features of later slices -------------------------------------------
-    def step_gen(self):
-        raise NotImplementedError(f"step_gen is not ported yet ({LATER['save']})")
-
+    # -- fault tolerance: snapshot / resume ----------------------------------
     def save(self, path: str) -> None:
-        raise NotImplementedError(f"save is not ported yet ({LATER['save']})")
+        """Atomic snapshot of the driver state between rounds, in the
+        reference package's npz layout: a ``meta`` JSON string plus
+        ``data_k`` / ``valid_k`` (node tables) and ``accdata_k`` /
+        ``accvalid_k`` (upward accumulators), int32 and bool."""
+        meta = {
+            "cursor": self.cursor,
+            "done": self.done,
+            "config": dataclasses.asdict(self.config),
+            # the (complete) GHD being executed: an auto/plan run may use
+            # another decomposition than the resuming driver was built with
+            "ghd": self.ghd.to_dict(),
+            "caps": {str(k): v for k, v in self.caps.items()},
+            "ledger": {
+                "records": [dataclasses.asdict(r) for r in self.ledger.records],
+                "output_tuples": self.ledger.output_tuples,
+                "retries": self.ledger.retries,
+            },
+            "schemas": {str(k): list(t.schema) for k, t in self.tables.items()},
+            "acc_schemas": {str(k): list(t.schema) for k, t in self.acc.items()},
+        }
+        if self.executor.caps_cache is not None:
+            # keep the amortization warm across resume
+            meta["caps_cache"] = self.executor.caps_cache.to_json()
+        arrays = {}
+        for prefix, store in (("", self.tables), ("acc", self.acc)):
+            for k, t in store.items():
+                arrays[f"{prefix}data_{k}"] = t.data.cpu().numpy()
+                arrays[f"{prefix}valid_{k}"] = t.valid.cpu().numpy()
+        d = os.path.dirname(os.path.abspath(path))
+        os.makedirs(d, exist_ok=True)
+        fd, tmp = tempfile.mkstemp(dir=d, suffix=".tmp")
+        try:
+            with os.fdopen(fd, "wb") as f:
+                np.savez(f, meta=json.dumps(meta), **arrays)
+            os.replace(tmp, path)  # atomic publish
+        except BaseException:
+            os.unlink(tmp)
+            raise
 
     def load(self, path: str) -> None:
-        raise NotImplementedError(f"load is not ported yet ({LATER['save']})")
+        """Restore a ``save`` snapshot onto this driver's device.  The
+        snapshot's GHD and config win (``local_backend`` included, resolved
+        against this device as the constructor does); a shared caps cache
+        merges the snapshot's entries instead of being replaced."""
+        with np.load(path, allow_pickle=False) as z:
+            meta = json.loads(str(z["meta"]))
+            arrays = {k: z[k] for k in z.files if k != "meta"}
+        self.cursor = meta["cursor"]
+        self.done = meta["done"]
+        if "ghd" in meta:
+            # tables, caps and schedule are keyed by the snapshot GHD's nodes
+            self.ghd = GHD.from_dict(meta["ghd"])
+            attr_order = {a: i for i, a in enumerate(self.query.output_attrs)}
+            self.node_schema = {
+                v: tuple(sorted(self.ghd.chi[v], key=lambda a: attr_order[a]))
+                for v in self.ghd.nodes()
+            }
+        if "config" in meta:
+            # resuming must not change the query's plan, seeds or backend
+            # mid-flight; the constructor's in-memory Plan is superseded
+            self.config = GymConfig(**meta["config"])
+            self.plan = None
+            self.local_backend = self._resolve_backend()
+            self.capman.local_backend = self.local_backend
+            self.capman.growth = self.config.cap_growth
+            self.capman.max_cap = self._max_cap()
+            self.executor = self._make_executor()
+            self.schedule = get_schedule(self.config.schedule).fn(self.ghd)
+        # a prefetched measure belongs to the pre-snapshot timeline
+        self.executor._pending = None
+        cc = self.executor.caps_cache
+        if "caps_cache" in meta and cc is not None:
+            # a SHARED cache keeps co-tenants' confirmed entries
+            cc.load_json(meta["caps_cache"], merge=cc is self._shared_caps_cache)
+        self.caps = {int(k): v for k, v in meta["caps"].items()}
+        led = Ledger()
+        led.records = [RoundRecord(**r) for r in meta["ledger"]["records"]]
+        led.output_tuples = meta["ledger"]["output_tuples"]
+        led.retries = meta["ledger"]["retries"]
+        self.ledger = led
+        dev = self.spmd.device
+
+        def table(prefix: str, k: str, schema) -> DTable:
+            return DTable(
+                torch.from_numpy(np.asarray(arrays[f"{prefix}data_{k}"], np.int32)).to(dev),
+                torch.from_numpy(np.asarray(arrays[f"{prefix}valid_{k}"], bool)).to(dev),
+                tuple(schema),
+            )
+
+        self.tables = {int(k): table("", k, s) for k, s in meta["schemas"].items()}
+        self.acc = {
+            int(k): table("acc", k, s) for k, s in meta.get("acc_schemas", {}).items()
+        }
+        # the final projection is derived state: recompute it for a
+        # post-completion snapshot so run() returns the result
+        self.result = None
+        if self.done:
+            self._finish()
 
 
 # --------------------------------------------------------------------------

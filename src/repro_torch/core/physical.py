@@ -706,9 +706,12 @@ def lower_round(rnd: Round) -> Tuple[List[List[PhysOp]], List[Tuple[str, int, st
 @dataclasses.dataclass
 class GroupWork:
     """ONE prepared op group, ready to dispatch: operand tables resolved,
-    managed capacities pre-floored, calibration attached.  ``mpad`` /
-    ``mbytes``: wire cells (and bytes) the group's count pre-pass slices
-    shipped, charged to the owning round."""
+    managed capacities pre-floored, calibration attached.  It is the unit
+    ``PhysicalExecutor.round_steps`` yields and the serving layer merges
+    across requests: ``merge_key`` (``batched.cross_request_key``) is the
+    cross-request bucketing key, None when the group must dispatch solo.
+    ``mpad`` / ``mbytes``: wire cells (and bytes) the group's count
+    pre-pass slices shipped, charged to the owning round (never merged)."""
 
     kind: str
     ops: List[PhysOp]
@@ -721,12 +724,16 @@ class GroupWork:
     engine: Engine
     mpad: int
     mbytes: int
+    merge_key: Optional[Tuple]
 
 
 @dataclasses.dataclass
 class GroupResult:
     """What dispatching one ``GroupWork`` produced: per-instance outputs
-    and stats, the claimed BSP rounds, and the SPMD dispatch deltas."""
+    and stats, the claimed BSP rounds, and the SPMD dispatch deltas
+    measured around the payload (incremental, so accounting survives many
+    executors interleaving on one ``SPMD``).  A merged dispatch charges
+    its shared deltas to the FIRST rider; the others ride free."""
 
     outs: List[DTable]
     stats: List[Dict]
@@ -759,6 +766,44 @@ def dispatch_work(w: GroupWork) -> GroupResult:
         outs, stats, rounds,
         spmd.dispatch_count - d0, spmd.measure_dispatch_count - md0,
     )
+
+
+def dispatch_merged(works: Sequence[GroupWork]) -> List[GroupResult]:
+    """ONE fused payload dispatch for several same-``merge_key`` groups
+    (typically from different requests): operand lists concatenate on the
+    k axis of the ``dist_*_many`` operators, the measures merge by
+    elementwise max (``merge_measures``), and the per-instance outputs and
+    stats split back into one ``GroupResult`` per rider.  Each instance's
+    rows depend only on its own data, seed and the (equal by key)
+    statics, so every rider's outputs equal a solo dispatch of its group."""
+    if len(works) == 1:
+        return [dispatch_work(works[0])]
+    mk = works[0].merge_key
+    assert mk is not None and all(w.merge_key == mk for w in works), (
+        "dispatch_merged: all works must share a non-None merge_key"
+    )
+    eng = works[0].engine
+    spmd = eng.spmd
+    lhs = [t for w in works for t in w.lhs]
+    rhs = None if works[0].rhs is None else [t for w in works for t in w.rhs]
+    seeds = [s for w in works for s in w.seeds]
+    xcaps = B.merge_measures([w.xcaps for w in works])
+    d0, md0 = spmd.dispatch_count, spmd.measure_dispatch_count
+    outs, stats, rounds = _engine_payload(
+        eng, works[0].kind, lhs, rhs, works[0].cap, seeds, xcaps
+    )
+    dd = spmd.dispatch_count - d0
+    md = spmd.measure_dispatch_count - md0
+    results: List[GroupResult] = []
+    off = 0
+    for j, w in enumerate(works):
+        k = len(w.ops)
+        results.append(GroupResult(
+            outs[off:off + k], stats[off:off + k], rounds,
+            dd if j == 0 else 0, md if j == 0 else 0,
+        ))
+        off += k
+    return results
 
 
 # --------------------------------------------------------------------------
@@ -986,7 +1031,8 @@ class PhysicalExecutor:
 
     def prepare_group(self, ops_g: List[PhysOp], resolve, xcaps, key) -> GroupWork:
         """Bind one measured group to a dispatchable ``GroupWork``,
-        pre-flooring managed capacities the measurement proves too small."""
+        pre-flooring managed capacities the measurement proves too small,
+        with its cross-request ``merge_key``."""
         seeds = [op.seed for op in ops_g]
         lhs = [resolve(op.a) for op in ops_g]
         kind = ops_g[0].kind
@@ -1002,6 +1048,7 @@ class PhysicalExecutor:
             cap=cap, xcaps=xcaps, key=key, engine=self.engine,
             mpad=xcaps.padded if xcaps is not None else 0,
             mbytes=xcaps.wire_bytes if xcaps is not None else 0,
+            merge_key=B.cross_request_key(kind, self.engine, cap, lhs, rhs, xcaps),
         )
 
     # -- one schedule round ------------------------------------------------

@@ -11,10 +11,14 @@ Python and numpy — never by importing it.
 - ``wire_policy_from_tuple``: a ``WirePolicy.attr_bits`` tuple -> the
   port's ``WirePolicy``;
 - ``plan_from_fields``: an advisor ``Plan``'s fields (its GHD as a
-  ``GHD.to_dict()`` dictionary) -> the port's ``Plan``.
+  ``GHD.to_dict()`` dictionary) -> the port's ``Plan``;
+- ``snapshot_from_reference``: a reference ``GymDriver.save`` snapshot ->
+  one the port's ``GymDriver.load`` reads (the layout is the same; only
+  the backend name differs).
 """
 from __future__ import annotations
 
+import json
 from typing import Any, Dict, Iterable, Optional, Sequence, Tuple
 
 import numpy as np
@@ -96,3 +100,18 @@ def plan_from_fields(
     source's."""
     kw = {k: v for k, v in fields.items() if k not in ("ghd", "local_backend")}
     return Plan(ghd=GHD.from_dict(ghd), local_backend=local_backend, **kw)
+
+
+def snapshot_from_reference(src: str, dst: str) -> None:
+    """Copy the reference package's driver snapshot ``src`` to ``dst``,
+    rewriting only its config's ``local_backend`` to None (the resuming
+    device's default): the reference's backend names (``'jnp'`` /
+    ``'pallas'``) do not carry over.  Tables, cursor, GHD, capacities,
+    ledger and caps cache stay as written."""
+    with np.load(src, allow_pickle=False) as z:
+        meta = json.loads(str(z["meta"]))
+        arrays = {k: z[k] for k in z.files if k != "meta"}
+    if "config" in meta:
+        meta["config"]["local_backend"] = None
+    with open(dst, "wb") as f:
+        np.savez(f, meta=json.dumps(meta), **arrays)

@@ -207,6 +207,73 @@ class GroupMeasure:
     swap_spread: bool = False
 
 
+# ------------------------------------------------- cross-request batching
+def cross_request_key(kind, engine, cap, lhs, rhs, xcaps) -> Optional[Tuple]:
+    """Cross-REQUEST bucketing key of one prepared op group — the serving
+    layer's merge key.  Groups from different queries with equal keys run
+    as ONE stacked dispatch: the k axis of the ``dist_*_many`` operators
+    spans requests.  The key is engine strategy + local backend, op kind,
+    managed output capacity, per-side shard shapes, the measured pow2
+    exchange caps and the shared-key-column count (key positions and seeds
+    ride as per-instance data).  Equal measured caps make a merge free: no
+    rider ships padding another rider's measure asked for.
+
+    None = dispatch solo: packed wire formats are per query (their bit
+    widths come from that query's base relations), and hybrid-routed
+    payloads carry per-instance heavy-destination flags whose
+    spread/broadcast roles do not merge across measures."""
+    if engine.wire_policy is not None:
+        return None
+    if xcaps is not None and xcaps.hybrid_routed:
+        return None
+    key: Tuple = (
+        engine.name, engine.local_backend, kind, int(cap),
+        lhs[0].cap, lhs[0].arity,
+    )
+    if xcaps is None:
+        key += (None,)
+    else:
+        key += (xcaps.lhs, xcaps.rhs, xcaps.out_recv, xcaps.out_need)
+    if rhs is not None:
+        n_shared = sum(1 for x in lhs[0].schema if x in set(rhs[0].schema))
+        key += (rhs[0].cap, rhs[0].arity, n_shared)
+    return key
+
+
+def merge_measures(ms: Sequence[Optional[GroupMeasure]]) -> Optional[GroupMeasure]:
+    """Elementwise-max merge of same-key groups' measures for a
+    cross-request fused dispatch (wider capacities are always sound: rows,
+    ``sent`` and drops are unaffected).  None when ANY measure is missing:
+    the merged dispatch then runs at the group defaults.  The measures'
+    own wire charges (``padded`` / ``wire_bytes``) are not merged: each
+    request charges its pre-pass traffic to its own ledger."""
+    if any(m is None for m in ms):
+        return None
+    assert not any(m.hybrid_routed for m in ms), "hybrid measures don't merge"
+    if len(ms) == 1:
+        return ms[0]
+
+    def side(sel) -> Optional[SideCaps]:
+        sides = [sel(m) for m in ms]
+        if any(s is None for s in sides):
+            return None
+        assert all(s.fmt is None for s in sides), "packed fmts don't merge"
+        return SideCaps(max(s.c_out for s in sides), max(s.cap_recv for s in sides))
+
+    def opt_max(sel) -> Optional[int]:
+        vals = [sel(m) for m in ms if sel(m) is not None]
+        return max(vals) if vals else None
+
+    return GroupMeasure(
+        lhs=side(lambda m: m.lhs),
+        rhs=side(lambda m: m.rhs),
+        out_recv=opt_max(lambda m: m.out_recv),
+        out_need=opt_max(lambda m: m.out_need),
+        padded=0,
+        wire_bytes=0,
+    )
+
+
 def _dests(keys: torch.Tensor, valid: torch.Tensor, p: int, seed, backend: str) -> torch.Tensor:
     """Destinations from a pre-gathered (..., cap, n_keys) key matrix —
     hashes columns in order, identical to ``dests_for(data, key_cols)``."""

@@ -318,3 +318,93 @@ class Ledger:
                 f"comm={v['comm']} padded={v['padded']}"
             )
         return "\n".join(lines)
+
+
+class ServerLedger:
+    """Multi-tenant accounting for the serving layer: every completed
+    query's per-tenant ``Ledger`` plus the server-level fusion counters.
+
+    The aggregate IS the per-tenant sum — cross-request fusion changes how
+    work is packed into SPMD programs, never what each query's wire moved
+    (each tenant's rows, ``comm_tuples``, and byte accounting stay those
+    of a standalone run, Lemma-2-auditable per request).  What fusion
+    saves shows up only in the dispatch split: a merged dispatch charges
+    its ONE program launch to the first rider, and ``fused_dispatches`` /
+    ``fused_riders`` record how many launches the merge avoided."""
+
+    def __init__(self) -> None:
+        self.tenants: Dict[str, List[Ledger]] = {}
+        # merged payload dispatches issued / rider groups that shared one
+        self.fused_dispatches: int = 0
+        self.fused_riders: int = 0
+
+    def add(self, tenant: str, ledger: Ledger) -> None:
+        self.tenants.setdefault(tenant, []).append(ledger)
+
+    def _all(self) -> List[Ledger]:
+        return [led for leds in self.tenants.values() for led in leds]
+
+    @property
+    def queries(self) -> int:
+        return len(self._all())
+
+    @property
+    def comm_tuples(self) -> int:
+        return sum(led.comm_tuples for led in self._all())
+
+    @property
+    def padded_slots(self) -> int:
+        return sum(led.padded_slots for led in self._all())
+
+    @property
+    def payload_bytes(self) -> int:
+        return sum(led.payload_bytes for led in self._all())
+
+    @property
+    def measured_dispatches(self) -> int:
+        return sum(led.measured_dispatches for led in self._all())
+
+    @property
+    def retries(self) -> int:
+        return sum(led.retries for led in self._all())
+
+    @property
+    def dispatches_saved(self) -> int:
+        """Payload program launches cross-request fusion avoided: riders
+        that shared a merged dispatch instead of launching their own."""
+        return self.fused_riders - self.fused_dispatches
+
+    def tenant_summary(self, tenant: str) -> Dict[str, Any]:
+        leds = self.tenants.get(tenant, [])
+        return {
+            "tenant": tenant,
+            "queries": len(leds),
+            "comm_tuples": sum(l.comm_tuples for l in leds),
+            "output_tuples": sum(l.output_tuples for l in leds),
+            "padded_slots": sum(l.padded_slots for l in leds),
+            "payload_bytes": sum(l.payload_bytes for l in leds),
+            "dispatches": sum(l.measured_dispatches for l in leds),
+            "retries": sum(l.retries for l in leds),
+        }
+
+    def summary(self) -> Dict[str, Any]:
+        return {
+            "queries": self.queries,
+            "comm_tuples": self.comm_tuples,
+            "padded_slots": self.padded_slots,
+            "payload_bytes": self.payload_bytes,
+            "dispatches": self.measured_dispatches,
+            "retries": self.retries,
+            "fused_dispatches": self.fused_dispatches,
+            "fused_riders": self.fused_riders,
+            "dispatches_saved": self.dispatches_saved,
+            "tenants": {t: self.tenant_summary(t) for t in sorted(self.tenants)},
+        }
+
+    def __repr__(self) -> str:
+        s = self.summary()
+        return (
+            f"ServerLedger(queries={s['queries']}, comm={s['comm_tuples']}, "
+            f"dispatches={s['dispatches']}, "
+            f"saved={s['dispatches_saved']}, retries={s['retries']})"
+        )

@@ -1,3 +1,4 @@
 from .decode import generate, sample
+from .join_server import JoinServer, JoinTicket
 
-__all__ = ["generate", "sample"]
+__all__ = ["generate", "sample", "JoinServer", "JoinTicket"]

@@ -7,9 +7,10 @@ runs on a machine with PyTorch alone:
 Each gym kernel and the packed wire's codec kernels must equal their plain
 PyTorch versions exactly, the flash attention kernel must agree with its
 plain version within the f32/bf16 tolerances stated below, and the default
-``gym()``, the grid and hybrid engines, the packed wire, ``plan="auto"``
-and the log-depth entry points with the ``'cuda'`` backend must equal the
-``'torch'`` backend in rows and ledger."""
+``gym()``, the grid and hybrid engines, the packed wire, ``plan="auto"``,
+the log-depth entry points, a snapshot resumed on the card and on the CPU,
+and the join server's merged dispatches with the ``'cuda'`` backend must
+equal the ``'torch'`` backend in rows and ledger."""
 from __future__ import annotations
 
 import dataclasses
@@ -613,3 +614,94 @@ def test_cuda_auto_plan_launches_the_kernels(cuda_device, wire):
     want = GYM_KERNELS + (("wire_encode", "wire_decode") if wire == "packed" else ())
     assert all(K.launch_counts()[k] > 0 for k in want), K.launch_counts()
     _run_both(q, g, data, 8, plan="auto", seed=23, wire_format=wire)
+
+
+def _bucket_outs(results):
+    return [[(t.schema, t.data.cpu(), t.valid.cpu()) for t in r.outs] for r in results]
+
+
+def _same_outs(a, b):
+    assert len(a) == len(b)
+    for ra, rb in zip(a, b):
+        assert len(ra) == len(rb)
+        for (sa, da, va), (sb, db, vb) in zip(ra, rb):
+            assert sa == sb and torch.equal(da, db) and torch.equal(va, vb)
+
+
+@pytest.mark.cuda
+def test_cuda_merged_dispatch_matches_torch_and_solo(cuda_device):
+    """Two join servers on the card, one per backend, in lock step: before
+    every tick each multi-rider bucket's merged 'cuda' dispatch equals its
+    riders' solo 'cuda' dispatches and the 'torch' server's merged
+    dispatch of the same bucket; every ticket ends equal across backends."""
+    from repro_torch.core.gym import GymConfig
+    from repro_torch.core.physical import dispatch_merged, dispatch_work
+    from repro_torch.core.queries import chain_ghd, chain_query, star_ghd, star_query
+    from repro_torch.data.synthetic import chain_data_sparse, star_data_sparse
+    from repro_torch.kernels import ops as K
+    from repro_torch.relational.spmd import SPMD
+    from repro_torch.serve import JoinServer
+
+    star = (star_query(8), star_ghd(8),
+            star_data_sparse(8, domain=64, hub_rows=256, spoke_extra=64, seed=21))
+    chain = (chain_query(8), chain_ghd(8),
+             chain_data_sparse(8, domain=256, ident=64, extra=192, seed=24))
+    servers, tickets = {}, {}
+    for be in ("cuda", "torch"):
+        servers[be] = JoinServer(SPMD(8, device="cuda"), max_in_flight=3)
+        tickets[be] = [servers[be].submit(t, *case, GymConfig(seed=23, local_backend=be))
+                       for t, case in (("a", star), ("b", star), ("c", chain))]
+    K.reset_launch_counts()
+    merged_kinds = set()
+    while True:
+        tb = {repr(k).replace("'torch'", "'cuda'"): ws
+              for k, ws in servers["torch"].pending_groups().items()}
+        for key, ws in servers["cuda"].pending_groups().items():
+            if key is None or len(ws) < 2:
+                continue
+            merged = _bucket_outs(dispatch_merged(ws))
+            _same_outs(merged, _bucket_outs([dispatch_work(w) for w in ws]))
+            _same_outs(merged, _bucket_outs(dispatch_merged(tb[repr(key)])))
+            merged_kinds.add(ws[0].kind)
+        more = [servers[be].step() for be in ("cuda", "torch")]
+        assert more[0] == more[1]
+        if not more[0]:
+            break
+    assert {"semijoin", "join"} <= merged_kinds
+    assert all(K.launch_counts()[k] > 0 for k in GYM_KERNELS)
+    for tc, tt in zip(tickets["cuda"], tickets["torch"]):
+        np.testing.assert_array_equal(tc.rows(), tt.rows())
+        assert [dataclasses.asdict(r) for r in tc.ledger.records] == [
+            dataclasses.asdict(r) for r in tt.ledger.records
+        ]
+        assert (tc.admit_tick, tc.finish_tick) == (tt.admit_tick, tt.finish_tick)
+    assert servers["cuda"].ledger.summary() == servers["torch"].ledger.summary()
+    assert servers["cuda"].ledger.dispatches_saved > 0
+
+
+@pytest.mark.cuda
+def test_cuda_snapshot_resumes_on_card_and_cpu(cuda_device, tmp_path):
+    """A snapshot taken on the card resumes on the card ('cuda') and, asked
+    for explicitly, on the CPU ('torch'), to the same rows and records."""
+    from repro_torch.core.gym import GymConfig, GymDriver
+    from repro_torch.core.queries import chain_ghd, chain_query
+    from repro_torch.data.synthetic import chain_data_sparse
+    from repro_torch.relational.spmd import SPMD
+
+    q, g = chain_query(8), chain_ghd(8)
+    data = chain_data_sparse(8, domain=256, ident=64, extra=192, seed=24)
+    drv = GymDriver(q, g, data, SPMD(8, device="cuda"), GymConfig(seed=23))
+    for _ in range(3):
+        drv.step()
+    snap = str(tmp_path / "card.npz")
+    drv.save(snap)
+    full = drv.run().to_numpy()
+    out = {}
+    for dev, be in (("cuda", "cuda"), ("cpu", "torch")):
+        r = GymDriver(q, g, data, SPMD(8, device=dev), GymConfig(seed=23, local_backend=be))
+        r.load(snap)
+        assert r.local_backend == ("cuda" if dev == "cuda" else "torch")
+        out[dev] = (r.run().to_numpy(), [dataclasses.asdict(x) for x in r.ledger.records])
+    np.testing.assert_array_equal(out["cuda"][0], full)
+    np.testing.assert_array_equal(out["cpu"][0], full)
+    assert out["cuda"][1] == out["cpu"][1]

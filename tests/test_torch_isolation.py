@@ -42,7 +42,7 @@ def test_port_modules_exist():
         "serve/decode.py", "launch/serve.py", "relational/grid.py", "core/loggta.py",
         "core/loggta_prime.py", "core/cgta.py", "core/acq_mr.py", "core/shares.py",
         "relational/wire.py", "relational/shuffle.py", "kernels/wire_codec.py",
-        "core/costs.py", "core/optimizer.py",
+        "core/costs.py", "core/optimizer.py", "serve/join_server.py",
     ):
         assert mod in names, mod
     assert (PKG / "csrc" / "gym_kernels.cu").exists()
@@ -104,13 +104,12 @@ def test_default_device_needs_cuda():
     assert rows.tolist() == [[0, 1, 2]] and led.output_tuples == 1
 
 
-def test_later_slices_raise():
+def test_later_slices_raise(tmp_path):
     from repro_torch.core.gym import GymConfig
     from repro_torch.core.queries import chain_query
     from repro_torch.relational.spmd import SPMD
 
-    # the packed wire and the advisor are ported; save/load wait for
-    # their ROADMAP item
+    # the packed wire, the advisor and save/load/step_gen are ported
     assert GymConfig(wire_format="packed").wire_format == "packed"
     assert GymConfig(plan="auto").plan == "auto"
     from repro_torch.core.gym import GymDriver
@@ -122,10 +121,18 @@ def test_later_slices_raise():
         SPMD(2, device="cpu"), GymConfig(wire_format="packed", plan="auto"),
     )
     assert drv.plan is not None and drv.plan.local_backend is None
+    assert drv.step()  # materialization; then snapshot, resume, finish
+    snap = str(tmp_path / "snap.npz")
+    drv.save(snap)
+    resumed = GymDriver(
+        chain_query(2), chain_ghd(2),
+        {"R1": np.array([[0, 1]], np.int32), "R2": np.array([[1, 2]], np.int32)},
+        SPMD(2, device="cpu"), GymConfig(),
+    )
+    resumed.load(snap)
+    assert resumed.config.plan == drv.config.plan and resumed.config.wire_format == "packed"
+    assert resumed.run().to_numpy().tolist() == [[0, 1, 2]]
     assert drv.run().to_numpy().tolist() == [[0, 1, 2]]
-    for fn in (drv.step_gen, lambda: drv.save("x"), lambda: drv.load("x")):
-        with pytest.raises(NotImplementedError, match="save/load"):
-            fn()
     # the grid and hybrid engines are ported; the hybrid engine forces
     # the count pre-pass on and runs
     assert GymConfig(strategy="grid").strategy == "grid"

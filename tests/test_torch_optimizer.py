@@ -14,10 +14,10 @@ rows and ledger; ``gym(plan="auto")`` is held against the reference in
 
 Cases: ``tests/test_optimizer.py``'s S_8 and TC_9 and
 ``tests/test_skew_hybrid.py``'s skewed and uniform stars.  The
-reference's snapshot tests of a chosen plan
+reference's snapshot tests of a chosen plan and of the packed wire
 (``test_chosen_plan_round_trips_snapshot_resume``,
-``test_snapshot_roundtrips_wire_format``) wait for the port's
-``save``/``load`` (ROADMAP queue A, item 'save/load and step_gen').
+``test_snapshot_roundtrips_wire_format``) are held against the port in
+``tests/test_torch_snapshot_packed_auto.py``.
 """
 from __future__ import annotations
 
