@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch/CUDA port of GYM on one CUDA card.
 
     python3 chip_smoke.py [--seed N] [--reps N]
-                          [--phases gym,grid,skew,logdepth,wire,snapshot,joinserve,lm]
+                          [--phases gym,grid,skew,logdepth,wire,snapshot,joinserve,lm,train]
 
 Run from the root of a checkout on a machine with a CUDA card (sm_90a,
 an H100) and the CUDA toolkit.  In order it:
@@ -37,7 +37,8 @@ an H100) and the CUDA toolkit.  In order it:
    (the launches are printed per path, ``bitmap`` / ``hash``);
 5. (phase ``grid``) drives ``GymConfig(strategy="grid")`` — the paper's
    skew-proof Lemma 8/10 engine — on the same families, sizes and data,
-   with the same checks, and prints its comm beside the hash engine's;
+   with the same checks but no warm repeat (the time limit; the peak is
+   the cold run's), and prints its comm beside the hash engine's;
    the semijoin probe's launches are split by path and by the ``bound``
    passed, and no launch whose bound fits the bitmap may take the hash
    path;
@@ -55,7 +56,7 @@ an H100) and the CUDA toolkit.  In order it:
    with a bound the bitmap holds may take the hash path.  Each run prints
    rows, comm, shuffle tuples, padded slots, the heavy/light split, the
    flagged destinations, retries, dispatches, launches (per kernel and per
-   semijoin path) and cold seconds (warm too at real size);
+   semijoin path) and cold seconds (no warm repeat: the time limit);
 7. (phase ``logdepth``) drives the paper's log-depth path: C_16 (about 256
    tuples a relation) under ``chain_ghd(16)``, ``gym_loggta`` (Log-GTA,
    whose cross bags hold about 2^24 tuples) and ``acq_mr`` (Log-GTA'),
@@ -63,7 +64,7 @@ an H100) and the CUDA toolkit.  In order it:
    each run's rows, schema and ledger must equal the ``'torch'`` backend's,
    the rows the numpy join's, and the largest materialized bag the numpy
    count; it prints rounds, comm, the largest bag, peak device memory and
-   cold/warm seconds.  Every gym kernel must launch on each of the grid
+   cold seconds (no warm repeat: the time limit).  Every gym kernel must launch on each of the grid
    and logdepth phases;
 8. (phase ``wire``) drives ``GymConfig(wire_format="packed")`` — the
    bit-packed exchange, whose codec runs the ``wire_encode`` /
@@ -127,7 +128,29 @@ an H100) and the CUDA toolkit.  In order it:
    flash kernel must launch exactly 42 times per ``generate`` (once per
    layer, in prefill), and the per-step logits must agree with a
    teacher-forced replay through the ``'torch'`` backend on the card;
-12. times each kernel at the largest inputs its path gave it (CUDA events,
+12. (phase ``train``) drives the port's LM training path on smollm-360m
+   at full width and depth in bf16 (random weights from ``--seed``, AdamW
+   with f32 moments, batch 8 x 2048 tokens, so every layer's attention
+   takes the chunked scan): the data pipeline's corpus join
+   (``eligible_docs``) on the card's ``'cuda'`` backend must equal the
+   ``'torch'`` backend and a numpy oracle at the default corpus and at
+   2^20 docs, with every gym kernel launched; chunked attention at the
+   real shape must match the dense plain version in output and q/k/v
+   gradients within ``TRAIN_ATTN_TOL`` with a lower backward peak; step
+   0's loss and gradient norm must match a dense (``TRAIN_LOSS_RTOL``,
+   ``TRAIN_GNORM_RTOL``) and a no-remat run; eight steps on one batch must
+   lower the loss; a checkpoint after them must restore bit for bit into
+   a fresh model and optimizer and give the same next loss; ``accum=2``
+   must match ``accum=1`` (f32, the reference test's tolerances, see
+   ``TRAIN_FEW``); ``launch/train.py`` runs eight steps with ``--ckpt``,
+   the flash kernel launches 0 times in all of it, a ``'cuda'``-backend
+   loss refuses the kernel in a child process, and ``launch/serve.py
+   --ckpt`` serves the trained checkpoint with the kernel once per layer.
+   It prints the warm step seconds (median of seven), tokens/s, peak
+   memory, the checkpoint's bytes and save/load seconds, the model FLOPs
+   a step as a share of the bf16 peak, and one profiled step's device
+   busy share and top device work;
+13. times each kernel at the largest inputs its path gave it (CUDA events,
    L2 flushed before each launch) beside its plain version, one PyTorch
    library call where one computes the same function, and its bound,
    prints the sorted probe's census of that call (the share of probes its
@@ -154,8 +177,10 @@ import functools
 import json
 import os
 import random
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -816,14 +841,16 @@ def run_gym(torch, gym_mod, q, g, data, backend, strategy="hash"):
 
 
 def main_path(torch, seed: int, sizes=("bench", "real"), strategy="hash", audit=None,
-              hash_summary=None):
+              hash_summary=None, warm: bool = True):
     """Drive default ``gym()`` (``strategy="hash"``, the gym phase) or
     ``GymConfig(strategy="grid")`` (the grid phase) over S_8/C_8/TC_9.  The
     gym phase requires every semijoin probe launch on its bitmap path; the
     grid phase's semijoins may pass a larger ``bound`` and then take the
     hash path, so ``audit`` (a ``SemijoinAudit``) checks there that no
     launch within the bitmap's bound took it.  ``hash_summary``: the gym
-    phase's summary, whose comm the grid phase prints beside its own."""
+    phase's summary, whose comm the grid phase prints beside its own.
+    ``warm``: repeat each 'cuda' run warm (the peak is then the warm run's,
+    else the cold one's)."""
     from repro_torch.core import gym as gym_mod
     from repro_torch.kernels import ops as K
 
@@ -840,14 +867,17 @@ def main_path(torch, seed: int, sizes=("bench", "real"), strategy="hash", audit=
             K.reset_launch_counts()
             if audit is not None:
                 audit.reset()
+            base = peak_reset(torch)
             rows, schema, led, cold = run_gym(torch, gym_mod, q, g, data, "cuda", strategy)
             per_run = {k: K.launch_counts()[k] for k in GYM_KERNELS}
             per_run.update({f"semijoin_probe/{k}": v
                             for k, v in K.semijoin_probe_path_counts().items()})
             check(K.launch_counts()["flash_attention"] == 0, "gym launched flash_attention")
             check(all(K.launch_counts()[k] == 0 for k in WIRE_KERNELS), "dense gym launched the codec")
-            base = peak_reset(torch)
-            rows2, schema2, led2, warm = run_gym(torch, gym_mod, q, g, data, "cuda", strategy)
+            rows2, led2, warm_s = rows, led, None
+            if warm:
+                base = peak_reset(torch)
+                rows2, _, led2, warm_s = run_gym(torch, gym_mod, q, g, data, "cuda", strategy)
             peak = torch.cuda.max_memory_allocated() - base
             for k in GYM_KERNELS:
                 totals[k] += K.launch_counts()[k]
@@ -884,7 +914,8 @@ def main_path(torch, seed: int, sizes=("bench", "real"), strategy="hash", audit=
                 hash_comm += f" semijoin_audit={audited}"
             print(
                 f"{phase} {fam} {size}: inputs={n_in[fam]} out={led.output_tuples} "
-                f"cold_s={cold:.4f} warm_s={warm:.4f} torch_backend_s={tsec:.4f} "
+                f"cold_s={cold:.4f} warm_s={'not run' if warm_s is None else f'{warm_s:.4f}'} "
+                f"torch_backend_s={tsec:.4f} "
                 f"rounds={led.rounds} dispatches={led.measured_dispatches} "
                 f"measure_dispatches={led.measure_dispatches} retries={led.retries} "
                 f"comm={led.comm_tuples}{hash_comm} padded_slots={led.padded_slots} "
@@ -893,7 +924,7 @@ def main_path(torch, seed: int, sizes=("bench", "real"), strategy="hash", audit=
                 + (" rows==numpy join: yes" if size == "real" else ""),
                 flush=True,
             )
-            summary[f"{fam}/{size}"] = dict(cold_s=cold, warm_s=warm, out=led.output_tuples,
+            summary[f"{fam}/{size}"] = dict(cold_s=cold, warm_s=warm_s, out=led.output_tuples,
                                             dispatches=led.measured_dispatches,
                                             rounds=led.rounds, retries=led.retries,
                                             comm=led.comm_tuples, padded=led.padded_slots,
@@ -1117,7 +1148,6 @@ def logdepth_phase(torch, seed: int, audit):
             per_run = {k: K.launch_counts()[k] for k in GYM_KERNELS}
             audited = audit.counts()
             audit.check(f"logdepth {name}")
-            (rows2, _, led2), warm = timed(lambda: run("cuda"))
             tally()
             K.reset_launch_counts()
             (trows, tschema, tled), tsec = timed(lambda: run("torch"))
@@ -1128,8 +1158,6 @@ def logdepth_phase(torch, seed: int, audit):
             check(recs == [dataclasses.asdict(r) for r in tled.records], f"{name}: ledger records")
             check((led.retries, led.output_tuples) == (tled.retries, tled.output_tuples),
                   f"{name}: retries/output")
-            check(np.array_equal(rows, rows2) and recs == [dataclasses.asdict(r) for r in led2.records],
-                  f"{name}: warm run differs")
             check(np.array_equal(rows.astype(np.int64), want) and len(want) > 0,
                   f"{name}: rows != numpy join")
             check(bag[0] == want_bag, f"{name}: largest bag {bag[0]} != numpy's {want_bag}")
@@ -1138,7 +1166,7 @@ def logdepth_phase(torch, seed: int, audit):
                 f"logdepth {name}: inputs={sum(len(v) for v in data.values())} "
                 f"out={led.output_tuples} depth={plan.depth} "
                 f"largest_bag_tuples={bag[0]} (per-shard cap {bag[1]}; numpy: {want_bag}) "
-                f"peak_device_bytes={peak} cold_s={cold:.4f} warm_s={warm:.4f} "
+                f"peak_device_bytes={peak} cold_s={cold:.4f} "
                 f"torch_backend_s={tsec:.4f} rounds={led.rounds} comm={led.comm_tuples} "
                 f"dispatches={led.measured_dispatches} measure_dispatches={led.measure_dispatches} "
                 f"retries={led.retries} padded_slots={led.padded_slots} "
@@ -1146,7 +1174,7 @@ def logdepth_phase(torch, seed: int, audit):
                 "cuda==torch rows+ledger: yes rows==numpy join: yes", flush=True,
             )
             summary[name] = dict(rounds=led.rounds, comm=led.comm_tuples, bag=bag[0], peak=peak,
-                                 cold_s=cold, warm_s=warm, launches=per_run)
+                                 cold_s=cold, launches=per_run)
     finally:
         bags.restore()
     # the Table-2 query under the one-round Shares baseline
@@ -1154,18 +1182,17 @@ def logdepth_phase(torch, seed: int, audit):
     K.reset_launch_counts()
     (rows, schema, led), cold = timed(lambda: S.shares_join(q, data, p=8, seed=2, device="cuda"))
     per_run = {k: K.launch_counts()[k] for k in GYM_KERNELS}
-    (rows2, _, _), warm = timed(lambda: S.shares_join(q, data, p=8, seed=2, device="cuda"))
     tally()
     K.reset_launch_counts()
     trows, tschema, tled = S.shares_join(q, data, p=8, seed=2, local_backend="torch", device="cuda")
     check(sum(K.launch_counts().values()) == 0, "'torch' backend launched a kernel")
-    check(np.array_equal(rows, trows) and np.array_equal(rows, rows2) and tuple(schema) == tuple(tschema),
+    check(np.array_equal(rows, trows) and tuple(schema) == tuple(tschema),
           "shares: cuda rows != torch rows")
     check([dataclasses.asdict(r) for r in led.records] == [dataclasses.asdict(r) for r in tled.records],
           "shares: ledger records")
     check(np.array_equal(rows.astype(np.int64), np_answer(q, data)), "shares: rows != numpy join")
     print(f"logdepth S_5 Shares (shares_join): out={led.output_tuples} rounds={led.rounds} "
-          f"comm={led.comm_tuples} retries={led.retries} cold_s={cold:.4f} warm_s={warm:.4f} "
+          f"comm={led.comm_tuples} retries={led.retries} cold_s={cold:.4f} "
           f"launches_per_run={per_run} cuda==torch rows+ledger: yes rows==numpy join: yes",
           flush=True)
     summary["S_5 Shares"] = dict(rounds=led.rounds, comm=led.comm_tuples, launches=per_run)
@@ -1250,10 +1277,11 @@ def skew_phase(torch, seed: int, audit, gym_summary=None, sizes=("bench", "real"
         return out + (time.perf_counter() - t0,)
 
     def drive(name, q, g, data, strategy, max_cap, want=None):
-        """A cold 'cuda' run, a warm one at real size (``want`` given), and
-        a 'torch' run, checked against each other (and ``want``); None when
-        both backends hit the ceiling.  Bench-size seconds measure launch
-        and host overhead, so the bench families skip the warm repeat."""
+        """A cold 'cuda' run and a 'torch' run, checked against each other
+        (and ``want``, the numpy join at real size); None when both
+        backends hit the ceiling.  No warm repeat: the script's time limit
+        (bench-size seconds measure launch and host overhead; real-size
+        warm runs were 0.95-1.07x the cold ones, PERF.md section 6)."""
         K.reset_launch_counts()
         audit.reset()
         heavy.reset()
@@ -1273,11 +1301,6 @@ def skew_phase(torch, seed: int, audit, gym_summary=None, sizes=("bench", "real"
         audited = audit.counts()
         audit.check(f"skew {name} {strategy}")
         recs = [dataclasses.asdict(r) for r in led.records]
-        warm = None
-        if want is not None:
-            rows2, _, led2, warm = run(q, g, data, "cuda", strategy, max_cap)
-            check(np.array_equal(rows, rows2) and recs == [dataclasses.asdict(r) for r in led2.records],
-                  f"{name} {strategy}: warm run differs")
         for k in GYM_KERNELS:
             totals[k] += K.launch_counts()[k]
         for k, v in K.semijoin_probe_path_counts().items():
@@ -1301,7 +1324,6 @@ def skew_phase(torch, seed: int, audit, gym_summary=None, sizes=("bench", "real"
             f"n_heavy={flagged} hybrid_routed_groups={routed} retries={led.retries} "
             f"rounds={led.rounds} dispatches={led.measured_dispatches} "
             f"measure_dispatches={led.measure_dispatches} cold_s={cold:.4f} "
-            f"warm_s={'not run' if warm is None else f'{warm:.4f}'} "
             f"torch_backend_s={tsec:.4f} launches_per_run={per_run} semijoin_audit={audited} "
             "cuda==torch rows+ledger: yes" + (" rows==numpy join: yes" if want is not None else ""),
             flush=True,
@@ -1309,7 +1331,7 @@ def skew_phase(torch, seed: int, audit, gym_summary=None, sizes=("bench", "real"
         summary[f"{name}/{strategy}"] = dict(
             out=led.output_tuples, comm=led.comm_tuples, padded=led.padded_slots,
             heavy=led.heavy_tuples, retries=led.retries, dispatches=led.measured_dispatches,
-            n_heavy=flagged, cold_s=cold, warm_s=warm, launches=per_run,
+            n_heavy=flagged, cold_s=cold, launches=per_run,
         )
         return rows, led
 
@@ -2376,17 +2398,399 @@ def flash_timing(torch, recorded, launches, reps):
     }
 
 
+# ---------------------------------------------------------------- training
+# the train phase: smollm-360m at full width and depth, bf16, AdamW with f32
+# moments, batch 8 x 2048 tokens (16384 a step; 2048 keys meet
+# CHUNKED_MIN_KV, so every layer's attention takes the chunked scan)
+TRAIN_ARCH, TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = "smollm-360m", 8, 2048, 8
+# the corpus join at a size that gives the gym kernels real work
+TRAIN_BIG_CORPUS = dict(n_docs=2**20, n_shards=2**10)
+# chunked against dense attention at the real shape, bf16: both compute in
+# f32 from the same bf16 inputs and round once, in other summation orders
+# (about two bf16 ulps of the largest magnitude)
+TRAIN_ATTN_TOL = 1e-2
+# step 0, chunked against dense (both under remat): the attention outputs'
+# bf16 roundings travel through 32 layers of bf16 activations
+TRAIN_LOSS_RTOL, TRAIN_GNORM_RTOL = 2e-3, 2e-2
+# accumulation parity (f32 at full width, the reference test's dtype and
+# tolerances, rtol 1e-5 on the loss, atol 2e-5 / rtol 2e-4 on parameters
+# at its lr 1e-3): a first AdamW step moves a parameter by about
+# lr * g / (|g| + eps), so a gradient element near zero whose last bits
+# differ moves its parameter by up to 2 lr; all but TRAIN_FEW of the
+# elements must meet the tolerance, and those 2 lr.  The same budget holds
+# the resumed step's parameters, whose only nondeterminism is the
+# embedding's backward (atomics)
+TRAIN_ACCUM_LR = 1e-3
+TRAIN_FEW = 1e-3
+# the steps on one batch: the reference test's lr 1e-2 (for its reduced
+# config) diverges at full width in bf16 after three steps (losses 11.30,
+# 11.50, 10.69, 10.25, 10.95, 11.67, 12.11, 12.09 on the H100), a step of
+# 1e-2 being a third of a weight's init std (960^-0.5)
+TRAIN_LR = 1e-3
+
+CUDA_LOSS_CHILD = """
+import sys
+sys.path.insert(0, {src!r})
+import torch
+from repro_torch.configs import get_config, get_model, make_smoke_batch, reduced_config
+from repro_torch.kernels import ops as K
+cfg = reduced_config(get_config("smollm-360m"))
+model = get_model(cfg, "cuda", backend="cuda")
+model.requires_grad_(True)
+batch = make_smoke_batch(cfg, torch.Generator(device="cuda").manual_seed(0), b=2, s=64)
+K.reset_launch_counts()
+try:
+    model.loss(batch)
+except RuntimeError as e:
+    assert "no backward" in str(e), e
+    assert K.launch_counts()["flash_attention"] == 0
+    print("refused:", str(e).split(";")[0])
+else:
+    raise SystemExit("a 'cuda'-backend loss ran through the flash kernel")
+"""
+
+
+def numpy_eligible(cfg_data, q_min: int) -> np.ndarray:
+    """The eligible doc ids in numpy: the selection predicates of
+    ``tests/test_train_substrate.py::test_pipeline_gym_join``."""
+    d = cfg_data
+    docs = d["docs"]
+    ok = (np.isin(docs[:, 1], d["shards"][d["shards"][:, 1] >= q_min][:, 0])
+          & np.isin(docs[:, 0], d["dedup"][d["dedup"][:, 1] == 1][:, 0])
+          & np.isin(docs[:, 2], d["mix"][d["mix"][:, 1] > 0][:, 0]))
+    return np.unique(docs[ok, 0]).astype(np.int64)
+
+
+def corpus_join_checks(torch, K, dev: str = "cuda"):
+    """``eligible_docs`` on the card's default ('cuda') backend against the
+    'torch' backend on the card and numpy, at the pipeline's default corpus
+    and at 2^20 docs; returns the kernels' launches."""
+    from repro_torch.core.gym import GymConfig
+    from repro_torch.data import CorpusConfig, eligible_docs, synth_corpus
+
+    totals = {k: 0 for k in GYM_KERNELS}
+    totals.update({"semijoin_probe/bitmap": 0, "semijoin_probe/hash": 0})
+    for name, cfg in (("default", CorpusConfig()),
+                      ("2^20 docs", CorpusConfig(**TRAIN_BIG_CORPUS))):
+        data = synth_corpus(cfg)
+        K.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ids, summ = eligible_docs(cfg, data, device=dev)
+        torch.cuda.synchronize()
+        cuda_s = time.perf_counter() - t0
+        counts = K.launch_counts()
+        paths = K.semijoin_probe_path_counts()
+        for k in GYM_KERNELS:
+            totals[k] += counts[k]
+        for k, v in paths.items():
+            totals[f"semijoin_probe/{k}"] += v
+        check(all(counts[k] > 0 for k in GYM_KERNELS),
+              f"corpus join {name}: a gym kernel never launched {counts}")
+        K.reset_launch_counts()
+        t0 = time.perf_counter()
+        tids, tsumm = eligible_docs(cfg, data, device=dev,
+                                    config=GymConfig(strategy="hash", local_backend="torch"))
+        torch_s = time.perf_counter() - t0
+        check(sum(K.launch_counts().values()) == 0, "corpus join: 'torch' launched a kernel")
+        want = numpy_eligible(data, cfg.q_min)
+        check(np.array_equal(ids, tids) and summ == tsumm,
+              f"corpus join {name}: 'cuda' != 'torch'")
+        check(np.array_equal(ids, want) and len(ids) > 0, f"corpus join {name}: != numpy")
+        print(f"train corpus join {name}: docs={cfg.n_docs} shards={cfg.n_shards} "
+              f"eligible={len(ids)} rounds={summ['rounds']} comm={summ['comm_tuples']} "
+              f"dispatches={summ['measured_dispatches']} retries={summ['retries']} "
+              f"cuda_s={cuda_s:.4f} torch_backend_s={torch_s:.4f} launches="
+              f"{ {k: counts[k] for k in GYM_KERNELS} } semijoin_paths={paths} "
+              f"cuda==torch==numpy: yes", flush=True)
+    return totals
+
+
+def chunked_attention_check(torch, K, seed: int, dev: str = "cuda"):
+    """Chunked against dense attention at the train phase's shape (bf16,
+    causal): forward and q/k/v gradients, and each backward's peak memory."""
+    cfg_h, cfg_kv, hd = 15, 5, 64
+    g = torch.Generator(device=dev).manual_seed(seed)
+    shapes = ((TRAIN_BATCH, cfg_h, TRAIN_SEQ, hd), (TRAIN_BATCH, cfg_kv, TRAIN_SEQ, hd),
+              (TRAIN_BATCH, cfg_kv, TRAIN_SEQ, hd))
+    q, k, v = (torch.randn(s, generator=g, device=dev).bfloat16().requires_grad_(True)
+               for s in shapes)
+    w = torch.randn(shapes[0], generator=g, device=dev).bfloat16()
+    res, peaks, secs = {}, {}, {}
+    for impl in ("chunked", "dense"):
+        for rep in range(2):  # the peak of the first, the seconds of the second
+            base = peak_reset(torch)
+            t0 = time.perf_counter()
+            o = K.attention(q, k, v, impl=impl)
+            grads = torch.autograd.grad((o.float() * w.float()).sum(), (q, k, v))
+            torch.cuda.synchronize()
+            secs[impl] = time.perf_counter() - t0
+            if rep == 0:
+                peaks[impl] = torch.cuda.max_memory_allocated() - base
+            res[impl] = (o.detach(),) + grads
+            del o, grads
+    errs = {}
+    for i, name in enumerate(("o", "dq", "dk", "dv")):
+        a, b = res["chunked"][i].float(), res["dense"][i].float()
+        errs[name] = float((a - b).abs().max()) / float(b.abs().max())
+    check(all(e <= TRAIN_ATTN_TOL for e in errs.values()),
+          f"chunked vs dense at the real shape: {errs} > {TRAIN_ATTN_TOL}")
+    check(peaks["chunked"] < peaks["dense"], f"chunked peak {peaks} not below dense")
+    print(f"train attention q {shapes[0]} k/v {shapes[1]} bf16 causal: chunked vs dense "
+          f"max|d|/max|ref| {errs} (bound {TRAIN_ATTN_TOL}); forward+backward peak bytes "
+          f"chunked={peaks['chunked']} dense={peaks['dense']} "
+          f"(ratio {peaks['chunked'] / peaks['dense']:.4f}); warm seconds chunked="
+          f"{secs['chunked']:.4f} dense={secs['dense']:.4f}", flush=True)
+    return peaks
+
+
+def _mismatch(torch, a, b, tol, bound):
+    """(elements outside ``tol``, elements, max |a - b|) of two tensor dicts;
+    raises past ``bound``."""
+    bad = total = 0
+    worst = 0.0
+    for k in a:
+        x, y = a[k].float(), b[k].float()
+        d = (x - y).abs()
+        bad += int((d > tol["atol"] + tol["rtol"] * y.abs()).sum())
+        total += x.numel()
+        worst = max(worst, float(d.max()))
+        check(worst <= bound, f"{k}: |d| {float(d.max())} > {bound}")
+    return bad, total, worst
+
+
+def train_phase(torch, seed: int, profile_dir: str = "", dev: str = "cuda"):
+    """The LM training path (see the module doc, item 13): returns the
+    figures and the kernels' launches over the phase's training runs."""
+    from repro_torch.configs import get_config, get_model
+    from repro_torch.data import CorpusConfig, batches
+    from repro_torch.kernels import ops as K
+    from repro_torch.launch import serve as serve_cli
+    from repro_torch.launch import train as train_cli
+    from repro_torch.train import OptConfig, TrainConfig, init_train_state, make_train_step
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train.optim import global_norm
+    from repro_torch.train.step import load_state_tree, state_tree
+
+    torch.cuda.empty_cache()
+    K.reset_launch_counts()
+    launches = corpus_join_checks(torch, K, dev)
+    peaks = chunked_attention_check(torch, K, seed, dev)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    cfg = get_config(TRAIN_ARCH)
+    n_layers = len(cfg.blocks())
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+
+    def fresh(dtype_cfg=cfg, s=seed):
+        g = torch.Generator(device=dev).manual_seed(s)
+        return get_model(dtype_cfg, dev, generator=g)
+
+    K.reset_launch_counts()
+    model = fresh()
+    n_params = sum(p.numel() for p in model.parameters())
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in next(batches(
+        CorpusConfig(seed=seed), batch=TRAIN_BATCH, seq=TRAIN_SEQ, vocab=cfg.vocab,
+        device=dev)).items()}
+    print(f"train {cfg.name}: {n_layers} layers, d_model {cfg.d_model}, {cfg.n_heads} heads "
+          f"over {cfg.n_kv_heads}, {n_params} params ({cfg.dtype}), AdamW f32 moments; "
+          f"batch {TRAIN_BATCH} x {TRAIN_SEQ} = {tokens} tokens", flush=True)
+
+    # step 0: the train path (chunked, remat) against dense (remat: dense
+    # without it would keep every layer's scores, ~6 GB a layer) and
+    # against chunked without remat
+    model.requires_grad_(True)
+    params = [p for _, p in model.named_parameters()]
+    ref0 = {}
+    for name, kw in (("dense", dict(remat=True, impl="dense")),
+                     ("no_remat", dict(remat=False))):
+        loss = model.loss(batch, **kw)
+        grads = torch.autograd.grad(loss, params)
+        ref0[name] = (loss.item(), global_norm(dict(enumerate(grads))).item())
+        del loss, grads
+    tcfg = TrainConfig(opt=OptConfig(lr=TRAIN_LR, warmup=1))
+    opt = init_train_state(model, tcfg)
+    step = make_train_step(model, tcfg)
+    base = peak_reset(torch)
+    losses, step_s = [], []
+    for i in range(TRAIN_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = step(opt, batch)
+        loss = m["loss"].item()
+        step_s.append(time.perf_counter() - t0)
+        losses.append(loss)
+        if i == 0:
+            gnorm0 = m["grad_norm"].item()
+    peak = torch.cuda.max_memory_allocated() - base
+    dl, dn = abs(losses[0] - ref0["dense"][0]), abs(gnorm0 - ref0["dense"][1])
+    warm = float(np.median(step_s[1:]))
+    print(f"train step 0: loss={losses[0]:.6f} grad_norm={gnorm0:.6f}; dense (remat) "
+          f"{ref0['dense'][0]:.6f} / {ref0['dense'][1]:.6f} (rel {dl / abs(ref0['dense'][0]):.3g} "
+          f"/ {dn / ref0['dense'][1]:.3g}, bounds {TRAIN_LOSS_RTOL} / {TRAIN_GNORM_RTOL}); "
+          f"chunked without remat {ref0['no_remat'][0]:.6f} / {ref0['no_remat'][1]:.6f}", flush=True)
+    print(f"train {TRAIN_STEPS} steps on one batch (lr {TRAIN_LR}, warmup 1): losses "
+          f"{[round(x, 4) for x in losses]}; step_s {[round(x, 4) for x in step_s]}; "
+          f"warm step_s (median of {len(step_s) - 1}) {warm:.4f}, tokens_per_s "
+          f"{tokens / warm:.1f}, peak bytes {peak}", flush=True)
+    check(dl <= TRAIN_LOSS_RTOL * abs(ref0["dense"][0]) and dn <= TRAIN_GNORM_RTOL * ref0["dense"][1],
+          f"step 0 chunked {losses[0]}, {gnorm0} vs dense {ref0['dense']}")
+    check(abs(losses[0] - ref0["no_remat"][0]) <= 1e-6 * abs(losses[0]),
+          f"step 0: remat changed the loss {ref0['no_remat']}")
+    check(all(np.isfinite(losses)) and losses[-1] < losses[0], f"train: loss did not fall {losses}")
+
+    # checkpoint after step k, restore into a fresh model and optimizer
+    t0 = time.perf_counter()
+    path = ckpt.save(os.path.join(tmp, "resume"), TRAIN_STEPS, state_tree(model, opt),
+                     extra={"next_step": TRAIN_STEPS})
+    save_s = time.perf_counter() - t0
+    nbytes = sum(os.path.getsize(os.path.join(path, f)) for f in os.listdir(path))
+    other = fresh(s=seed + 1)
+    ostate = init_train_state(other, tcfg)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    restored, extra = ckpt.restore(os.path.join(tmp, "resume"), state_tree(other, ostate))
+    load_state_tree(other, ostate, restored)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    del restored
+    shutil.rmtree(os.path.join(tmp, "resume"))
+    want = ckpt._flatten_with_names(state_tree(model, opt))
+    got = ckpt._flatten_with_names(state_tree(other, ostate))
+    check(set(got) == set(want) and extra == {"next_step": TRAIN_STEPS}, "restore: keys/extra")
+    check(all(got[k].dtype == want[k].dtype and torch.equal(got[k], want[k]) for k in want),
+          "restore: not bit-equal")
+    m_a = step(opt, batch)
+    m_b = make_train_step(other, tcfg)(ostate, batch)
+    check(m_a["loss"].item() == m_b["loss"].item(),
+          f"resumed loss {m_b['loss'].item()} != uninterrupted {m_a['loss'].item()}")
+    pa = {k: p.detach() for k, p in model.named_parameters()}
+    pb = {k: p.detach() for k, p in other.named_parameters()}
+    bad, total, worst = _mismatch(torch, pb, pa, dict(atol=0.0, rtol=0.0), 2e-2 + 1e-3)
+    check(bad <= TRAIN_FEW * total, f"resumed step: {bad} of {total} parameters differ")
+    print(f"train checkpoint after step {TRAIN_STEPS}: bytes={nbytes} save_s={save_s:.4f} "
+          f"load_s={load_s:.4f}; restored bit-equal ({len(want)} tensors); step "
+          f"{TRAIN_STEPS + 1} loss resumed == uninterrupted: {m_b['loss'].item():.6f}; "
+          f"parameters differing {bad} of {total} (max |d| {worst:.3g}; the embedding's "
+          f"backward sums by atomics)", flush=True)
+    del other, ostate, pb, got
+
+    # one profiled step: the device's busy share and top device work
+    busy = profile_train(torch, step, opt, batch, profile_dir)
+    del model, opt, step, pa, want, batch, m_a, m_b
+    torch.cuda.empty_cache()
+
+    # accum=2 against accum=1 on one batch, f32 at full width
+    f32 = dataclasses.replace(cfg, dtype="float32")
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in next(batches(
+        CorpusConfig(seed=seed + 1), batch=TRAIN_BATCH, seq=TRAIN_SEQ, vocab=cfg.vocab,
+        device=dev)).items()}
+    runs = []
+    for accum in (1, 2):
+        mdl = fresh(f32)
+        t = TrainConfig(opt=OptConfig(lr=TRAIN_ACCUM_LR, warmup=1), accum=accum)
+        st = init_train_state(mdl, t)
+        m = make_train_step(mdl, t)(st, batch)
+        runs.append((m["loss"].item(), {k: p.detach() for k, p in mdl.named_parameters()}))
+        del mdl, st, m
+    (l1, p1), (l2, p2) = runs
+    check(abs(l1 - l2) <= 1e-5 * abs(l1), f"accum: loss {l1} vs {l2}")
+    bad, total, worst = _mismatch(torch, p2, p1, dict(atol=2e-5, rtol=2e-4), 2 * TRAIN_ACCUM_LR + 2e-5)
+    check(bad <= TRAIN_FEW * total, f"accum: {bad} of {total} parameters outside the tolerance")
+    print(f"train accum=2 vs accum=1 (f32, lr {TRAIN_ACCUM_LR}): loss {l2:.7f} vs {l1:.7f}; "
+          f"parameters outside atol 2e-5 / rtol 2e-4: {bad} of {total} (max |d| {worst:.3g})",
+          flush=True)
+    del runs, p1, p2, batch
+    torch.cuda.empty_cache()
+
+    # the launch/train.py loop on the pipeline's batches, with --ckpt
+    run_dir = os.path.join(tmp, "run")
+    t0 = time.perf_counter()
+    out = train_cli.main(["--arch", TRAIN_ARCH, "--steps", str(TRAIN_STEPS), "--batch",
+                          str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ), "--ckpt", run_dir,
+                          "--device", dev])
+    cli_s = time.perf_counter() - t0
+    check(len(out["losses"]) == TRAIN_STEPS and all(np.isfinite(out["losses"])),
+          f"launch/train: losses {out['losses']}")
+    check(ckpt.latest_step(run_dir) == TRAIN_STEPS, "launch/train: no final checkpoint")
+    del out
+    torch.cuda.empty_cache()
+    counts = K.launch_counts()
+    for k in GYM_KERNELS:
+        launches[k] += counts[k]
+    for k, v in K.semijoin_probe_path_counts().items():
+        launches[f"semijoin_probe/{k}"] += v
+    launches["flash_attention"] = counts["flash_attention"]
+    check(counts["flash_attention"] == 0, f"training launched the flash kernel {counts}")
+    print(f"train launch/train.py: {TRAIN_STEPS} steps with --ckpt in {cli_s:.2f} s; flash "
+          f"launches while training: {counts['flash_attention']}", flush=True)
+
+    # a 'cuda'-backend loss refuses the kernel (a child process)
+    child = subprocess.run([sys.executable, "-c", CUDA_LOSS_CHILD.format(src=os.path.join(HERE, "src"))],
+                           capture_output=True, text=True, timeout=300)
+    check(child.returncode == 0 and "refused" in child.stdout,
+          f"child: a 'cuda'-backend loss did not refuse: {child.stdout} {child.stderr[-2000:]}")
+    print(f"train child process: a 'cuda'-backend loss {child.stdout.strip()}", flush=True)
+
+    # the trained checkpoint serves through launch/serve.py --ckpt
+    K.reset_launch_counts()
+    toks = serve_cli.main(["--arch", TRAIN_ARCH, "--ckpt", run_dir, "--device", dev,
+                           "--batch", "2", "--prompt", "256", "--steps", "4"])
+    serve_flash = K.launch_counts()["flash_attention"]
+    check(tuple(toks.shape) == (2, 4) and serve_flash == n_layers,
+          f"serve --ckpt: flash launched {serve_flash} times, not {n_layers}")
+    print(f"train serve --ckpt: flash launches {serve_flash} (once per layer)", flush=True)
+    shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+    flops = 6 * n_params * tokens + 12 * n_layers * cfg.n_heads * cfg.hd * TRAIN_SEQ * tokens
+    print(f"train model flops a step: {flops} (6 N T + 12 L H hd S T) = "
+          f"{flops / warm / 1e12:.2f} TFLOP/s at the warm step, "
+          f"{flops / warm / BF16_FLOPS_PER_S:.4f} of 989 TFLOP/s bf16", flush=True)
+    summary = dict(warm_step_s=warm, tokens_per_s=tokens / warm, peak_bytes=peak,
+                   ckpt_bytes=nbytes, save_s=save_s, load_s=load_s, busy=busy,
+                   attn_peaks=peaks, losses=losses)
+    return summary, launches
+
+
+def profile_train(torch, step, opt, batch, out_dir: str):
+    """``torch.profiler`` over one warm train step: the device's busy share
+    and its top device work (the operator table goes to ``out_dir``)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step(opt, batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kern = {}
+    dev_events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    for e in dev_events:
+        kern[e.name] = kern.get(e.name, 0.0) + e.time_range.elapsed_us()
+    busy_s = sum(kern.values()) / 1e6
+    if out_dir:
+        os.makedirs(out_dir, exist_ok=True)
+        with open(os.path.join(out_dir, "profile_train.txt"), "w") as f:
+            f.write(prof.key_averages().table(sort_by="self_device_time_total", row_limit=40))
+    print(f"profile train step (warm, profiled): wall_s={wall:.4f} device_busy_s={busy_s:.4f} "
+          f"device_busy_share={busy_s / wall:.4f} device_ops={len(dev_events)}", flush=True)
+    for kname, us in sorted(kern.items(), key=lambda kv: -kv[1])[:10]:
+        print(f"  {kname[:90]:90s} device_ms={us / 1e3:.3f}", flush=True)
+    return busy_s / wall
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--reps", type=int, default=30)
-    ap.add_argument("--phases", default="gym,grid,skew,logdepth,wire,snapshot,joinserve,lm",
+    ap.add_argument("--phases", default="gym,grid,skew,logdepth,wire,snapshot,joinserve,lm,train",
                     help="comma-separated main paths to drive: gym (the join path), "
                          "grid (the grid engine), skew (the hybrid engine beside hash "
                          "and grid on skewed data), logdepth (Log-GTA, Log-GTA', Shares), "
                          "wire (the packed wire and plan='auto'), snapshot (save/load "
                          "mid-query), joinserve (the multi-tenant join server), lm "
-                         "(gemma2-9b serving)")
+                         "(gemma2-9b serving), train (smollm-360m training on the "
+                         "GYM-assembled data pipeline)")
     ap.add_argument("--sizes", default="bench,real",
                     help="comma-separated gym, grid, skew, wire, snapshot and joinserve "
                          "sizes to drive: bench, real")
@@ -2500,7 +2904,8 @@ def main(argv=None) -> int:
         try:
             if path == "grid":
                 _, launches = main_path(torch, args.seed, tuple(args.sizes.split(",")),
-                                        strategy="grid", audit=audit, hash_summary=summary)
+                                        strategy="grid", audit=audit, hash_summary=summary,
+                                        warm=False)
             elif path == "skew":
                 _, launches = skew_phase(torch, args.seed, audit, summary,
                                          tuple(args.sizes.split(",")))
@@ -2524,12 +2929,19 @@ def main(argv=None) -> int:
         by_path[path] = launches
     if wire_recorded is not None:
         kernels += wire_timing(torch, wire_recorded, by_path["wire"], args.reps)
-    for rec in kernels:
-        rec["launches_by_path"] = {p: n.get(rec["name"], 0) for p, n in by_path.items()}
     if "lm" in phases:
         lm, flash_call, per_generate = lm_phase(
             torch, args.seed, args.profile_out if "lm" in args.profile.split(",") else "")
         kernels.append(flash_timing(torch, flash_call, per_generate, args.reps))
+    if "train" in phases:
+        t0 = time.perf_counter()
+        _, launches = train_phase(torch, args.seed, args.profile_out)
+        print(f"train path launches (the corpus joins' 'cuda' runs and the training runs): "
+              f"{launches}; phase {time.perf_counter() - t0:.1f} s", flush=True)
+        check(all(launches[k] > 0 for k in GYM_KERNELS), f"train: a kernel never launched: {launches}")
+        by_path["train"] = launches
+    for rec in kernels:
+        rec["launches_by_path"] = {p: n.get(rec["name"], 0) for p, n in by_path.items()}
     torch.cuda.synchronize()
     print(f"chip_smoke phases {sorted(phases)}: total_s={time.perf_counter() - t_start:.1f}",
           flush=True)

@@ -1,11 +1,13 @@
 """Architecture registry (counterpart of ``repro/configs/registry.py``):
-config lookup by ``--arch`` id, the model for a config, and the reduced
-smoke configs.  The dry run's ``input_specs`` and ``cells`` are not
-ported yet."""
+config lookup by ``--arch`` id, the model for a config, the reduced
+smoke configs and a concrete smoke batch.  The dry run's ``input_specs``
+and ``cells`` are not ported yet."""
 from __future__ import annotations
 
 import dataclasses
 from typing import Dict
+
+import torch
 
 from ..models.common import LATER, ArchConfig
 from .gemma2_9b import CONFIG as _gemma2
@@ -90,3 +92,22 @@ def reduced_config(cfg: ArchConfig) -> ArchConfig:
         enc_layers=2 if cfg.encdec else 0,
         dtype="float32",
     )
+
+
+def make_smoke_batch(cfg: ArchConfig, generator: torch.Generator, b: int = 2,
+                     s: int = 32) -> Dict[str, torch.Tensor]:
+    """A concrete small training batch (reduced configs): random tokens and
+    targets in ``[0, vocab)`` from ``generator``, on its device, and the
+    ``(3, B, S)`` text positions for an M-RoPE config.  The draws have the
+    reference's distribution, not its bits."""
+    if cfg.encdec:
+        raise NotImplementedError(f"{cfg.name}: enc-dec models are not ported yet ({LATER['whisper']})")
+    dev = generator.device
+    batch = {
+        k: torch.randint(0, cfg.vocab, (b, s), generator=generator, device=dev)
+        for k in ("tokens", "targets")
+    }
+    if cfg.rope == "mrope":
+        pos = torch.arange(s, device=dev)[None].expand(b, s)
+        batch["pos"] = pos[None].expand(3, b, s)
+    return batch

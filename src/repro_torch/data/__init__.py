@@ -1,1 +1,4 @@
-"""Synthetic relation generators."""
+"""Synthetic relations and the GYM-assembled training data pipeline."""
+from .pipeline import CorpusConfig, batches, corpus_query, eligible_docs, synth_corpus
+
+__all__ = ["CorpusConfig", "batches", "corpus_query", "eligible_docs", "synth_corpus"]

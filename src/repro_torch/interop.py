@@ -8,17 +8,23 @@ Python and numpy — never by importing it.
   ``DTable`` on a given device;
 - ``lm_params_from_numpy``: the reference ``DecoderLM.init`` param tree,
   converted to numpy -> the port's ``DecoderLM`` state dict;
+- ``train_state_from_numpy``: the reference's ``(params, opt_state)`` ->
+  the port's state dict and optimizer state;
 - ``wire_policy_from_tuple``: a ``WirePolicy.attr_bits`` tuple -> the
   port's ``WirePolicy``;
 - ``plan_from_fields``: an advisor ``Plan``'s fields (its GHD as a
   ``GHD.to_dict()`` dictionary) -> the port's ``Plan``;
 - ``snapshot_from_reference``: a reference ``GymDriver.save`` snapshot ->
   one the port's ``GymDriver.load`` reads (the layout is the same; only
-  the backend name differs).
+  the backend name differs);
+- ``checkpoint_from_reference`` / ``checkpoint_to_reference``: a training
+  checkpoint in one package's keys -> the other's (the layout is the same;
+  the reference stacks a segment's layers in one leaf).
 """
 from __future__ import annotations
 
 import json
+import os
 from typing import Any, Dict, Iterable, Optional, Sequence, Tuple
 
 import numpy as np
@@ -53,6 +59,28 @@ def dtable_from_numpy(
     )
 
 
+def _lm_leaves(cfg: ArchConfig, tree: Dict[str, Any]):
+    """``(port name, leaf, layer)`` of every leaf of a reference
+    ``DecoderLM.init``-shaped tree: a segment's leaf holds its layers on
+    axis 0 (``layer`` is the slice), the others are whole (``layer``
+    None)."""
+    yield "embed.table", tree["embed"]["table"], None
+    yield "final_ln", tree["final_ln"], None
+    if "unembed" in tree:
+        yield "unembed.table", tree["unembed"]["table"], None
+    first = 0
+    for (_, count), seg in zip(cfg.segments(), tree["segments"]):
+        for part, leaves in seg.items():  # "attn" / "mlp"
+            for key, leaf in leaves.items():
+                for i in range(count):
+                    yield f"layers.{first + i}.{part}.{key}", leaf, i
+        first += count
+
+
+def _tensor(arr, device) -> torch.Tensor:
+    return torch.from_numpy(np.array(arr, copy=True)).to(device)
+
+
 def lm_params_from_numpy(
     cfg: ArchConfig, tree: Dict[str, Any], device="cpu"
 ) -> Dict[str, torch.Tensor]:
@@ -63,23 +91,40 @@ def lm_params_from_numpy(
     on a leading layer axis; the port has one module per layer, so layer
     ``i`` of a segment is slice ``i`` of each leaf.  The output table is
     the embedding's unless the tree holds ``unembed``."""
-    state: Dict[str, torch.Tensor] = {}
+    return {
+        name: _tensor(leaf if i is None else np.asarray(leaf)[i], device)
+        for name, leaf, i in _lm_leaves(cfg, tree)
+    }
 
-    def put(name: str, arr) -> None:
-        state[name] = torch.from_numpy(np.array(arr, copy=True)).to(device)
 
-    put("embed.table", tree["embed"]["table"])
-    put("final_ln", tree["final_ln"])
-    if "unembed" in tree:
-        put("unembed.table", tree["unembed"]["table"])
-    layer = 0
-    for (_, count), seg in zip(cfg.segments(), tree["segments"]):
-        for i in range(count):
-            for part, leaves in seg.items():  # "attn" / "mlp"
-                for key, arr in leaves.items():
-                    put(f"layers.{layer + i}.{part}.{key}", np.asarray(arr)[i])
-        layer += count
-    return state
+def train_state_from_numpy(
+    cfg: ArchConfig, params_tree: Dict[str, Any], opt_tree: Dict[str, Any], device="cpu"
+) -> Tuple[Dict[str, torch.Tensor], Dict[str, Any]]:
+    """The reference's ``(params, opt_state)`` (numpy leaves) -> the
+    port's model state dict and optimizer state (``train/optim.py``).
+
+    AdamW's ``m``/``v`` and Adafactor's ``f/{r,c,v}`` are unstacked as the
+    parameters are, except the column statistic ``c`` of a stacked vector
+    (a norm's gain): it spans the segment's layers, and each layer gets
+    it whole."""
+    state: Dict[str, Any] = {
+        "step": torch.tensor(int(np.asarray(opt_tree["step"])), dtype=torch.int32, device=device)
+    }
+    for part in ("m", "v"):
+        if part in opt_tree:
+            state[part] = lm_params_from_numpy(cfg, opt_tree[part], device)
+    if "f" in opt_tree:
+        f = {}
+        for (name, leaf, i), (_, fl, _) in zip(
+            _lm_leaves(cfg, params_tree), _lm_leaves(cfg, opt_tree["f"])
+        ):
+            shared_c = i is not None and np.ndim(leaf) == 2  # a stacked vector
+            f[name] = {
+                k: _tensor(a if i is None or (k == "c" and shared_c) else np.asarray(a)[i], device)
+                for k, a in fl.items()
+            }
+        state["f"] = f
+    return lm_params_from_numpy(cfg, params_tree, device), state
 
 
 def wire_policy_from_tuple(
@@ -115,3 +160,107 @@ def snapshot_from_reference(src: str, dst: str) -> None:
         meta["config"]["local_backend"] = None
     with open(dst, "wb") as f:
         np.savez(f, meta=json.dumps(meta), **arrays)
+
+
+def _reference_names(manifest: Dict[str, Any]):
+    """Map a reference training checkpoint's keys onto the port's: yields
+    ``(reference key, port key, layer or None, shared)``.  Segment counts
+    come from the stacked parameters' leading axes; ``shared`` marks the
+    column statistic of a stacked vector, which every layer gets whole."""
+    shapes = manifest["shapes"]
+    counts: Dict[int, int] = {}
+    for key, shape in shapes.items():
+        parts = key.split("/")
+        if parts[:2] == ["params", "segments"]:
+            counts[int(parts[2])] = shape[0]
+    firsts, first = {}, 0
+    for s in sorted(counts):
+        firsts[s], first = first, first + counts[s]
+    for key in manifest["keys"]:
+        parts = key.split("/")
+        if parts[0] == "opt" and parts[1] == "step":
+            yield key, key, None, False
+            continue
+        head = parts[:1] if parts[0] == "params" else parts[:2]  # params | opt/m | opt/f
+        rest = parts[len(head):]
+        tail = ""
+        if head == ["opt", "f"]:
+            rest, tail = rest[:-1], "/" + rest[-1]
+        if rest[0] != "segments":
+            yield key, "/".join(head + [".".join(rest)]) + tail, None, False
+            continue
+        s, part, name = int(rest[1]), rest[2], rest[3]
+        pshape = shapes["/".join(["params", "segments", str(s), part, name])]
+        shared = tail == "/c" and len(pshape) == 2
+        for i in range(counts[s]):
+            port = "/".join(head + [f"layers.{firsts[s] + i}.{part}.{name}"]) + tail
+            yield key, port, (None if shared else i), shared
+
+
+def checkpoint_from_reference(src: str, dst: str, step: Optional[int] = None) -> int:
+    """Copy the reference's training checkpoint under ``src`` (its latest
+    step, or ``step``) into the port's layout under ``dst``; returns the
+    step.  Segment leaves are unstacked into per-layer keys (as
+    ``train_state_from_numpy`` does); leaves, dtypes (bf16 bits included),
+    ``step`` and ``extra`` are kept."""
+    from .train import checkpoint as ckpt
+
+    path, manifest = ckpt.read_manifest(src, step)
+    arrays, dtypes = {}, {}
+    with np.load(os.path.join(path, "arrays.npz")) as z:
+        for key, port, i, _ in _reference_names(manifest):
+            a = z[key]
+            arrays[port] = a if i is None else np.ascontiguousarray(a[i])
+            dtypes[port] = manifest["dtypes"][key]
+    ckpt.write(dst, manifest["step"], arrays, dtypes, manifest["extra"])
+    return manifest["step"]
+
+
+def _split_port_key(key: str):
+    """``params/<name>``, ``opt/step``, ``opt/{m,v}/<name>``,
+    ``opt/f/<name>/{r,c,v}`` -> ``(head, name, tail)``."""
+    parts = key.split("/")
+    if parts[0] == "params":
+        return parts[:1], parts[1], ""
+    if parts[1] == "step":
+        return parts[:1], "step", ""
+    return parts[:2], parts[2], ("/" + parts[3] if len(parts) > 3 else "")
+
+
+def checkpoint_to_reference(cfg: ArchConfig, src: str, dst: str,
+                            step: Optional[int] = None) -> int:
+    """Inverse of ``checkpoint_from_reference``: the port's training
+    checkpoint of a ``cfg`` model under ``src`` -> the reference's layout
+    under ``dst`` (each segment's layers stacked back on axis 0, a
+    stacked vector's shared ``c`` once); returns the step."""
+    from .train import checkpoint as ckpt
+
+    path, manifest = ckpt.read_manifest(src, step)
+    seg_of, first = {}, 0
+    for s, (_, count) in enumerate(cfg.segments()):
+        for i in range(count):
+            seg_of[first + i] = (s, i)
+        first += count
+    groups: Dict[str, list] = {}
+    for key in manifest["keys"]:
+        head, name, tail = _split_port_key(key)
+        if name.startswith("layers."):
+            _, j, part, pname = name.split(".", 3)
+            s, i = seg_of[int(j)]
+            ref = "/".join(head + ["segments", str(s), part, pname]) + tail
+            shared = tail == "/c" and len(manifest["shapes"][f"params/{name}"]) == 1
+        else:
+            ref, i, shared = "/".join(head + name.split(".")) + tail, None, False
+        groups.setdefault(ref, []).append((i, key, shared))
+    arrays, dtypes = {}, {}
+    with np.load(os.path.join(path, "arrays.npz")) as z:
+        for ref, members in groups.items():
+            members.sort(key=lambda m: -1 if m[0] is None else m[0])
+            i, key, shared = members[0]
+            if i is None or shared:
+                arrays[ref] = z[key]
+            else:
+                arrays[ref] = np.stack([z[k] for _, k, _ in members])
+            dtypes[ref] = manifest["dtypes"][key]
+    ckpt.write(dst, manifest["step"], arrays, dtypes, manifest["extra"])
+    return manifest["step"]

@@ -86,7 +86,9 @@ def flash_attention_plain(
 ) -> torch.Tensor:
     """Plain PyTorch version: ``_attn_kernel``'s blockwise online-softmax
     loop over kv blocks of ``blk_k`` keys, all queries at once, in f32,
-    with masked entries contributing exactly 0."""
+    with masked entries contributing exactly 0.  It is differentiable
+    (``kernels/ops.py``'s ``impl="dense"``): every value autograd saves
+    is finite."""
     _check_shapes(q, k, v)
     b, h, sq, d = q.shape
     sk = k.shape[2]
@@ -112,14 +114,30 @@ def flash_attention_plain(
             mask &= cols > rows - window
         s = s.masked_fill(~mask, float("-inf"))
         m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
-        # a row that has seen nothing yet keeps weight 0 everywhere
-        corr = torch.where(m_new == float("-inf"), 0.0, torch.exp(m - m_new))
-        p = torch.where(mask, torch.exp(s - m_new), 0.0)
+        # a row that has seen nothing yet keeps weight 0 everywhere; its
+        # max is -inf, taken as 0 so that no exp meets -inf - -inf (whose
+        # NaN would reach the gradient through the unselected branch)
+        m_safe = torch.where(m_new == float("-inf"), 0.0, m_new)
+        corr = torch.exp(m - m_safe)
+        p = torch.where(mask, torch.exp(s - m_safe), 0.0)
         l = corr * l + p.sum(dim=-1, keepdim=True)
         acc = corr * acc + p @ vb
         m = m_new
-    out = torch.where(l > 0, acc / l, 0.0)  # no visible key -> 0
+    # no visible key -> 0 (divided by 1, not 0, for the same reason)
+    out = torch.where(l > 0, acc / torch.where(l > 0, l, 1.0), 0.0)
     return out.to(q.dtype)
+
+
+def refuse_autograd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
+    """Raise when autograd would record through the kernel: it has no
+    backward (nor has the reference's), and its output would otherwise
+    carry no gradient back to q, k and v, without an error."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise RuntimeError(
+            "flash_attention: the kernel has no backward, and autograd records "
+            "through these inputs; train with impl='chunked' or impl='dense' "
+            "(kernels/ops.py::attention), or call it under torch.no_grad()"
+        )
 
 
 def flash_attention(
@@ -141,6 +159,8 @@ def flash_attention(
         )
     global launches
     from . import build
+
+    refuse_autograd(q, k, v)
 
     for name, t in (("q", q), ("k", k), ("v", v)):
         if (

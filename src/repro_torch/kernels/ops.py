@@ -16,11 +16,16 @@ import torch
 from ..relational import wire as _wire
 
 from . import flash_attention as _fa
+from .chunked import chunked_attention as _chunked
 from . import hash_partition as _hp
 from . import ref
 from . import semijoin_probe as _sp
 from . import sorted_probe as _so
 from . import wire_codec as _wc
+
+# KV lengths >= this take the chunked path under autograd: peak activation
+# memory O(Sq*C) instead of O(Sq*Skv) (``repro/kernels/ops.py``)
+CHUNKED_MIN_KV = 2048
 
 
 def _want_cuda(t: torch.Tensor, use_cuda: Optional[bool], name: str) -> bool:
@@ -98,23 +103,41 @@ def attention(
     use_cuda: Optional[bool] = None,
     impl: Optional[str] = None,
 ) -> torch.Tensor:
-    """Attention of q ``(B,H,Sq,D)`` over k/v ``(B,KVH,Skv,D)``: the flash
-    kernel, or its plain version, per ``use_cuda``.  ``impl='chunked'``,
-    the reference's XLA scan for long training sequences, is not ported."""
-    if impl == "chunked":
-        raise NotImplementedError(
-            "attention impl='chunked' is not ported yet (ROADMAP queue A, "
-            "item 'LM training': kernels/chunked.py)"
-        )
-    if impl is not None:
-        raise ValueError(f"attention: unknown impl {impl!r}")
-    if _want_cuda(q, use_cuda, "attention"):
+    """Attention of q ``(B,H,Sq,D)`` over k/v ``(B,KVH,Skv,D)``.
+
+    ``impl`` (the reference's switch, ``repro/kernels/ops.py``):
+    ``'pallas'`` is the Hopper flash kernel, ``'chunked'`` the
+    online-softmax scan of ``kernels/chunked.py``, ``'dense'`` the plain
+    version of the flash kernel.  ``None`` picks the kernel when
+    ``use_cuda`` says so (``None``: the tensors are on a CUDA device and
+    autograd does not record); under autograd, as the reference does off
+    the TPU, ``'chunked'`` at ``Skv >= CHUNKED_MIN_KV`` and ``'dense'``
+    below; else ``'dense'``.
+
+    The kernel has no backward (nor has the reference's), so it refuses
+    inputs autograd would record through instead of returning a result
+    that carries no gradient."""
+    recording = torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v))
+    if impl is None:
+        if use_cuda or (use_cuda is None and q.is_cuda and not recording):
+            impl = "pallas"
+        elif recording and k.shape[2] >= CHUNKED_MIN_KV:
+            impl = "chunked"
+        else:
+            impl = "dense"
+    if impl == "pallas":
+        _fa.refuse_autograd(q, k, v)  # before the device check
+        _want_cuda(q, True, "attention")
         return _fa.flash_attention(
             q, k, v, causal=causal, window=window, softcap=softcap, scale=scale
         )
-    return ref.flash_attention_ref(
-        q, k, v, causal=causal, window=window, softcap=softcap, scale=scale
-    )
+    if impl == "chunked":
+        return _chunked(q, k, v, causal=causal, window=window, softcap=softcap, scale=scale)
+    if impl == "dense":
+        return ref.flash_attention_ref(
+            q, k, v, causal=causal, window=window, softcap=softcap, scale=scale
+        )
+    raise ValueError(f"attention: unknown impl {impl!r} (pallas | chunked | dense)")
 
 
 def launch_counts() -> Dict[str, int]:

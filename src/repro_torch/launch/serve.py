@@ -7,7 +7,8 @@ decode N tokens, report tokens/s (counterpart of
 
 Without ``--device`` it runs on the CUDA card, and raises without one.
 The prompt is drawn with numpy from ``--seed``; the weights are random,
-from a ``torch.Generator`` seeded with ``--seed``.
+from a ``torch.Generator`` seeded with ``--seed``, or with ``--ckpt`` the
+parameters of a training checkpoint (``launch/train.py --ckpt``).
 """
 from __future__ import annotations
 
@@ -18,9 +19,9 @@ import numpy as np
 import torch
 
 from ..configs import get_config, get_model, reduced_config
-from ..models.common import LATER
 from ..relational.spmd import resolve_device
 from ..serve import generate
+from ..train import checkpoint as ckpt
 
 
 def main(argv: Optional[List[str]] = None) -> torch.Tensor:
@@ -33,12 +34,9 @@ def main(argv: Optional[List[str]] = None) -> torch.Tensor:
     ap.add_argument("--temperature", type=float, default=0.0)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default=None, help="cpu | cuda (default: the CUDA card)")
-    ap.add_argument("--ckpt", default=None, help="restore params from dir (not ported)")
+    ap.add_argument("--ckpt", default=None,
+                    help="restore params from a training checkpoint dir (its latest step)")
     args = ap.parse_args(argv)
-    if args.ckpt:
-        raise NotImplementedError(
-            f"--ckpt needs train/checkpoint.py, which is not ported yet ({LATER['train']})"
-        )
 
     cfg = get_config(args.arch)
     if args.reduced:
@@ -47,6 +45,13 @@ def main(argv: Optional[List[str]] = None) -> torch.Tensor:
     gen = torch.Generator(device=dev)
     gen.manual_seed(args.seed)
     model = get_model(cfg, dev, generator=gen)
+    if args.ckpt:
+        # only the parameters of a training checkpoint (it also holds the
+        # optimizer state); a reference checkpoint goes through
+        # interop.checkpoint_from_reference first
+        params = {k: p.detach() for k, p in model.named_parameters()}
+        restored, _ = ckpt.restore(args.ckpt, {"params": params}, partial=True)
+        model.load_state_dict(restored["params"])
     prompt = np.random.default_rng(args.seed).integers(0, cfg.vocab, (args.batch, args.prompt))
     stats: dict = {}
     toks = generate(

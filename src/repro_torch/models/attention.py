@@ -2,26 +2,30 @@
 and KV-cache decode (counterpart of ``repro/models/attention.py``).
 
 Prefill runs through ``kernels.ops.attention``: the Hopper flash kernel
-with the ``'cuda'`` backend, its plain version with ``'torch'``.  Decode
+with the ``'cuda'`` backend, its plain version with ``'torch'``; the
+training forward passes ``impl`` (the chunked scan or the plain version:
+the kernel has no backward).  Decode
 attends one query per sequence to the cache in plain torch, as the
 reference does outside any Pallas kernel.  Cross-attention waits for the
 Whisper slice.
 """
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 from torch import nn
 
 from ..kernels import ops as kops
-from .common import ArchConfig, apply_mrope, apply_rope, init_norm, rms_norm, scaled_init
+from .common import (
+    ArchConfig, apply_mrope, apply_rope, gen_device, init_norm, rms_norm, scaled_init,
+)
 
 
 def init_attn(gen: torch.Generator, cfg: ArchConfig) -> nn.ParameterDict:
     d, hd = cfg.d_model, cfg.hd
     h, kv = cfg.n_heads, cfg.n_kv_heads
-    dt, dev = cfg.torch_dtype, gen.device
+    dt, dev = cfg.torch_dtype, gen_device(gen)
     p = nn.ParameterDict({
         "wq": scaled_init(gen, (d, h * hd), 0, dt),
         "wk": scaled_init(gen, (d, kv * hd), 0, dt),
@@ -56,16 +60,17 @@ def _project_qkv(p, x: torch.Tensor, cfg: ArchConfig, pos: torch.Tensor):
 
 def attn_prefill(
     p, x: torch.Tensor, cfg: ArchConfig, *, pos: torch.Tensor, causal: bool = True,
-    window: int = 0, use_cuda: bool = False,
+    window: int = 0, use_cuda: Optional[bool] = False, impl: Optional[str] = None,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Full-sequence attention x (B,S,D) -> (B,S,D), plus the KV cache
-    ``{"k", "v"}`` (B, KV, S, hd)."""
+    ``{"k", "v"}`` (B, KV, S, hd).  ``use_cuda`` and ``impl`` go to
+    ``kernels.ops.attention``."""
     b, s, _ = x.shape
     xin = rms_norm(x, p["ln"], cfg.norm_eps)
     q, k, v = _project_qkv(p, xin, cfg, pos)
     o = kops.attention(
         q, k, v, causal=causal, window=window, softcap=cfg.attn_softcap,
-        use_cuda=use_cuda,
+        use_cuda=use_cuda, impl=impl,
     )
     o = o.transpose(1, 2).reshape(b, s, -1)
     return x + (o @ p["wo"]).to(x.dtype), {"k": k, "v": v}
@@ -73,11 +78,11 @@ def attn_prefill(
 
 def attn_forward(
     p, x: torch.Tensor, cfg: ArchConfig, *, pos: torch.Tensor, causal: bool = True,
-    window: int = 0, use_cuda: bool = False,
+    window: int = 0, use_cuda: Optional[bool] = False, impl: Optional[str] = None,
 ) -> torch.Tensor:
     """Full-sequence attention (train / prefill) without the cache."""
     return attn_prefill(
-        p, x, cfg, pos=pos, causal=causal, window=window, use_cuda=use_cuda
+        p, x, cfg, pos=pos, causal=causal, window=window, use_cuda=use_cuda, impl=impl
     )[0]
 
 

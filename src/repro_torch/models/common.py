@@ -1,5 +1,5 @@
 """Shared model substrate: arch config, norms, embeddings, RoPE/M-RoPE
-(counterpart of ``repro/models/common.py``).
+and the token cross-entropy (counterpart of ``repro/models/common.py``).
 
 Parameters are ``nn.Parameter``s held by ``nn.Module``s, one module per
 layer (the reference stacks homogeneous runs of layers under
@@ -26,7 +26,6 @@ LATER = {
     "slstm": "ROADMAP queue A, item 'SSM/xLSTM'",
     "shared_attn": "ROADMAP queue A, item 'SSM/xLSTM' (zamba2's shared block)",
     "whisper": "ROADMAP queue A, item 'Whisper'",
-    "train": "ROADMAP queue A, item 'LM training'",
 }
 
 
@@ -104,14 +103,20 @@ class ArchConfig:
         return tuple(out)
 
 
+def gen_device(gen: Optional[torch.Generator]) -> torch.device:
+    """Where parameters are made: the generator's device, or ``meta``
+    (shapes and dtypes only) without a generator."""
+    return gen.device if gen is not None else torch.device("meta")
+
+
 def scaled_init(
-    gen: torch.Generator, shape: Sequence[int], scale_axis: int, dtype,
+    gen: Optional[torch.Generator], shape: Sequence[int], scale_axis: int, dtype,
     scale: float = 1.0,
 ) -> nn.Parameter:
     """Normal init with std ``scale / sqrt(fan_in)``, drawn in f32 on the
     generator's device."""
     std = scale / math.sqrt(shape[scale_axis])
-    w = torch.randn(tuple(shape), generator=gen, device=gen.device, dtype=torch.float32)
+    w = torch.randn(tuple(shape), generator=gen, device=gen_device(gen), dtype=torch.float32)
     return nn.Parameter((w * std).to(dtype), requires_grad=False)
 
 
@@ -191,3 +196,12 @@ def unembed(x: torch.Tensor, table: torch.Tensor, softcap: float = 0.0) -> torch
     if softcap > 0.0:
         logits = softcap * torch.tanh(logits / softcap)
     return logits
+
+
+def softmax_xent(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+    """Mean token cross-entropy of f32 ``logits (..., V)`` against integer
+    ``targets (...)``: ``logsumexp`` minus the gold logit."""
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = logits.gather(-1, targets.long()[..., None])[..., 0]
+    return (lse - gold).mean()

@@ -7,7 +7,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .common import ArchConfig, init_norm, rms_norm, scaled_init
+from .common import ArchConfig, gen_device, init_norm, rms_norm, scaled_init
 
 
 def init_mlp(gen: torch.Generator, cfg: ArchConfig, d_ff: int = 0) -> nn.ParameterDict:
@@ -18,7 +18,7 @@ def init_mlp(gen: torch.Generator, cfg: ArchConfig, d_ff: int = 0) -> nn.Paramet
         "wi": scaled_init(gen, (d, f), 0, dt),
         "wg": scaled_init(gen, (d, f), 0, dt),
         "wo": scaled_init(gen, (f, d), 0, dt),
-        "ln": init_norm(d, dt, gen.device),
+        "ln": init_norm(d, dt, gen_device(gen)),
     })
 
 

@@ -1,6 +1,7 @@
 """Decoder LM over a block pattern (counterpart of
-``repro/models/transformer.py``), for the serving path: prefill of a
-prompt batch and one-token decode steps over a KV cache.
+``repro/models/transformer.py``): prefill of a prompt batch and one-token
+decode steps over a KV cache for serving, and the training loss
+(``loss``, ``loss_and_stats``) with per-layer rematerialization.
 
 One ``Block`` module per layer in ``cfg.blocks()`` order (a Python loop
 takes the place of the reference's ``lax.scan`` over stacked segments).
@@ -11,19 +12,26 @@ item.
 The backend follows ``GymConfig.local_backend``: ``'cuda'`` runs prefill
 attention on the Hopper flash kernel and refuses CPU tensors, ``'torch'``
 runs its plain version on any device, and ``None`` means ``'cuda'`` on a
-CUDA device and ``'torch'`` on the CPU.  The device defaults to the CUDA
-card and raises without one; the CPU is used only when asked for.
+CUDA device and ``'torch'`` on the CPU.  The flash kernel has no
+backward, so the loss takes ``kernels.ops.attention``'s rule under
+autograd (the chunked scan at 2048 keys and more, the plain version
+below) unless ``impl`` names one; with the ``'cuda'`` backend named it
+reaches the kernel, which refuses to be recorded.  The device defaults to
+the CUDA card and raises without one; the CPU is used only when asked for.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..relational.spmd import resolve_device
 from .attention import attn_decode, attn_forward, attn_prefill, init_attn
-from .common import LATER, ArchConfig, embed, init_embed, init_norm, rms_norm, unembed
+from .common import (
+    LATER, ArchConfig, embed, init_embed, init_norm, rms_norm, softmax_xent, unembed,
+)
 from .mlp import init_mlp, mlp_forward
 
 BACKENDS = ("torch", "cuda")
@@ -51,10 +59,11 @@ class Block(nn.Module):
         self.attn = init_attn(gen, cfg)
         self.mlp = init_mlp(gen, cfg)
 
-    def forward(self, x: torch.Tensor, pos: torch.Tensor, use_cuda: bool) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, pos: torch.Tensor, use_cuda: Optional[bool],
+                impl: Optional[str] = None) -> torch.Tensor:
         x = attn_forward(
             self.attn, x, self.cfg, pos=pos, causal=True, window=self.window,
-            use_cuda=use_cuda,
+            use_cuda=use_cuda, impl=impl,
         )
         return mlp_forward(self.mlp, x, self.cfg)
 
@@ -73,7 +82,8 @@ class Block(nn.Module):
 class DecoderLM(nn.Module):
     """Serving surface: ``prefill(batch, s_cache) -> (last logits, caches)``,
     ``decode_step(caches, tokens) -> (logits, caches)``, ``init_caches``,
-    and ``logits`` for the full forward pass.
+    and ``logits`` for the full forward pass; training surface: ``loss``,
+    ``loss_and_stats`` and ``param_leaves``.
 
     Caches are ``{"layers": [{"k", "v"} (B, KV, s_cache, hd) per layer],
     "len": int}``; decode writes them in place."""
@@ -98,7 +108,10 @@ class DecoderLM(nn.Module):
         #: 'cuda' | 'torch' | None (follow the device); may be switched later
         self.backend = backend
         gen = generator
-        if gen is None:
+        if dev.type == "meta":  # shapes only: nothing is drawn
+            if gen is not None:
+                raise ValueError("a model on the meta device takes no generator")
+        elif gen is None:
             gen = torch.Generator(device=dev)
             gen.manual_seed(0)
         elif gen.device.type != dev.type:
@@ -136,15 +149,68 @@ class DecoderLM(nn.Module):
         return unembed(x, self._table(), self.cfg.logit_softcap)
 
     # ------------------------------------------------------------- forward
-    @torch.no_grad()
-    def logits(self, tokens: torch.Tensor, pos: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """Full forward pass: tokens (B, S) -> f32 logits (B, S, V)."""
+    def _forward(self, tokens: torch.Tensor, pos: Optional[torch.Tensor],
+                 use_cuda: Optional[bool], impl: Optional[str] = None,
+                 remat: bool = False) -> torch.Tensor:
+        """tokens (B, S) -> f32 logits (B, S, V).  ``remat`` runs each layer
+        under ``torch.utils.checkpoint`` (the reference's ``jax.checkpoint``
+        over its scanned layer): the backward keeps one activation a layer
+        and recomputes the rest."""
         b, s = tokens.shape
         pos = self._pos(pos, b, s)
         x = embed(tokens.to(self.device), self.embed["table"])
         for layer in self.layers:
-            x = layer(x, pos, self.use_cuda)
+            if remat:
+                x = checkpoint(layer, x, pos, use_cuda, impl, use_reentrant=False)
+            else:
+                x = layer(x, pos, use_cuda, impl)
         return self._head(x)
+
+    @torch.no_grad()
+    def logits(self, tokens: torch.Tensor, pos: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Full forward pass: tokens (B, S) -> f32 logits (B, S, V)."""
+        return self._forward(tokens, pos, self.use_cuda)
+
+    # --------------------------------------------------------------- train
+    def loss(self, batch: Dict[str, torch.Tensor], remat: bool = True,
+             impl: Optional[str] = None) -> torch.Tensor:
+        """Mean token cross-entropy of ``batch["tokens"]`` against
+        ``batch["targets"]`` (both (B, S)); ``batch["pos"]`` is optional.
+        ``impl`` picks the attention (``kernels.ops.attention``)."""
+        if self.backend not in (None,) + BACKENDS:
+            raise ValueError(f"backend {self.backend!r} not in {BACKENDS}")
+        # None follows the tensors and autograd (kernels.ops.attention)
+        use_cuda = None if self.backend is None else self.backend == "cuda"
+        logits = self._forward(batch["tokens"], batch.get("pos"), use_cuda, impl, remat)
+        return softmax_xent(logits, batch["targets"].to(self.device))
+
+    def loss_and_stats(self, batch: Dict[str, torch.Tensor], remat: bool = True,
+                       impl: Optional[str] = None):
+        """Loss plus the MoE routing counts ``{routed, dropped, heavy}``
+        summed over MoE layers: int32 zeros, as the reference gives for a
+        model without MoE blocks (the only kind ported)."""
+        zero = torch.zeros((), dtype=torch.int32, device=self.device)
+        stats = {k: zero.clone() for k in ("routed", "dropped", "heavy")}
+        return self.loss(batch, remat=remat, impl=impl), stats
+
+    def param_leaves(self) -> List[Tuple[Tuple[str, ...], bool]]:
+        """The reference's parameter leaves over this model's parameter
+        names, ``(names, stacked)``: the unstacked ones, then each
+        segment's.  The
+        reference stacks each run of equal block kinds (``cfg.segments()``)
+        on a leading layer axis, so one leaf there is ``stacked`` layers
+        here; the optimizer and the gradient codec treat such a leaf as one
+        tensor (``train/optim.py``)."""
+        out: List[Tuple[Tuple[str, ...], bool]] = []
+        for name, _ in self.named_parameters():
+            if not name.startswith("layers."):
+                out.append(((name,), False))
+        first = 0
+        for _, count in self.cfg.segments():
+            for key, _ in self.layers[first].named_parameters():
+                out.append((tuple(f"layers.{first + i}.{key}" for i in range(count)), True))
+            first += count
+        return out
 
     # --------------------------------------------------------------- serve
     @torch.no_grad()

@@ -145,8 +145,48 @@ def test_use_cuda_on_cpu_tensors_raises():
     k = torch.zeros((1, 1, 4, 16))
     with pytest.raises(ValueError, match="CUDA"):
         K.attention(q, k, k, use_cuda=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        K.attention(q, k, k, impl="chunked")
+    # impl="chunked", once refused, runs the chunked scan: it matches the
+    # plain version ("dense")
+    rng = np.random.default_rng(5)
+    q, k, v = (torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+               for s in ((1, 2, 40, 16), (1, 1, 40, 16), (1, 1, 40, 16)))
+    np.testing.assert_allclose(K.attention(q, k, v, impl="chunked").numpy(),
+                               K.attention(q, k, v, impl="dense").numpy(), atol=3e-5, rtol=3e-5)
+
+
+def test_kernel_refuses_autograd_before_the_device_check():
+    """The flash kernel has no backward: with autograd recording it raises
+    instead of returning a result that carries no gradient.  On CPU
+    tensors the refusal comes before the device check (a RuntimeError
+    about autograd, not the ValueError about CUDA tensors), and
+    ``refuse_autograd`` guards the wrapper itself.  Under no_grad, or with
+    inputs that need no grad, the device check speaks as before."""
+    from repro_torch.kernels.flash_attention import refuse_autograd
+
+    q = torch.zeros((1, 2, 4, 16), requires_grad=True)
+    k = torch.zeros((1, 1, 4, 16))
+    for kw in (dict(use_cuda=True), dict(impl="pallas")):
+        with pytest.raises(RuntimeError, match="no backward.*impl='chunked'"):
+            K.attention(q, k, k, **kw)
+    with pytest.raises(RuntimeError, match="no backward"):
+        refuse_autograd(k, k, q)
+    with torch.no_grad():
+        refuse_autograd(q, k, k)
+        with pytest.raises(ValueError, match="CUDA"):
+            K.attention(q, k, k, use_cuda=True)
+    with pytest.raises(ValueError, match="CUDA"):
+        K.attention(q.detach(), k, k, use_cuda=True)
+    # the model's loss with the 'cuda' backend named reaches the kernel
+    from repro_torch.configs import get_config, get_model, reduced_config
+
+    model = get_model(reduced_config(get_config("smollm-360m")), "cpu", backend="cuda")
+    model.requires_grad_(True)
+    batch = {"tokens": torch.zeros((1, 8), dtype=torch.long),
+             "targets": torch.zeros((1, 8), dtype=torch.long)}
+    with pytest.raises(RuntimeError, match="no backward"):
+        model.loss(batch)
+    model.backend = "torch"
+    assert torch.isfinite(model.loss(batch))
 
 
 def test_shape_checks():

@@ -43,6 +43,8 @@ def test_port_modules_exist():
         "core/loggta_prime.py", "core/cgta.py", "core/acq_mr.py", "core/shares.py",
         "relational/wire.py", "relational/shuffle.py", "kernels/wire_codec.py",
         "core/costs.py", "core/optimizer.py", "serve/join_server.py",
+        "kernels/chunked.py", "train/optim.py", "train/compression.py", "train/step.py",
+        "train/checkpoint.py", "train/elastic.py", "data/pipeline.py", "launch/train.py",
     ):
         assert mod in names, mod
     assert (PKG / "csrc" / "gym_kernels.cu").exists()

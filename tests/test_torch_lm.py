@@ -131,8 +131,27 @@ def test_serve_cli_on_cpu(capsys):
     assert tuple(toks.shape) == (2, 3)
     out = capsys.readouterr().out
     assert "tok/s" in out and "prefill 2x10" in out and "ms/step" in out
-    with pytest.raises(NotImplementedError, match="LM training"):
-        serve.main(["--reduced", "--device", "cpu", "--ckpt", "/nonexistent"])
+
+
+
+def test_serve_cli_from_a_training_checkpoint(tmp_path, capsys):
+    """``--ckpt``, once refused, serves the parameters of a checkpoint that
+    ``launch/train.py`` wrote: the greedy tokens are those of the trained
+    model, not of the random init."""
+    from repro_torch.launch import serve, train
+
+    d = str(tmp_path / "run")
+    trained = train.main(["--reduced", "--device", "cpu", "--steps", "2", "--batch", "2",
+                          "--seq", "16", "--lr", "3e-2", "--ckpt", d])["model"]
+    args = ["--reduced", "--device", "cpu", "--batch", "2", "--prompt", "6", "--steps", "4"]
+    toks = serve.main(args + ["--ckpt", d])
+    fresh = serve.main(args)
+    prompt = torch.from_numpy(np.random.default_rng(0).integers(0, trained.cfg.vocab, (2, 6)))
+    assert torch.equal(toks, generate(trained, prompt, steps=4))
+    assert not torch.equal(toks, fresh)
+    assert "tok/s" in capsys.readouterr().out
+    with pytest.raises(FileNotFoundError):
+        serve.main(args + ["--ckpt", str(tmp_path / "none")])
 
 
 def test_backends_and_devices():
