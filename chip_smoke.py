@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch/CUDA port of GYM on one CUDA card.
 
     python3 chip_smoke.py [--seed N] [--reps N]
-                          [--phases gym,grid,skew,logdepth,wire,snapshot,joinserve,lm,train]
+                          [--phases gym,grid,skew,logdepth,wire,snapshot,joinserve,lm,moe,train]
 
 Run from the root of a checkout on a machine with a CUDA card (sm_90a,
 an H100) and the CUDA toolkit.  In order it:
@@ -128,7 +128,33 @@ an H100) and the CUDA toolkit.  In order it:
    flash kernel must launch exactly 42 times per ``generate`` (once per
    layer, in prefill), and the per-step logits must agree with a
    teacher-forced replay through the ``'torch'`` backend on the card;
-12. (phase ``train``) drives the port's LM training path on smollm-360m
+12. (phase ``moe``) drives the Mixture-of-Experts path on grok-1-314b at
+   its published widths in bf16 (random weights from ``--seed``), the
+   depth cut from 64 layers to ``MOE_LAYERS``: two 2048-token prompts and
+   16 greedy tokens through ``generate`` with the ``'cuda'`` backend, on
+   the dense route (capacity factor 1.25) and on the calibrated route
+   under ``MoEPlan.sound(4096, 2, 8)`` over the same tensors
+   (``DecoderLM.with_config``), each cold and warm.  The flash kernel must
+   launch once per layer a ``generate`` (D = 128), the calibrated route
+   must route t*k pairs and drop 0 in every MoE call, the dense route's
+   drops must equal a host bincount of its own router decisions against
+   its capacity, and each route's logits must meet the ``lm`` phase's rule
+   against a ``'torch'`` replay teacher-forced in its tokens and its
+   expert choices; each MoE call's router logits in the replay must meet
+   the same rule against the run's, and a token whose own choice differs
+   must sit at a near-tie (its top-k margin within twice that change).
+   One layer's MoE block
+   alone at 4096 tokens: both routes without drops (capacity factor e, the
+   plan from ``calibrate_moe``) agree within ``MOE_ROUTE_TOL`` with equal
+   stats; on ``benchmarks/bench_moe.py``'s zipf-hot mix the dense route
+   drops exactly the host's count (more than 0) and the calibrated route
+   under ``calibrate_moe(threshold=1.5)`` flags a heavy expert and drops
+   0.  Reduced kimi-k2 takes one train step per route with
+   ``moe_metrics`` on the card, held to the same step on the CPU.  It
+   prints prefill seconds, decode ms a step, tokens/s, peak device
+   memory, the pairs routed, dropped and heavy per layer, the layer's warm
+   ms and its ledger bytes, and times the flash kernel at grok's call;
+13. (phase ``train``) drives the port's LM training path on smollm-360m
    at full width and depth in bf16 (random weights from ``--seed``, AdamW
    with f32 moments, batch 8 x 2048 tokens, so every layer's attention
    takes the chunked scan): the data pipeline's corpus join
@@ -150,7 +176,7 @@ an H100) and the CUDA toolkit.  In order it:
    memory, the checkpoint's bytes and save/load seconds, the model FLOPs
    a step as a share of the bf16 peak, and one profiled step's device
    busy share and top device work;
-13. times each kernel at the largest inputs its path gave it (CUDA events,
+14. times each kernel at the largest inputs its path gave it (CUDA events,
    L2 flushed before each launch) beside its plain version, one PyTorch
    library call where one computes the same function, and its bound,
    prints the sorted probe's census of that call (the share of probes its
@@ -2295,7 +2321,7 @@ def lm_phase(torch, seed: int, profile_dir: str = ""):
     return out, rec.best, n_layers
 
 
-def profile_lm(torch, model, prompt, s_cache: int, out_dir: str) -> None:
+def profile_lm(torch, model, prompt, s_cache: int, out_dir: str, tag: str = "lm") -> None:
     """``torch.profiler`` over one warm prefill and, apart, over the decode
     steps of one ``generate``: host seconds, the device's busy share, and
     the top device work by name (operator tables go to ``out_dir``)."""
@@ -2325,9 +2351,9 @@ def profile_lm(torch, model, prompt, s_cache: int, out_dir: str) -> None:
         for e in dev_events:
             kern[e.name] = kern.get(e.name, 0.0) + e.time_range.elapsed_us()
         busy_s = sum(kern.values()) / 1e6
-        with open(os.path.join(out_dir, f"profile_lm_{name}.txt"), "w") as f:
+        with open(os.path.join(out_dir, f"profile_{tag}_{name}.txt"), "w") as f:
             f.write(prof.key_averages().table(sort_by="self_device_time_total", row_limit=40))
-        print(f"profile lm {name} (warm, profiled): wall_s={wall:.4f} device_busy_s={busy_s:.4f} "
+        print(f"profile {tag} {name} (warm, profiled): wall_s={wall:.4f} device_busy_s={busy_s:.4f} "
               f"device_busy_share={busy_s / wall:.4f} device_ops={len(dev_events)}", flush=True)
         for kname, us in sorted(kern.items(), key=lambda kv: -kv[1])[:8]:
             print(f"  {kname[:90]:90s} device_ms={us / 1e3:.3f}", flush=True)
@@ -2396,6 +2422,410 @@ def flash_timing(torch, recorded, launches, reps):
         "bound_by": "operations" if t_ops >= t_bytes else "bytes",
         "library_ms": library_ms,
     }
+
+
+# --------------------------------------------------------------------- MoE
+# the MoE phase: grok-1-314b at its published widths (bf16), the depth cut
+# from 64 layers to MOE_LAYERS (a layer holds 4.92e9 parameters, 9.84 GB;
+# four layers and the two 0.81e9-parameter tables hold 42.6 GB of the
+# card's 80, and a fifth layer would leave too little room for the
+# calibrated route's transient), two 2048-token prompts, 16 greedy tokens
+MOE_ARCH, MOE_LAYERS, MOE_BATCH, MOE_PROMPT, MOE_STEPS = "grok-1-314b", 4, 2, 2048, 16
+# the layer alone at full width: tokens a call, and
+# benchmarks/bench_moe.py's zipf-hot mix (prototype popularity ~ 1/rank^1.5)
+# with its heavy threshold
+MOE_LAYER_TOKENS, MOE_ZIPF_S, MOE_HEAVY_THRESHOLD = 4096, 1.5, 1.5
+# dense against calibrated without drops, bf16, as max |d| / max(1, |o|):
+# both routes run one expert FFN per pair from the same bf16 rows, in GEMMs
+# of other shapes (each of the three products and the SiLU's cast may round
+# one bf16 ulp apart, 2**-8 relative), the dense route weights each pair in
+# bf16 and adds the k pairs in bf16 while the calibrated one does both in
+# f32, and the residual sum rounds once more: four bf16 ulps at |o| in [1, 2)
+MOE_ROUTE_TOL = 3.2e-2
+# reduced kimi-k2 (the reference tests' config, f32, capacity factor e) on
+# the card against the CPU: one train step per route, batch 4 x 16
+MOE_KIMI = "kimi-k2-1t-a32b"
+
+
+def dense_drops_on_host(flat_e, cfg, t: int) -> int:
+    """The pairs the dense scatter must drop, from its router decisions: a
+    host bincount of ``flat_e`` against the capacity."""
+    from repro_torch.models.moe_routing import dense_capacity
+
+    arr = np.bincount(flat_e.cpu().numpy(), minlength=cfg.n_experts)
+    return int(np.maximum(arr - dense_capacity(cfg, t), 0).sum())
+
+
+class MoERecorder:
+    """Wraps the transformer's MoE layer and the router (``router_pairs``
+    as ``models/mlp.py`` and ``models/moe_routing.py`` call it): keeps each
+    call's stats, the experts it chose and its router logits (device
+    tensors, read only when ``take`` is called).  With ``force`` set to a
+    recorded run's choices and logits, a replay is teacher-forced in its
+    expert choices as in its tokens: each call takes the recorded experts
+    at its own gate weights, and ``forced`` keeps, per call, the largest
+    change of a router logit against the run's, the run's largest logit,
+    the tokens whose own choice differed and the largest top-k margin
+    among them (the replay's k-th logit over the least of the forced
+    experts' logits)."""
+
+    def __init__(self, T, mlp, mr):
+        self.T, self.mlp, self.mr = T, mlp, mr
+        self.orig, self.orig_router = T.moe_forward_stats, mr.router_pairs
+        self.calls, self.chosen, self.logits, self.force, self.forced = [], [], [], None, []
+        T.moe_forward_stats = self
+        mlp.router_pairs = mr.router_pairs = self.router
+
+    def router(self, p, xf, cfg):
+        flat_e, flat_w, flat_tok = self.orig_router(p, xf, cfg)
+        logits = xf.float() @ p["router"].float()
+        if self.force is not None:
+            forced, run_logits = self.force.pop(0)
+            t, k = xf.shape[0], cfg.topk
+            own, want = flat_e.view(t, k), forced.view(t, k)
+            differ = (own.sort(-1).values != want.sort(-1).values).any(-1)
+            margin = logits.gather(1, own).min(-1).values - logits.gather(1, want).min(-1).values
+            self.forced.append((float((logits - run_logits).abs().max()), float(run_logits.abs().max()),
+                                int(differ.sum()), float(margin[differ].max()) if bool(differ.any()) else 0.0))
+            w = logits.softmax(-1).gather(1, want)
+            flat_e, flat_w = forced, (w / (w.sum(-1, keepdim=True) + 1e-9)).reshape(-1)
+        self.chosen.append(flat_e)
+        self.logits.append(logits)
+        return flat_e, flat_w, flat_tok
+
+    def __call__(self, p, x, cfg):
+        y, st = self.orig(p, x, cfg)
+        self.calls.append((cfg, x.shape[0] * x.shape[1], st, self.chosen[-1]))
+        return y, st
+
+    def take(self):
+        """Each call since the last ``take``: t, the route, the stats and
+        the dense scatter's drops worked out on the host from the experts
+        the call chose; and the (choices, router logits) of each call, in
+        call order."""
+        out = [dict(t=t, route=cfg.moe_route, host_dropped=dense_drops_on_host(fe, cfg, t),
+                    **{k: int(v) for k, v in st.items()}) for cfg, t, st, fe in self.calls]
+        chosen = list(zip(self.chosen, self.logits))
+        self.calls, self.chosen, self.logits = [], [], []
+        return out, chosen
+
+    def restore(self):
+        self.T.moe_forward_stats = self.orig
+        self.mlp.router_pairs = self.mr.router_pairs = self.orig_router
+
+
+def moe_serve(torch, model, prompt, s_cache, rec, K):
+    """Cold and warm ``generate`` through the 'cuda' backend, then a
+    teacher-forced replay of the cold run through the 'torch' backend:
+    returns the runs' figures and the flash launches."""
+    from repro_torch.serve import generate
+
+    cfg = model.cfg
+    n_layers, k = len(cfg.blocks()), cfg.topk
+    route = cfg.moe_route
+    runs = []
+    for name in ("cold", "warm"):
+        torch.cuda.reset_peak_memory_stats()
+        K.reset_launch_counts()
+        stats = {}
+        toks, logits = generate(model, prompt, steps=MOE_STEPS, s_cache=s_cache,
+                                return_logits=True, stats=stats)
+        flash = K.launch_counts()["flash_attention"]
+        peak = torch.cuda.max_memory_allocated()
+        calls, chosen = rec.take()
+        check(flash == n_layers, f"moe {route} {name}: flash launched {flash} times, not {n_layers}")
+        check(len(calls) == n_layers * MOE_STEPS, f"moe {route}: {len(calls)} MoE calls")
+        for c in calls:
+            if route == "calibrated":
+                check(c["routed"] == c["t"] * k and c["dropped"] == 0,
+                      f"moe calibrated {name}: {c} (must route t*k and drop 0)")
+            else:
+                check(c["dropped"] == c["host_dropped"] and c["routed"] == c["t"] * k - c["dropped"],
+                      f"moe dense {name}: {c} (drops must equal the host's count)")
+        runs.append(dict(name=name, toks=toks, logits=logits, stats=stats, peak=peak,
+                         flash=flash, calls=calls, chosen=chosen))
+    cold = runs[0]
+    toks, logits = cold["toks"], cold["logits"]
+    check(toks.shape == (MOE_BATCH, MOE_STEPS) and logits.shape == (MOE_BATCH, MOE_STEPS, cfg.vocab),
+          f"moe {route}: output shapes")
+    check(bool(torch.isfinite(logits).all()), f"moe {route}: non-finite logits")
+    check(torch.equal(toks, logits.argmax(-1)), f"moe {route}: greedy tokens are not the argmax")
+
+    # the replay, teacher-forced in its tokens and in its experts: a bf16
+    # rounding apart in attention can flip a near-tie of the router, and
+    # a flipped expert (or, on the dense route, a pair that then lands past
+    # its expert's capacity) moves a token's output far past the rule.
+    # Forcing hides no fault of the router's inputs: each call's router
+    # logits must meet the logits' rule against the run's, and a token may
+    # choose otherwise only where its replay margin is within the change
+    model.backend = "torch"
+    K.reset_launch_counts()
+    rec.force, rec.forced = list(cold["chosen"]), []
+    lg, caches = model.prefill({"tokens": prompt}, s_cache=s_cache)
+    ref_logits = [lg]
+    for i in range(MOE_STEPS - 1):
+        lg, caches = model.decode_step(caches, toks[:, i])
+        ref_logits.append(lg)
+    ref_logits = torch.stack(ref_logits, dim=1)
+    model.backend = None
+    check(rec.force == [], f"moe {route}: the replay made {len(rec.force)} fewer MoE calls")
+    forced, rec.force = rec.forced, None
+    replay, _ = rec.take()
+    check(K.launch_counts()["flash_attention"] == 0, f"moe {route}: the 'torch' backend launched flash")
+    del caches
+    for i, (dr, sr, n_flip, margin) in enumerate(forced):
+        check(dr <= LM_LOGIT_REL_TOL * sr,
+              f"moe {route}: replay call {i}: max |d router logit| {dr} > {LM_LOGIT_REL_TOL} * {sr}")
+        check(margin <= 2 * dr, f"moe {route}: replay call {i}: {n_flip} tokens chose otherwise at a "
+              f"top-k margin {margin} > 2 max |d router logit| {2 * dr}")
+    router_ratio = max(dr / sr for dr, sr, _, _ in forced)
+    flips = sum(1 for f in forced if f[2])
+    delta = float((logits - ref_logits).abs().max())
+    scale = float(ref_logits.abs().max())
+    top2 = ref_logits.topk(2, dim=-1).values
+    decided = (top2[..., 0] - top2[..., 1]) > 2 * delta
+    same = ref_logits.argmax(-1) == toks
+    prefill = [c for c in cold["calls"] if c["t"] == MOE_BATCH * MOE_PROMPT]
+    decode = [c for c in cold["calls"] if c["t"] == MOE_BATCH]
+    out = {}
+    for r in runs:
+        st = r["stats"]
+        total = st["prefill_s"] + st["decode_s"]
+        out[r["name"]] = m = dict(
+            prefill_s=st["prefill_s"], decode_ms_per_step=1e3 * st["decode_s"] / (MOE_STEPS - 1),
+            tokens_per_s=MOE_BATCH * MOE_STEPS / total,
+            prefill_tokens_per_s=MOE_BATCH * MOE_PROMPT / st["prefill_s"], peak_bytes=r["peak"],
+        )
+        print(f"moe {cfg.name} {route} generate {r['name']}: prefill_s={st['prefill_s']:.4f} "
+              f"decode_ms_per_step={m['decode_ms_per_step']:.3f} tokens_per_s={m['tokens_per_s']:.2f} "
+              f"prefill_tokens_per_s={m['prefill_tokens_per_s']:.1f} max_memory_allocated={r['peak']} "
+              f"flash_launches={r['flash']}", flush=True)
+    print(f"moe {route} pairs per layer, prefill (t={MOE_BATCH * MOE_PROMPT}): "
+          f"routed={[c['routed'] for c in prefill]} dropped={[c['dropped'] for c in prefill]} "
+          f"heavy={[c['heavy'] for c in prefill]} host-counted dense drops="
+          f"{[c['host_dropped'] for c in prefill]}; decode (t={MOE_BATCH}, {MOE_STEPS - 1} steps, "
+          f"summed per layer): routed={[sum(c['routed'] for c in decode[i::n_layers]) for i in range(n_layers)]} "
+          f"dropped={[sum(c['dropped'] for c in decode[i::n_layers]) for i in range(n_layers)]} "
+          f"heavy={[sum(c['heavy'] for c in decode[i::n_layers]) for i in range(n_layers)]}", flush=True)
+    print(f"moe {route} cuda vs torch backend (teacher-forced): max|dlogit|={delta:.6g} "
+          f"max|logit|={scale:.6g} ratio={delta / scale:.3g} (bound {LM_LOGIT_REL_TOL}); argmax "
+          f"equal on {int(same.sum())}/{same.numel()} steps, margin > 2 max|dlogit| on "
+          f"{int(decided.sum())}; router logits, replay vs run: largest max|d|/max|logit| of a call "
+          f"{router_ratio:.3g} (bound {LM_LOGIT_REL_TOL}); MoE calls of the replay whose own expert "
+          f"choice differed from the run's (forced to the run's): {flips} of {len(replay)}, "
+          f"{sum(f[2] for f in forced)} tokens, largest top-k margin among them "
+          f"{max(f[3] for f in forced):.3g}; warm "
+          f"tokens == cold: {bool(torch.equal(runs[1]['toks'], toks))}; tokens[0][:8]="
+          f"{toks[0, :8].tolist()}", flush=True)
+    check(delta <= LM_LOGIT_REL_TOL * scale,
+          f"moe {route}: max |dlogit| {delta} > {LM_LOGIT_REL_TOL} * max |logit| {scale}")
+    check(bool(same[decided].all()), f"moe {route}: argmax differs where the margin exceeds 2 max |dlogit|")
+    out["flash"] = sum(r["flash"] for r in runs)
+    out["router_ratio"], out["flips"] = router_ratio, flips
+    out["prefill_pairs"] = [(c["routed"], c["dropped"], c["heavy"]) for c in prefill]
+    return out
+
+
+def _warm_ms(torch, fn, reps: int = 3) -> float:
+    """Median host ms of ``reps`` calls after one, each ending in a sync."""
+    fn()
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+    return float(np.median(times))
+
+
+def moe_layer_checks(torch, model, seed: int):
+    """One grok layer's MoE block alone at full width (the serving model's
+    own tensors), ``MOE_LAYER_TOKENS`` tokens: both routes without drops
+    (capacity factor e, the plan from ``calibrate_moe``) agree within
+    ``MOE_ROUTE_TOL`` with equal stats; on the zipf-hot mix the dense
+    scatter (1.25) drops exactly the host's count, more than 0, and the
+    calibrated route under ``calibrate_moe(threshold=1.5)`` flags a heavy
+    expert and drops 0.  Prints warm ms and the ledger's bytes."""
+    from repro_torch.data.synthetic import zipf_hot_batch
+    from repro_torch.models import moe_routing as mr
+    from repro_torch.models.common import rms_norm
+    from repro_torch.models.mlp import moe_forward_stats
+    from repro_torch.relational.ledger import Ledger
+
+    cfg = model.cfg
+    p = model.layers[0].moe
+    t, d, e, k = MOE_LAYER_TOKENS, cfg.d_model, cfg.n_experts, cfg.topk
+    out = {}
+    with torch.no_grad():
+        g = torch.Generator(device="cuda").manual_seed(seed + 5)
+        x = torch.randn((1, t, d), generator=g, device="cuda").to(cfg.torch_dtype)
+        nod = dataclasses.replace(cfg, capacity_factor=float(e))
+        plan, _ = mr.calibrate_moe(p, rms_norm(x, p["ln"], cfg.norm_eps).reshape(t, d), nod)
+        pcfg = mr.apply_plan(nod, plan)
+        yd, sd = moe_forward_stats(p, x, nod)
+        yc, sc = moe_forward_stats(p, x, pcfg)
+        sd, sc = ({kk: int(v) for kk, v in s.items()} for s in (sd, sc))
+        err = _flash_err(yd, yc)
+        check(sd == sc and sd["dropped"] == 0 and sd["routed"] == t * k,
+              f"moe layer, no drops: dense {sd} calibrated {sc}")
+        check(err <= MOE_ROUTE_TOL, f"moe layer: dense vs calibrated {err} > {MOE_ROUTE_TOL}")
+        ms_d = _warm_ms(torch, lambda: moe_forward_stats(p, x, nod))
+        ms_c = _warm_ms(torch, lambda: moe_forward_stats(p, x, pcfg))
+        print(f"moe layer alone (t={t}, d={d}, e={e}, k={k}, {cfg.dtype}), no drops: plan {plan}; "
+              f"stats dense {sd} == calibrated {sc}; max|d|/max(1,|o|)={err:.4g} (bound "
+              f"{MOE_ROUTE_TOL}); warm ms dense={ms_d:.3f} calibrated={ms_c:.3f}", flush=True)
+        del yd, yc
+        out["nodrop"] = dict(plan=plan, dense_ms=ms_d, calibrated_ms=ms_c, err=err)
+
+        xz = torch.from_numpy(zipf_hot_batch(e, d, 1, t, zs=MOE_ZIPF_S, seed=seed))
+        xz = xz.to("cuda").to(cfg.torch_dtype)
+        xfz = rms_norm(xz, p["ln"], cfg.norm_eps).reshape(t, d)
+        flat_e = mr.router_pairs(p, xfz, cfg)[0]
+        arrivals = np.bincount(flat_e.cpu().numpy(), minlength=e)
+        want = dense_drops_on_host(flat_e, cfg, t)
+        _, szd = moe_forward_stats(p, xz, cfg)
+        zplan, _ = mr.calibrate_moe(p, xfz, cfg, threshold=MOE_HEAVY_THRESHOLD)
+        zcfg = mr.apply_plan(cfg, zplan)
+        _, szc = moe_forward_stats(p, xz, zcfg)
+        szd, szc = ({kk: int(v) for kk, v in s.items()} for s in (szd, szc))
+        check(want > 0 and szd["dropped"] == want and szd["routed"] == t * k - want,
+              f"moe zipf: dense {szd}, host count {want} (arrivals {arrivals.tolist()})")
+        check(len(zplan.heavy) >= 1, f"moe zipf: no heavy expert flagged ({zplan})")
+        check(szc["dropped"] == 0 and szc["routed"] == t * k, f"moe zipf: calibrated {szc}")
+        zms_d = _warm_ms(torch, lambda: moe_forward_stats(p, xz, cfg))
+        zms_c = _warm_ms(torch, lambda: moe_forward_stats(p, xz, zcfg))
+        led = Ledger()
+        mr.record_dense_round(led, szd, cfg=cfg, t=t, d=d, note="dense")
+        mr.record_moe_round(led, szc, plan=zplan, d=d, note="calibrated")
+        dr, cr = led.records
+        print(f"moe layer alone, zipf-hot mix (zs {MOE_ZIPF_S}, arrivals {arrivals.tolist()}): "
+              f"dense (factor {cfg.capacity_factor}) {szd}, host-counted drops {want}; calibrated "
+              f"{zplan} (threshold {MOE_HEAVY_THRESHOLD}) {szc}; warm ms dense={zms_d:.3f} "
+              f"calibrated={zms_c:.3f}; ledger payload_bytes dense={dr.payload_bytes} "
+              f"calibrated={cr.payload_bytes}, padded_slots dense={dr.padded_slots} "
+              f"calibrated={cr.padded_slots}, summary {led.summary()}", flush=True)
+        out["zipf"] = dict(plan=zplan, dense=szd, calibrated=szc, dense_ms=zms_d,
+                           calibrated_ms=zms_c, payload_bytes=(dr.payload_bytes, cr.payload_bytes),
+                           padded_slots=(dr.padded_slots, cr.padded_slots))
+    return out
+
+
+def moe_kimi_train_check(torch, seed: int):
+    """Reduced kimi-k2 (f32, capacity factor e): one train step per route
+    with ``moe_metrics`` on the card against the same step on the CPU
+    ('torch' backend), held to the train phase's accumulation rule (loss
+    rtol 1e-5; parameters atol 2e-5 / rtol 2e-4 on all but TRAIN_FEW of
+    the elements, those within 2 lr); the MoE counts equal, and the two
+    routes' losses equal."""
+    from repro_torch.configs import get_config, get_model, reduced_config
+    from repro_torch.models import moe_routing as mr
+    from repro_torch.train import OptConfig, TrainConfig, init_train_state, make_train_step
+
+    base = reduced_config(get_config(MOE_KIMI))
+    base = dataclasses.replace(base, capacity_factor=float(base.n_experts))
+    b, s = 4, 16
+    rng = np.random.default_rng(seed)
+    batch = {kk: torch.from_numpy(rng.integers(0, base.vocab, (b, s))) for kk in ("tokens", "targets")}
+    tcfg = TrainConfig(opt=OptConfig(lr=TRAIN_ACCUM_LR, warmup=1), moe_metrics=True)
+    losses = {}
+    for route in ("dense", "calibrated"):
+        cfg = base if route == "dense" else mr.apply_plan(
+            base, mr.MoEPlan.sound(b * s, base.topk, base.n_experts))
+        cpu_model = get_model(cfg, "cpu", generator=torch.Generator().manual_seed(seed))
+        init = {kk: v.clone() for kk, v in cpu_model.state_dict().items()}
+        ran = {}
+        for where in ("cpu", "cuda"):
+            if where == "cpu":
+                model = cpu_model
+            else:
+                model = get_model(cfg, "cuda")
+                model.load_state_dict(init)
+            st = init_train_state(model, tcfg)
+            m = make_train_step(model, tcfg)(st, {kk: v.to(where) for kk, v in batch.items()})
+            ran[where] = (m["loss"].item(), {kk: int(m[f"moe_{kk}"]) for kk in ("routed", "dropped", "heavy")},
+                          {kk: p.detach().cpu() for kk, p in model.named_parameters()})
+        (lc, mc, pc), (lg, mg, pg) = ran["cpu"], ran["cuda"]
+        check(abs(lc - lg) <= 1e-5 * abs(lc), f"moe kimi {route}: loss card {lg} cpu {lc}")
+        n_moe = sum(1 for kind in base.blocks() if kind == "moe")
+        check(mc == mg and mc["routed"] == b * s * base.topk * n_moe and mc["dropped"] == 0,
+              f"moe kimi {route}: counts card {mg} cpu {mc}")
+        bad, total, worst = _mismatch(torch, pg, pc, dict(atol=2e-5, rtol=2e-4), 2 * TRAIN_ACCUM_LR + 2e-5)
+        check(bad <= TRAIN_FEW * total, f"moe kimi {route}: {bad} of {total} parameters differ")
+        losses[route] = lg
+        print(f"moe kimi-k2 reduced train step, {route}: loss card {lg:.7f} cpu {lc:.7f}; counts "
+              f"{mg}; parameters outside atol 2e-5 / rtol 2e-4: {bad} of {total} (max |d| "
+              f"{worst:.3g})", flush=True)
+    check(abs(losses["dense"] - losses["calibrated"]) <= 1e-5 * abs(losses["dense"]),
+          f"moe kimi: dense {losses['dense']} vs calibrated {losses['calibrated']}")
+    return losses
+
+
+def moe_phase(torch, seed: int, profile_dir: str = ""):
+    """grok-1-314b served at full width on both MoE routes, its layer alone
+    on no-drop and zipf-hot traffic, and reduced kimi-k2's train step (see
+    the module doc, item 12).  With ``profile_dir``, one more warm prefill
+    and decode of each route are profiled.  Returns the figures, the flash
+    kernel's launches, its first recorded call and the launches per
+    generate."""
+    from repro_torch.configs import get_config, get_model
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import ops as K
+    from repro_torch.models import mlp
+    from repro_torch.models import moe_routing as mr
+    from repro_torch.models import transformer as T
+
+    torch.cuda.empty_cache()
+    full = get_config(MOE_ARCH)
+    cfg = dataclasses.replace(full, n_layers=MOE_LAYERS)
+    n_layers = len(cfg.blocks())
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model = get_model(cfg, "cuda", generator=torch.Generator(device="cuda").manual_seed(seed))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    n_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    prompt = torch.from_numpy(np.random.default_rng(seed).integers(
+        0, cfg.vocab, (MOE_BATCH, MOE_PROMPT))).to("cuda")
+    s_cache = MOE_PROMPT + MOE_STEPS
+    print(f"moe {cfg.name}: d_model {cfg.d_model}, {cfg.n_heads} heads over {cfg.n_kv_heads} "
+          f"(head_dim {cfg.hd}), {cfg.n_experts} experts top-{cfg.topk}, expert d_ff "
+          f"{cfg.moe_d_ff}, vocab {cfg.vocab}, softcaps {cfg.attn_softcap}/{cfg.logit_softcap}, "
+          f"{cfg.dtype}; {n_params} params ({n_bytes} bytes), init_s={init_s:.3f}; batch "
+          f"{MOE_BATCH} x prompt {MOE_PROMPT}, s_cache {s_cache}, {MOE_STEPS} greedy steps",
+          flush=True)
+    print(f"moe reduced: n_layers {full.n_layers} -> {n_layers} (depth only; every width as "
+          f"published)", flush=True)
+
+    rec = MoERecorder(T, mlp, mr)
+    frec = FlashRecorder(FA)
+    try:
+        dense = moe_serve(torch, model, prompt, s_cache, rec, K)
+        plan = mr.MoEPlan.sound(MOE_BATCH * MOE_PROMPT, cfg.topk, cfg.n_experts)
+        cal_model = model.with_config(mr.apply_plan(cfg, plan))
+        check(all(a.data_ptr() == b.data_ptr() for a, b in
+                  zip(model.parameters(), cal_model.parameters())), "moe: a second copy of the weights")
+        print(f"moe calibrated route: {plan} (ret_cap_send {plan.ret_cap_send}, ret_cap_recv "
+              f"{plan.ret_cap_recv}) over the dense model's own tensors", flush=True)
+        calibrated = moe_serve(torch, cal_model, prompt, s_cache, rec, K)
+    finally:
+        rec.restore()
+        frec.restore()
+    if profile_dir:
+        profile_lm(torch, model, prompt, s_cache, profile_dir, tag="moe_dense")
+        profile_lm(torch, cal_model, prompt, s_cache, profile_dir, tag="moe_calibrated")
+    del cal_model
+    layer = moe_layer_checks(torch, model, seed)
+    del model
+    torch.cuda.empty_cache()
+    kimi = moe_kimi_train_check(torch, seed)
+    launches = {kk: 0 for kk in GYM_KERNELS}
+    launches["flash_attention"] = dense["flash"] + calibrated["flash"]
+    check(frec.best is not None, "moe: no flash call was recorded")
+    summary = dict(dense=dense, calibrated=calibrated, layer=layer, kimi=kimi,
+                   n_params=n_params, init_s=init_s)
+    return summary, launches, frec.best, n_layers
 
 
 # ---------------------------------------------------------------- training
@@ -2783,20 +3213,21 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--reps", type=int, default=30)
-    ap.add_argument("--phases", default="gym,grid,skew,logdepth,wire,snapshot,joinserve,lm,train",
+    ap.add_argument("--phases", default="gym,grid,skew,logdepth,wire,snapshot,joinserve,lm,moe,train",
                     help="comma-separated main paths to drive: gym (the join path), "
                          "grid (the grid engine), skew (the hybrid engine beside hash "
                          "and grid on skewed data), logdepth (Log-GTA, Log-GTA', Shares), "
                          "wire (the packed wire and plan='auto'), snapshot (save/load "
                          "mid-query), joinserve (the multi-tenant join server), lm "
-                         "(gemma2-9b serving), train (smollm-360m training on the "
-                         "GYM-assembled data pipeline)")
+                         "(gemma2-9b serving), moe (grok-1-314b serving on both MoE "
+                         "routes, the MoE layer alone, reduced kimi-k2 training), train "
+                         "(smollm-360m training on the GYM-assembled data pipeline)")
     ap.add_argument("--sizes", default="bench,real",
                     help="comma-separated gym, grid, skew, wire, snapshot and joinserve "
                          "sizes to drive: bench, real")
     ap.add_argument("--profile", default="",
                     help="comma-separated families (S_8,C_8,TC_9) to profile at real size, "
-                         "and lm to profile the LM serving path")
+                         "lm to profile the LM serving path, moe the MoE serving path")
     ap.add_argument("--profile-out", default=os.path.join(HERE, "chiprun_out", "profile"))
     args = ap.parse_args(argv)
     phases = set(args.phases.split(","))
@@ -2891,7 +3322,7 @@ def main(argv=None) -> int:
         recorded = {k: (r.best, r.kw) for k, r in recorders.items()}
         kernels += kernel_timing(torch, K, ref, recorded, launches, args.reps)
         by_path["gym"] = launches
-        fams = [f for f in args.profile.split(",") if f and f != "lm"]
+        fams = [f for f in args.profile.split(",") if f and f not in ("lm", "moe")]
         if fams:
             profile_queries(torch, args.seed, fams, args.profile_out)
     wire_recorded = None
@@ -2933,6 +3364,20 @@ def main(argv=None) -> int:
         lm, flash_call, per_generate = lm_phase(
             torch, args.seed, args.profile_out if "lm" in args.profile.split(",") else "")
         kernels.append(flash_timing(torch, flash_call, per_generate, args.reps))
+    if "moe" in phases:
+        t0 = time.perf_counter()
+        _, launches, moe_call, per_generate = moe_phase(
+            torch, args.seed, profile_dir=args.profile_out if "moe" in args.profile.split(",") else "")
+        print(f"moe path launches ('cuda' generate runs): {launches}; phase "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        moe_flash = flash_timing(torch, moe_call, per_generate, args.reps)
+        flash = [r for r in kernels if r["name"] == "flash_attention"]
+        if flash:  # the lm phase's call is the record; grok's call rides beside it
+            flash[0]["moe_call"] = {k: v for k, v in moe_flash.items()
+                                    if k not in ("name", "route", "source", "replaces")}
+        else:
+            kernels.append(moe_flash)
+        by_path["moe"] = launches
     if "train" in phases:
         t0 = time.perf_counter()
         _, launches = train_phase(torch, args.seed, args.profile_out)

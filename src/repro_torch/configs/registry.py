@@ -30,10 +30,9 @@ CONFIGS: Dict[str, ArchConfig] = {
 }
 
 #: families whose model is ported: decoder LMs of attention + MLP blocks
-#: (qwen2-vl's backbone is one, with M-RoPE)
-PORTED_FAMILIES = ("dense", "vlm")
+#: (qwen2-vl's backbone is one, with M-RoPE) and of attention + MoE blocks
+PORTED_FAMILIES = ("dense", "vlm", "moe")
 _FAMILY_ITEM = {
-    "moe": LATER["moe"],
     "ssm": LATER["mlstm"],
     "hybrid": LATER["mamba"],
     "audio": LATER["whisper"],

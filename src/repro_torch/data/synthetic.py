@@ -164,3 +164,19 @@ def tc_data_sparse(
             out[f"R{k}"] = np.unique(np.array(rows, np.int32), axis=0)
             k += 1
     return out
+
+
+# --------------------------------------------------------------- MoE tokens
+def zipf_hot_batch(
+    e: int, d: int, b: int, s: int, *, zs: float = 1.5, seed: int = 0
+) -> np.ndarray:
+    """``(b, s, d)`` float32 tokens whose router traffic is zipf-skewed
+    (``benchmarks/bench_moe.py::zipf_hot_batch``): each token is a noisy
+    copy of one of ``e`` prototype directions, prototypes drawn
+    ~ 1/rank^zs, so one expert's arrivals dominate."""
+    rng = np.random.default_rng(seed)
+    protos = rng.standard_normal((e, d)).astype(np.float32) * 2.0
+    w = np.array([1.0 / (r + 1) ** zs for r in range(e)])
+    pick = rng.choice(e, size=b * s, p=w / w.sum())
+    x = protos[pick] + 0.05 * rng.standard_normal((b * s, d)).astype(np.float32)
+    return x.reshape(b, s, d).astype(np.float32)

@@ -59,22 +59,43 @@ def dtable_from_numpy(
     )
 
 
-def _lm_leaves(cfg: ArchConfig, tree: Dict[str, Any]):
-    """``(port name, leaf, layer)`` of every leaf of a reference
+def _subpaths(tree: Dict[str, Any], prefix: Tuple[str, ...] = ()):
+    """Key paths of the leaves of a nested dict (a MoE part nests its
+    shared expert's MLP: ``("moe", "shared", "wg")``)."""
+    for key, val in tree.items():
+        if isinstance(val, dict):
+            yield from _subpaths(val, prefix + (key,))
+        else:
+            yield prefix + (key,)
+
+
+def _lm_paths(cfg: ArchConfig, tree: Dict[str, Any]):
+    """``(port name, key path, layer)`` of every leaf of a reference
     ``DecoderLM.init``-shaped tree: a segment's leaf holds its layers on
     axis 0 (``layer`` is the slice), the others are whole (``layer``
     None)."""
-    yield "embed.table", tree["embed"]["table"], None
-    yield "final_ln", tree["final_ln"], None
+    yield "embed.table", ("embed", "table"), None
+    yield "final_ln", ("final_ln",), None
     if "unembed" in tree:
-        yield "unembed.table", tree["unembed"]["table"], None
+        yield "unembed.table", ("unembed", "table"), None
     first = 0
-    for (_, count), seg in zip(cfg.segments(), tree["segments"]):
-        for part, leaves in seg.items():  # "attn" / "mlp"
-            for key, leaf in leaves.items():
-                for i in range(count):
-                    yield f"layers.{first + i}.{part}.{key}", leaf, i
+    for s, ((_, count), seg) in enumerate(zip(cfg.segments(), tree["segments"])):
+        for sub in _subpaths(seg):  # ("attn", "wq"), ("moe", "shared", "wg")
+            for i in range(count):
+                yield f"layers.{first + i}." + ".".join(sub), ("segments", s) + sub, i
         first += count
+
+
+def _at(tree, path):
+    for key in path:
+        tree = tree[key]
+    return tree
+
+
+def _lm_leaves(cfg: ArchConfig, tree: Dict[str, Any]):
+    """``(port name, leaf, layer)`` of every leaf of ``tree`` (``_lm_paths``)."""
+    for name, path, i in _lm_paths(cfg, tree):
+        yield name, _at(tree, path), i
 
 
 def _tensor(arr, device) -> torch.Tensor:
@@ -115,9 +136,8 @@ def train_state_from_numpy(
             state[part] = lm_params_from_numpy(cfg, opt_tree[part], device)
     if "f" in opt_tree:
         f = {}
-        for (name, leaf, i), (_, fl, _) in zip(
-            _lm_leaves(cfg, params_tree), _lm_leaves(cfg, opt_tree["f"])
-        ):
+        for name, path, i in _lm_paths(cfg, params_tree):
+            leaf, fl = _at(params_tree, path), _at(opt_tree["f"], path)
             shared_c = i is not None and np.ndim(leaf) == 2  # a stacked vector
             f[name] = {
                 k: _tensor(a if i is None or (k == "c" and shared_c) else np.asarray(a)[i], device)
@@ -189,8 +209,8 @@ def _reference_names(manifest: Dict[str, Any]):
         if rest[0] != "segments":
             yield key, "/".join(head + [".".join(rest)]) + tail, None, False
             continue
-        s, part, name = int(rest[1]), rest[2], rest[3]
-        pshape = shapes["/".join(["params", "segments", str(s), part, name])]
+        s, part, name = int(rest[1]), rest[2], ".".join(rest[3:])  # moe/shared/wg nests
+        pshape = shapes["/".join(["params", "segments", str(s), part] + rest[3:])]
         shared = tail == "/c" and len(pshape) == 2
         for i in range(counts[s]):
             port = "/".join(head + [f"layers.{firsts[s] + i}.{part}.{name}"]) + tail
@@ -247,7 +267,7 @@ def checkpoint_to_reference(cfg: ArchConfig, src: str, dst: str,
         if name.startswith("layers."):
             _, j, part, pname = name.split(".", 3)
             s, i = seg_of[int(j)]
-            ref = "/".join(head + ["segments", str(s), part, pname]) + tail
+            ref = "/".join(head + ["segments", str(s), part] + pname.split(".")) + tail
             shared = tail == "/c" and len(manifest["shapes"][f"params/{name}"]) == 1
         else:
             ref, i, shared = "/".join(head + name.split(".")) + tail, None, False

@@ -20,7 +20,6 @@ from torch import nn
 
 #: what each model part that the port does not have yet waits for
 LATER = {
-    "moe": "ROADMAP queue A, item 'MoE'",
     "mamba": "ROADMAP queue A, item 'SSM/xLSTM'",
     "mlstm": "ROADMAP queue A, item 'SSM/xLSTM'",
     "slstm": "ROADMAP queue A, item 'SSM/xLSTM'",

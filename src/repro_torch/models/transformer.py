@@ -5,9 +5,10 @@ decode steps over a KV cache for serving, and the training loss
 
 One ``Block`` module per layer in ``cfg.blocks()`` order (a Python loop
 takes the place of the reference's ``lax.scan`` over stacked segments).
-Block kinds ``attn`` and ``local`` (sliding window ``cfg.window``) are
-ported; the others raise ``NotImplementedError`` naming their ROADMAP
-item.
+Block kinds ``attn``, ``local`` (sliding window ``cfg.window``) and
+``moe`` (attention, then the Mixture-of-Experts layer of ``models/mlp.py``
+on ``cfg.moe_route``) are ported; the others raise
+``NotImplementedError`` naming their ROADMAP item.
 
 The backend follows ``GymConfig.local_backend``: ``'cuda'`` runs prefill
 attention on the Hopper flash kernel and refuses CPU tensors, ``'torch'``
@@ -32,10 +33,11 @@ from .attention import attn_decode, attn_forward, attn_prefill, init_attn
 from .common import (
     LATER, ArchConfig, embed, init_embed, init_norm, rms_norm, softmax_xent, unembed,
 )
-from .mlp import init_mlp, mlp_forward
+from .mlp import init_mlp, init_moe, mlp_forward, moe_forward_stats
 
 BACKENDS = ("torch", "cuda")
-PORTED_KINDS = ("attn", "local")
+PORTED_KINDS = ("attn", "local", "moe")
+MOE_STATS = ("routed", "dropped", "heavy")
 
 
 def check_kinds(cfg: ArchConfig) -> None:
@@ -49,7 +51,8 @@ def check_kinds(cfg: ArchConfig) -> None:
 
 
 class Block(nn.Module):
-    """One decoder layer: attention (global or windowed) then the MLP."""
+    """One decoder layer: attention (global or windowed) then the MLP, or
+    for kind ``moe`` global attention then the MoE layer."""
 
     def __init__(self, kind: str, cfg: ArchConfig, gen: torch.Generator):
         super().__init__()
@@ -57,26 +60,36 @@ class Block(nn.Module):
         self.cfg = cfg
         self.window = cfg.window if kind == "local" else 0
         self.attn = init_attn(gen, cfg)
-        self.mlp = init_mlp(gen, cfg)
+        if kind == "moe":
+            self.moe = init_moe(gen, cfg)
+        else:
+            self.mlp = init_mlp(gen, cfg)
+
+    def _ffn(self, x: torch.Tensor):
+        """The feed-forward half: (output, MoE stats or None)."""
+        if self.kind == "moe":
+            return moe_forward_stats(self.moe, x, self.cfg)
+        return mlp_forward(self.mlp, x, self.cfg), None
 
     def forward(self, x: torch.Tensor, pos: torch.Tensor, use_cuda: Optional[bool],
-                impl: Optional[str] = None) -> torch.Tensor:
+                impl: Optional[str] = None):
+        """(output, MoE stats ``{routed, dropped, heavy}`` or None)."""
         x = attn_forward(
             self.attn, x, self.cfg, pos=pos, causal=True, window=self.window,
             use_cuda=use_cuda, impl=impl,
         )
-        return mlp_forward(self.mlp, x, self.cfg)
+        return self._ffn(x)
 
     def prefill(self, x, pos, use_cuda: bool):
         x, cache = attn_prefill(
             self.attn, x, self.cfg, pos=pos, causal=True, window=self.window,
             use_cuda=use_cuda,
         )
-        return mlp_forward(self.mlp, x, self.cfg), cache
+        return self._ffn(x)[0], cache
 
     def decode(self, x, cache, cache_len: int):
         x, cache = attn_decode(self.attn, x, cache, cache_len, self.cfg, window=self.window)
-        return mlp_forward(self.mlp, x, self.cfg), cache
+        return self._ffn(x)[0], cache
 
 
 class DecoderLM(nn.Module):
@@ -151,25 +164,29 @@ class DecoderLM(nn.Module):
     # ------------------------------------------------------------- forward
     def _forward(self, tokens: torch.Tensor, pos: Optional[torch.Tensor],
                  use_cuda: Optional[bool], impl: Optional[str] = None,
-                 remat: bool = False) -> torch.Tensor:
-        """tokens (B, S) -> f32 logits (B, S, V).  ``remat`` runs each layer
-        under ``torch.utils.checkpoint`` (the reference's ``jax.checkpoint``
-        over its scanned layer): the backward keeps one activation a layer
-        and recomputes the rest."""
+                 remat: bool = False):
+        """tokens (B, S) -> (f32 logits (B, S, V), the MoE stats summed over
+        MoE layers, int32).  ``remat`` runs each layer under
+        ``torch.utils.checkpoint`` (the reference's ``jax.checkpoint`` over
+        its scanned layer): the backward keeps one activation a layer and
+        recomputes the rest."""
         b, s = tokens.shape
         pos = self._pos(pos, b, s)
         x = embed(tokens.to(self.device), self.embed["table"])
+        totals = {k: torch.zeros((), dtype=torch.int32, device=self.device) for k in MOE_STATS}
         for layer in self.layers:
             if remat:
-                x = checkpoint(layer, x, pos, use_cuda, impl, use_reentrant=False)
+                x, stats = checkpoint(layer, x, pos, use_cuda, impl, use_reentrant=False)
             else:
-                x = layer(x, pos, use_cuda, impl)
-        return self._head(x)
+                x, stats = layer(x, pos, use_cuda, impl)
+            if stats is not None:
+                totals = {k: totals[k] + stats[k] for k in MOE_STATS}
+        return self._head(x), totals
 
     @torch.no_grad()
     def logits(self, tokens: torch.Tensor, pos: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Full forward pass: tokens (B, S) -> f32 logits (B, S, V)."""
-        return self._forward(tokens, pos, self.use_cuda)
+        return self._forward(tokens, pos, self.use_cuda)[0]
 
     # --------------------------------------------------------------- train
     def loss(self, batch: Dict[str, torch.Tensor], remat: bool = True,
@@ -177,21 +194,30 @@ class DecoderLM(nn.Module):
         """Mean token cross-entropy of ``batch["tokens"]`` against
         ``batch["targets"]`` (both (B, S)); ``batch["pos"]`` is optional.
         ``impl`` picks the attention (``kernels.ops.attention``)."""
-        if self.backend not in (None,) + BACKENDS:
-            raise ValueError(f"backend {self.backend!r} not in {BACKENDS}")
-        # None follows the tensors and autograd (kernels.ops.attention)
-        use_cuda = None if self.backend is None else self.backend == "cuda"
-        logits = self._forward(batch["tokens"], batch.get("pos"), use_cuda, impl, remat)
-        return softmax_xent(logits, batch["targets"].to(self.device))
+        return self.loss_and_stats(batch, remat=remat, impl=impl)[0]
 
     def loss_and_stats(self, batch: Dict[str, torch.Tensor], remat: bool = True,
                        impl: Optional[str] = None):
         """Loss plus the MoE routing counts ``{routed, dropped, heavy}``
-        summed over MoE layers: int32 zeros, as the reference gives for a
-        model without MoE blocks (the only kind ported)."""
-        zero = torch.zeros((), dtype=torch.int32, device=self.device)
-        stats = {k: zero.clone() for k in ("routed", "dropped", "heavy")}
-        return self.loss(batch, remat=remat, impl=impl), stats
+        summed over MoE layers (int32; zeros for a model without MoE
+        blocks, as in the reference)."""
+        if self.backend not in (None,) + BACKENDS:
+            raise ValueError(f"backend {self.backend!r} not in {BACKENDS}")
+        # None follows the tensors and autograd (kernels.ops.attention)
+        use_cuda = None if self.backend is None else self.backend == "cuda"
+        logits, stats = self._forward(batch["tokens"], batch.get("pos"), use_cuda, impl, remat)
+        return softmax_xent(logits, batch["targets"].to(self.device)), stats
+
+    def with_config(self, cfg: ArchConfig) -> "DecoderLM":
+        """A model of ``cfg`` over this model's parameters, the same tensors
+        (the reference's ``get_model(cfg)`` applied to the same params):
+        for example ``moe_routing.apply_plan(self.cfg, plan)`` to run the
+        calibrated MoE route on the weights of the dense one.  ``cfg`` must
+        give every parameter the same shape."""
+        new = DecoderLM(cfg, "meta", backend=self.backend)
+        new.load_state_dict(self.state_dict(), assign=True)
+        new.device = self.device
+        return new
 
     def param_leaves(self) -> List[Tuple[Tuple[str, ...], bool]]:
         """The reference's parameter leaves over this model's parameter

@@ -45,6 +45,12 @@ def split_batch(batch: Dict[str, torch.Tensor], accum: int):
     return out
 
 
+#: the one parameter the loss never reaches, a shared expert's norm gain
+#: (the MoE layer normalizes once): its gradient is zero, as in JAX; any
+#: other parameter without a gradient is a fault
+UNREACHED = ".moe.shared.ln"
+
+
 def make_train_step(model, tcfg: TrainConfig) -> Callable:
     """``train_step(opt_state, batch) -> metrics``: ``loss`` (f32),
     ``grad_norm`` (before clipping) and ``step`` (int32), plus
@@ -61,7 +67,11 @@ def make_train_step(model, tcfg: TrainConfig) -> Callable:
             loss, aux = model.loss_and_stats(mb, remat=tcfg.remat)
         else:
             loss, aux = model.loss(mb, remat=tcfg.remat), None
-        grads = torch.autograd.grad(loss, [params[k] for k in names])
+        grads = torch.autograd.grad(loss, [params[k] for k in names], allow_unused=True)
+        cut = [k for k, g in zip(names, grads) if g is None and not k.endswith(UNREACHED)]
+        if cut:
+            raise RuntimeError(f"the loss does not reach {cut}: a gradient stop on its path")
+        grads = [torch.zeros_like(params[k]) if g is None else g for k, g in zip(names, grads)]
         return loss.detach(), aux, dict(zip(names, grads))
 
     def train_step(opt_state: Dict, batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:

@@ -13,7 +13,9 @@ and the join server's merged dispatches with the ``'cuda'`` backend must
 equal the ``'torch'`` backend in rows and ledger.  The training path's
 chunked attention must match the dense plain version at smollm-360m's
 shape, and a training checkpoint must round-trip on the card bit for
-bit."""
+bit.  The MoE layer on the card must route as on the CPU and agree with it
+on both routes, and reduced kimi-k2 must generate the same tokens with the
+``'cuda'`` and ``'torch'`` backends on both routes."""
 from __future__ import annotations
 
 import dataclasses
@@ -773,3 +775,69 @@ def test_cuda_train_checkpoint_round_trip(cuda_device, tmp_path):
     for key in want:
         assert got[key].dtype == want[key].dtype and torch.equal(got[key], want[key]), key
     assert step(state, b2)["loss"].item() == make_train_step(fresh, tcfg)(fstate, b2)["loss"].item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", ["dense", "calibrated"])
+def test_cuda_moe_layer_matches_cpu(cuda_device, route):
+    """The MoE layer (no kernel of its own) on the card against the same
+    layer on the CPU, f32, on planted-hot traffic: the same routing decisions,
+    plan and counts, and outputs within 1e-4 (f32 products in another
+    order)."""
+    from repro_torch.configs import get_config, reduced_config
+    from repro_torch.models import moe_routing as mr
+    from repro_torch.models.common import rms_norm
+    from repro_torch.models.mlp import init_moe, moe_forward_stats
+
+    cfg = reduced_config(get_config("kimi-k2-1t-a32b"))
+    p_cpu = init_moe(torch.Generator().manual_seed(5), cfg)
+    p_gpu = {k: v.to(cuda_device) for k, v in p_cpu.items() if k != "shared"}
+    p_gpu["shared"] = {k: v.to(cuda_device) for k, v in p_cpu["shared"].items()}
+    rng = np.random.default_rng(0)  # near-identical tokens: two hot experts
+    base = rng.standard_normal((1, 1, cfg.d_model)).astype(np.float32)
+    x = torch.from_numpy(base + 0.01 * rng.standard_normal((4, 64, cfg.d_model)).astype(np.float32))
+    ran = []
+    for p, dev in ((p_cpu, "cpu"), (p_gpu, cuda_device)):
+        xd = x.to(dev)
+        xf = rms_norm(xd, p["ln"], cfg.norm_eps).reshape(-1, cfg.d_model)
+        c = cfg
+        if route == "calibrated":
+            plan, _ = mr.calibrate_moe(p, xf, cfg, threshold=1.5)
+            c = mr.apply_plan(cfg, plan)
+        y, st = moe_forward_stats(p, xd, c)
+        ran.append((mr.router_pairs(p, xf, cfg)[0].cpu(), c.moe_plan, y.cpu(),
+                    {k: int(v) for k, v in st.items()}))
+    (e0, plan0, y0, s0), (e1, plan1, y1, s1) = ran
+    assert torch.equal(e0, e1) and plan0 == plan1 and s0 == s1
+    if route == "calibrated":
+        assert plan0.heavy and s0["dropped"] == 0 and s0["routed"] == 256 * cfg.topk
+    else:
+        assert s0["dropped"] > 0
+    np.testing.assert_allclose(y1.numpy(), y0.numpy(), atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", ["dense", "calibrated"])
+def test_cuda_moe_generate_matches_torch_backend(cuda_device, route):
+    """Reduced kimi-k2 (f32) on the card: greedy tokens with the 'cuda'
+    backend (the flash kernel in prefill) equal the 'torch' backend's, and
+    the calibrated route shares the dense model's tensors."""
+    from repro_torch.configs import get_config, get_model, reduced_config
+    from repro_torch.kernels import ops as K
+    from repro_torch.models import moe_routing as mr
+    from repro_torch.serve import generate
+
+    cfg = reduced_config(get_config("kimi-k2-1t-a32b"))
+    model = get_model(cfg, cuda_device, generator=torch.Generator(device=cuda_device).manual_seed(2))
+    if route == "calibrated":
+        model = model.with_config(mr.apply_plan(cfg, mr.MoEPlan.sound(2 * 12, cfg.topk, cfg.n_experts)))
+    prompt = torch.from_numpy(np.random.default_rng(4).integers(0, cfg.vocab, (2, 12))).to(cuda_device)
+    out = {}
+    for backend in ("cuda", "torch"):
+        model.backend = backend
+        K.reset_launch_counts()
+        out[backend] = generate(model, prompt, steps=6, return_logits=True)
+        assert K.launch_counts()["flash_attention"] == (cfg.n_layers if backend == "cuda" else 0)
+    assert torch.equal(out["cuda"][0], out["torch"][0])
+    np.testing.assert_allclose(out["cuda"][1].cpu().numpy(), out["torch"][1].cpu().numpy(),
+                               atol=1e-4, rtol=1e-4)
