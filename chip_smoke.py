@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch/CUDA port of GYM on one CUDA card.
 
     python3 chip_smoke.py [--seed N] [--reps N]
-                          [--phases gym,grid,skew,logdepth,wire,snapshot,joinserve,lm,moe,train]
+                          [--phases gym,grid,skew,logdepth,wire,snapshot,joinserve,lm,moe,ssm,train]
 
 Run from the root of a checkout on a machine with a CUDA card (sm_90a,
 an H100) and the CUDA toolkit.  In order it:
@@ -154,7 +154,39 @@ an H100) and the CUDA toolkit.  In order it:
    prints prefill seconds, decode ms a step, tokens/s, peak device
    memory, the pairs routed, dropped and heavy per layer, the layer's warm
    ms and its ledger bytes, and times the flash kernel at grok's call;
-13. (phase ``train``) drives the port's LM training path on smollm-360m
+13. (phase ``ssm``) drives the port's SSM, xLSTM and hybrid serving path
+   at full width and depth in bf16 (random weights from ``--seed``):
+   xlstm-125m (12 layers, 9 mLSTM and 3 sLSTM) on two 2048-token prompts
+   and zamba2-7b (81 layers: 75 Mamba2, the shared attention block at 6
+   positions) on two 4096-token prompts, 16 greedy tokens each through
+   ``generate`` with the ``'cuda'`` backend, cold and warm.  The flash
+   kernel must launch exactly once per shared position a ``generate`` (6
+   for zamba2, D = 112, in prefill; 0 for xlstm), no gym kernel, and the
+   logits must meet the ``lm`` phase's margin rule against a
+   teacher-forced ``'torch'`` replay (xlstm, which has no attention,
+   the whole rule).  An f32 copy of each model from the same seed then
+   prefills all but the last 48 prompt tokens (xlstm's 2000 are off its
+   256-token chunk, so the mLSTM's gate padding runs) and decodes those
+   48 teacher-forced, and the last step's logits must meet the 5% rule
+   against the whole prompt's prefill; zamba2's f32 copy also repeats
+   the cold run and the replay under the whole rule (``SSM_TAIL`` says
+   why f32; ``--profile ssm`` prints the bf16 prefill-then-decode
+   figure).  Each bf16 model is then held to its f32 copy on the prompt
+   (``SSM_LAYER_TOL``): each layer's update in prefill and in one decode
+   step on the f32 layer's input, per block kind, and the prefill logits'
+   median gap; a control with 4-bit weights must fail every one of those
+   limits.  zamba2-7b runs its ``long_500k`` decode cell (before the
+   f32 copy):
+   batch 1, ``init_caches(1, 524288, 524288 - 16)`` with the six shared
+   positions' claimed K/V prefixes filled with seeded random bf16 and the
+   Mamba2 states zero, one cold and 15 timed steps; the logits must be
+   finite, the last shared layer's attention at the last step must agree
+   with an f32 softmax over 64K-key slices, and the peak must stay under
+   0.9 of the card and within 10% of its reckoning.  It prints prefill
+   seconds, decode ms a step, tokens/s and peaks, one sLSTM and one mLSTM
+   layer's warm prefill (host ms, device ms and device operations a
+   position), and times the flash kernel at zamba2's call;
+14. (phase ``train``) drives the port's LM training path on smollm-360m
    at full width and depth in bf16 (random weights from ``--seed``, AdamW
    with f32 moments, batch 8 x 2048 tokens, so every layer's attention
    takes the chunked scan): the data pipeline's corpus join
@@ -168,7 +200,7 @@ an H100) and the CUDA toolkit.  In order it:
    lower the loss; a checkpoint after them must restore bit for bit into
    a fresh model and optimizer and give the same next loss; ``accum=2``
    must match ``accum=1`` (f32, the reference test's tolerances, see
-   ``TRAIN_FEW``); ``launch/train.py`` runs eight steps with ``--ckpt``,
+   ``TRAIN_FEW``); ``launch/train.py`` runs two steps with ``--ckpt``,
    the flash kernel launches 0 times in all of it, a ``'cuda'``-backend
    loss refuses the kernel in a child process, and ``launch/serve.py
    --ckpt`` serves the trained checkpoint with the kernel once per layer.
@@ -176,7 +208,7 @@ an H100) and the CUDA toolkit.  In order it:
    memory, the checkpoint's bytes and save/load seconds, the model FLOPs
    a step as a share of the bf16 peak, and one profiled step's device
    busy share and top device work;
-14. times each kernel at the largest inputs its path gave it (CUDA events,
+15. times each kernel at the largest inputs its path gave it (CUDA events,
    L2 flushed before each launch) beside its plain version, one PyTorch
    library call where one computes the same function, and its bound,
    prints the sorted probe's census of that call (the share of probes its
@@ -2122,7 +2154,8 @@ def _flash_err(got, want) -> float:
 
 def flash_edge_checks(torch, dev):
     """The flash kernel against its plain version on the card, within
-    ``FLASH_TOL``: head widths 16/64/128/256 (and 80, padded), f32 and
+    ``FLASH_TOL``: head widths 16/64/128/256 (and 80, padded; and 112 in
+    bf16, zamba2's, padded to 128), f32 and
     bf16, GQA groups 1/2/8, causal or not, window 0, shorter than a tile
     or longer, softcap 0 or 50, Sq != Skv both ways, Sq and Skv off the
     bf16 kernel's 128-row block and 64-key tile, Skv = 1, the main path's
@@ -2177,6 +2210,10 @@ def flash_edge_checks(torch, dev):
         run("bfloat16", 1, 4, 4, 333, 77, d, True, 0, 50.0)
     # the main path's call: gemma2-9b's global layer at 2 x 4608 tokens
     run("bfloat16", 2, 16, 8, 4608, 4608, 256, True, 0, 50.0)
+    # zamba2-7b's shared block: D = 112, padded to the bf16 kernel's 128
+    for causal, sq, sk in ((True, 130, 130), (False, 77, 333), (True, 333, 77)):
+        run("bfloat16", 2, 8, 8, sq, sk, 112, causal, 0, 0.0)
+    run("bfloat16", 2, 32, 32, 4096, 4096, 112, True, 0, 0.0)
     # and once against the dense oracle
     q = torch.from_numpy(rng.standard_normal((2, 8, 150, 64))).to(dev, torch.float32)
     k = torch.from_numpy(rng.standard_normal((2, 2, 150, 64))).to(dev, torch.float32)
@@ -2276,14 +2313,7 @@ def lm_phase(torch, seed: int, profile_dir: str = ""):
     model.backend = None
     check(sum(K.launch_counts().values()) == 0, "lm: the 'torch' backend launched a kernel")
     del caches
-    delta = float((logits - ref_logits).abs().max())
-    scale = float(ref_logits.abs().max())
-    check(delta <= LM_LOGIT_REL_TOL * scale,
-          f"lm: max |dlogit| {delta} > {LM_LOGIT_REL_TOL} * max |logit| {scale}")
-    top2 = ref_logits.topk(2, dim=-1).values
-    decided = (top2[..., 0] - top2[..., 1]) > 2 * delta
-    same = ref_logits.argmax(-1) == toks
-    check(bool(same[decided].all()), "lm: argmax differs where the margin exceeds 2 max |dlogit|")
+    delta, scale, n_same, n_decided = logit_rule(torch, logits, ref_logits, toks, "lm")
     steps_per_gen = LM_STEPS - 1
     out = {}
     for r in runs:
@@ -2308,8 +2338,8 @@ def lm_phase(torch, seed: int, profile_dir: str = ""):
     print(
         f"lm cuda vs torch backend (teacher-forced; the torch backend took {torch_s:.3f} s): "
         f"max|dlogit|={delta:.6g} max|logit|={scale:.6g} ratio={delta / scale:.3g} "
-        f"(bound {LM_LOGIT_REL_TOL}); argmax equal on {int(same.sum())}/{same.numel()} "
-        f"steps, margin > 2 max|dlogit| on {int(decided.sum())}; warm tokens == cold: "
+        f"(bound {LM_LOGIT_REL_TOL}); argmax equal on {n_same}/{toks.numel()} "
+        f"steps, margin > 2 max|dlogit| on {n_decided}; warm tokens == cold: "
         f"{bool(torch.equal(warm['toks'], toks))}; tokens[0][:8]={toks[0, :8].tolist()}",
         flush=True,
     )
@@ -2407,11 +2437,15 @@ def flash_timing(torch, recorded, launches, reps):
     t_ops = flops / BF16_FLOPS_PER_S * 1e3
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     bound = max(t_ops, t_bytes)
+    dk = next(w for w in FA.KERNEL_D[q.dtype] if w >= d)
+    padded = "" if dk == d else (
+        f"; the kernel runs D = {dk} (zero columns): {4 * b * h * dk * pairs} flop, "
+        f"{4 * b * h * dk * pairs / BF16_FLOPS_PER_S * 1e3:.6f} ms at the peak")
     print(
         f"kernel flash_attention: q {tuple(q.shape)} k/v {tuple(k.shape)} {q.dtype} {kw} "
         f"kernel_ms={ms:.5f} plain_ms={plain_ms:.5f} library_ms={library_ms:.5f} ({lib_note}) "
         f"bound_ms={bound:.6f} ({'operations' if t_ops >= t_bytes else 'bytes'}: {flops} flop "
-        f"over {pairs} visible pairs, {nbytes} B) share_of_bound={bound / ms:.4f} "
+        f"over {pairs} visible pairs, {nbytes} B{padded}) share_of_bound={bound / ms:.4f} "
         f"achieved_tflops={flops / ms / 1e9:.2f} max_abs_err={err:.6g} launches={launches}",
         flush=True,
     )
@@ -2828,11 +2862,564 @@ def moe_phase(torch, seed: int, profile_dir: str = ""):
     return summary, launches, frec.best, n_layers
 
 
+# ------------------------------------------------------------ SSM / xLSTM
+# the ssm phase: xlstm-125m and zamba2-7b at full width and depth, bf16,
+# random weights from the seed; arch -> prompt tokens a sequence
+SSM_PROMPTS = {"xlstm-125m": 2048, "zamba2-7b": 4096}
+SSM_BATCH, SSM_STEPS = 2, 16
+# (c): prefill all but the last SSM_TAIL prompt tokens, decode those
+# teacher-forced, and hold the last step's logits to the whole prefill's.
+# This gate, and the 5% bound of zamba2's cuda-vs-torch replay, run an f32
+# copy of the model (weights from the same seed; the replay's margin rule
+# holds bf16 too, (g) holds bf16 to the f32 copy layer by layer, and
+# --profile ssm prints (c)'s bf16 figure).  Random weights make these deep
+# recurrent stacks amplify a one-ulp bf16 change layer by layer: prefill
+# and decode round their GEMMs apart (a GEMM against a GEMV), and xlstm's
+# two paths then differ by 0.083 of the largest logit; the port and the
+# reference alike (on the CPU, zamba2's 81-layer pattern at d_model 256
+# gives 0.14 in the reference's bf16 and 0.17 in the port's, 1e-5 in f32:
+# tests/test_torch_ssm_bf16.py).  zamba2's 75 Mamba2 layers take the flash
+# kernel's bf16 rounding in its 6 shared-block calls (within 0.0078 of the
+# plain version at the call) to 0.053 of the largest logit
+SSM_TAIL = 48
+# (g): the bf16 model against its f32 copy (the same seed: the bf16
+# weights are the f32 ones rounded) on the same prompt.  Layer by layer,
+# each bf16 layer takes the f32 layer's input rounded to bf16, in prefill
+# over the prompt and in SSM_GATE_DECODES decode steps from the f32
+# layer's state.  Its update (output - input) differs from the f32 layer's
+# by e (relative Frobenius norm).  Part of e is the bf16 residual stream's
+# own rounding, which grows with depth as the residual outgrows the
+# update: r for each residual add (r = the f32 output's rounding to bf16,
+# over the f32 update; RESIDUAL_ADDS a block).  The block's own error,
+# sqrt(e^2 - adds * r^2), must be within SSM_LAYER_TOL[kind]: nothing
+# amplifies there, so a bf16-only cast or rounding fault in one block
+# stands against that block's own rounding.  End to end, the bf16 model's
+# prefill logits must be within SSM_E2E_TOL of the f32 copy's (the median
+# over positions of max |d| / max |logit|).  The control, each bf16 layer
+# (and the table) with every weight rounded to SSM_CONTROL_BITS mantissa
+# bits (bf16 keeps 7), must exceed each limit at every layer of each kind
+# and end to end.
+SSM_CONTROL_BITS = 4
+SSM_GATE_DECODES = 4  # decode steps a layer, teacher-forced on the prompt's first tokens
+RESIDUAL_ADDS = {"mamba": 1, "mlstm": 1, "slstm": 2, "shared_attn": 2}
+# Each limit is the geometric mean, to two digits, of the bf16 model's
+# largest reading and the control's smallest on an H100 (80GB HBM3,
+# 700 W; seed 0), so both sides clear it by 1.5-2.2x.  Block errors, bf16
+# / control: prefill mLSTM 0.0165 / 0.0646, sLSTM 0.0051 / 0.0204, Mamba2
+# 0.0089 / 0.0316, shared 0.0062 / 0.0246; decode mLSTM 0.0137 / 0.0339,
+# sLSTM 0.0043 / 0.0184, Mamba2 0.0069 / 0.0222, shared 0.0064 / 0.0237.
+# Median logit gaps: xlstm 0.327 / 0.735, zamba2 0.180 / 0.609.
+SSM_LAYER_TOL = {
+    "prefill": {"mlstm": 0.033, "slstm": 0.01, "mamba": 0.017, "shared_attn": 0.012},
+    "decode": {"mlstm": 0.021, "slstm": 0.0089, "mamba": 0.012, "shared_attn": 0.012},
+}
+SSM_E2E_TOL = {"xlstm-125m": 0.49, "zamba2-7b": 0.33}
+# (d) zamba2-7b's long_500k decode cell (the reference's SHAPES): batch 1,
+# a 524288-position cache, the first 524288 - LONG_STEPS claimed; the check
+# of one shared layer's attention reads the cache LONG_SLICE keys at a time
+LONG_CACHE, LONG_STEPS, LONG_SLICE = 524288, 16, 65536
+LONG_PEAK_SHARE_MAX = 0.9
+
+
+def logit_rule(torch, got, want, toks, what: str, bound: bool = True):
+    """The LM phases' rule for a run's logits against a replay's: max |d|
+    within ``LM_LOGIT_REL_TOL`` of the replay's largest logit (unless not
+    ``bound``), and the greedy token equal wherever the replay's top-2
+    margin exceeds twice that change.  Returns (max |d|, max |logit|,
+    steps with equal argmax, steps whose margin decides)."""
+    delta = float((got - want).abs().max())
+    scale = float(want.abs().max())
+    top2 = want.topk(2, dim=-1).values
+    decided = (top2[..., 0] - top2[..., 1]) > 2 * delta
+    same = want.argmax(-1) == toks
+    check(not bound or delta <= LM_LOGIT_REL_TOL * scale,
+          f"{what}: max |dlogit| {delta} > {LM_LOGIT_REL_TOL} * max |logit| {scale}")
+    check(bool(same[decided].all()), f"{what}: argmax differs where the margin exceeds 2 max |dlogit|")
+    return delta, scale, int(same.sum()), int(decided.sum())
+
+
+def ssm_generate(torch, model, prompt, n_flash: int, K, warm: bool = True):
+    """(a), (b): cold and warm ``generate`` through the 'cuda' backend, the
+    flash kernel ``n_flash`` times each (the shared block's positions, in
+    prefill) and no gym kernel, then a teacher-forced replay of the cold
+    run through the 'torch' backend under ``logit_rule``, whose 5% bound
+    holds an f32 model, or one without attention, whose two backends run
+    the same code (``SSM_TAIL`` says why; the margin rule holds all).
+    Without ``warm`` the cold run alone."""
+    from repro_torch.serve import generate
+
+    cfg = model.cfg
+    s_cache = prompt.shape[1] + SSM_STEPS
+    runs = []
+    for name in ("cold", "warm")[:1 + warm]:
+        torch.cuda.reset_peak_memory_stats()
+        K.reset_launch_counts()
+        stats = {}
+        toks, logits = generate(model, prompt, steps=SSM_STEPS, s_cache=s_cache,
+                                return_logits=True, stats=stats)
+        counts = K.launch_counts()
+        check(counts["flash_attention"] == n_flash,
+              f"ssm {cfg.name} {name}: flash launched {counts['flash_attention']} times, not {n_flash}")
+        check(all(counts[k] == 0 for k in GYM_KERNELS), f"ssm {cfg.name} {name}: a gym kernel launched")
+        runs.append(dict(name=name, toks=toks, logits=logits, stats=stats,
+                         peak=torch.cuda.max_memory_allocated()))
+    toks, logits = runs[0]["toks"], runs[0]["logits"]
+    check(toks.shape == (SSM_BATCH, SSM_STEPS) and logits.shape == (SSM_BATCH, SSM_STEPS, cfg.vocab),
+          f"ssm {cfg.name}: output shapes")
+    check(bool(torch.isfinite(logits).all()), f"ssm {cfg.name}: non-finite logits")
+    check(torch.equal(toks, logits.argmax(-1)), f"ssm {cfg.name}: greedy tokens are not the argmax")
+    model.backend = "torch"
+    K.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    lg, caches = model.prefill({"tokens": prompt}, s_cache=s_cache)
+    ref_logits = [lg]
+    for i in range(SSM_STEPS - 1):
+        lg, caches = model.decode_step(caches, toks[:, i])
+        ref_logits.append(lg)
+    ref_logits = torch.stack(ref_logits, dim=1)
+    torch.cuda.synchronize()
+    torch_s = time.perf_counter() - t0
+    model.backend = None
+    check(sum(K.launch_counts().values()) == 0, f"ssm {cfg.name}: the 'torch' backend launched a kernel")
+    del caches
+    out = {}
+    for r in runs:
+        st = r["stats"]
+        total = st["prefill_s"] + st["decode_s"]
+        out[r["name"]] = m = dict(
+            prefill_s=st["prefill_s"], decode_ms_per_step=1e3 * st["decode_s"] / (SSM_STEPS - 1),
+            tokens_per_s=SSM_BATCH * SSM_STEPS / total,
+            prefill_tokens_per_s=SSM_BATCH * prompt.shape[1] / st["prefill_s"], peak_bytes=r["peak"],
+        )
+        print(f"ssm {cfg.name} {cfg.dtype} generate {r['name']}: prefill_s={st['prefill_s']:.4f} "
+              f"decode_s={st['decode_s']:.4f} decode_ms_per_step={m['decode_ms_per_step']:.3f} "
+              f"tokens_per_s={m['tokens_per_s']:.2f} prefill_tokens_per_s={m['prefill_tokens_per_s']:.1f} "
+              f"max_memory_allocated={r['peak']} flash_launches={n_flash}", flush=True)
+    bound = cfg.dtype == "float32" or n_flash == 0  # without attention the paths are one
+    delta, scale = float((logits - ref_logits).abs().max()), float(ref_logits.abs().max())
+    print(f"ssm {cfg.name} {cfg.dtype} cuda vs torch backend (teacher-forced; the torch backend took "
+          f"{torch_s:.3f} s): max|dlogit|={delta:.6g} max|logit|={scale:.6g} ratio={delta / scale:.3g} "
+          f"({f'bound {LM_LOGIT_REL_TOL}' if bound else 'the margin rule only'}); warm tokens == cold: "
+          f"{bool(torch.equal(runs[-1]['toks'], toks))}; tokens[0][:8]={toks[0, :8].tolist()}", flush=True)
+    _, _, same, decided = logit_rule(torch, logits, ref_logits, toks, f"ssm {cfg.name} {cfg.dtype}", bound)
+    print(f"ssm {cfg.name} {cfg.dtype}: argmax equal on {same}/{toks.numel()} steps, margin > 2 "
+          f"max|dlogit| on {decided}", flush=True)
+    out["replay"] = (delta, scale)
+    out["flash"] = len(runs) * n_flash
+    return out
+
+
+def ssm_consistency(torch, model, prompt, gate: bool, want=None):
+    """(c): prefill all but the last ``SSM_TAIL`` tokens, decode those
+    teacher-forced, and compare the last step's logits with the whole
+    prompt's prefill (``want``, or one run here); with ``gate`` under the
+    logits' rule: the recurrent state must pass from prefill to decode.
+    Returns (max |d|, max |logit|)."""
+    cfg = model.cfg
+    p = prompt.shape[1]
+    if want is None:
+        want, caches = model.prefill({"tokens": prompt}, s_cache=p)
+        del caches
+    lg, caches = model.prefill({"tokens": prompt[:, :p - SSM_TAIL]}, s_cache=p)
+    for t in range(p - SSM_TAIL, p):
+        lg, caches = model.decode_step(caches, prompt[:, t])
+    del caches
+    what = f"ssm {cfg.name} {cfg.dtype} prefill {p - SSM_TAIL} + {SSM_TAIL} decodes"
+    if gate:
+        delta, scale, same, _ = logit_rule(torch, lg, want, want.argmax(-1), what)
+    else:
+        delta, scale = float((lg - want).abs().max()), float(want.abs().max())
+        same = int((lg.argmax(-1) == want.argmax(-1)).sum())
+    print(f"ssm {cfg.name} consistency, {cfg.dtype}: prefill {p - SSM_TAIL} tokens "
+          f"({(p - SSM_TAIL) % cfg.chunk} past the last {cfg.chunk}-token chunk) + {SSM_TAIL} "
+          f"teacher-forced decodes vs a {p}-token prefill, last position: max|dlogit|={delta:.6g} "
+          f"max|logit|={scale:.6g} ratio={delta / scale:.3g} "
+          f"({f'bound {LM_LOGIT_REL_TOL}' if gate else 'reported, not gated'}); argmax equal on "
+          f"{same}/{SSM_BATCH}", flush=True)
+    return delta, scale
+
+
+def slstm_loop_cost(torch, model, seed: int, tokens: int, profiled: bool):
+    """(f): one warm sLSTM layer's prefill over ``SSM_BATCH x tokens``
+    (its host loop, a cell step a position) beside one mLSTM layer's
+    chunked scan on the same input: host ms (synchronized) and, when
+    ``profiled``, device ms and device operations from ``torch.profiler``
+    (whose event processing takes tens of seconds here); per position is
+    per step of the loop."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    cfg = model.cfg
+    x = torch.randn((SSM_BATCH, tokens, cfg.d_model), generator=torch.Generator(device="cuda")
+                    .manual_seed(seed), device="cuda").to(cfg.torch_dtype)
+    out = {}
+    for kind in ("slstm", "mlstm"):
+        layer = next(l for l in model.layers if l.kind == kind)
+        with torch.no_grad():
+            layer.prefill(x, None, False)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            layer.prefill(x, None, False)
+            torch.cuda.synchronize()
+            host_ms = 1e3 * (time.perf_counter() - t0)
+            out[kind] = dict(host_ms=host_ms)
+            line = (f"ssm {cfg.name} one {kind} layer's prefill, {SSM_BATCH} x {tokens} (warm): "
+                    f"host_ms={host_ms:.3f} ({1e3 * host_ms / tokens:.2f} us a position)")
+            if profiled:
+                with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                    layer.prefill(x, None, False)
+                    torch.cuda.synchronize()
+                dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+                dev_ms = sum(e.time_range.elapsed_us() for e in dev) / 1e3
+                out[kind].update(device_ms=dev_ms, device_ops=len(dev))
+                line += (f" device_ms={dev_ms:.3f} device_busy_share={dev_ms / host_ms:.4f} "
+                         f"device_ops={len(dev)} ({len(dev) / tokens:.1f} a position)")
+        print(line, flush=True)
+    return out
+
+
+class DecodeRecorder:
+    """Wraps the transformer's ``attn_decode``: while ``at`` is set, keeps
+    the parameters, input, cache, length and output of the ``at``-th call
+    (counting from the arming); the call itself is unchanged."""
+
+    def __init__(self, T):
+        self.T, self.orig = T, T.attn_decode
+        self.at, self.n, self.got = None, 0, None
+        T.attn_decode = self
+
+    def __call__(self, p, x, cache, cache_len, cfg, **kw):
+        out = self.orig(p, x, cache, cache_len, cfg, **kw)
+        if self.at is not None:
+            if self.n == self.at:
+                self.got = (p, x.clone(), cache, cache_len, out[0].clone())
+            self.n += 1
+        return out
+
+    def restore(self):
+        self.T.attn_decode = self.orig
+
+
+def long_attention_check(torch, cfg, got) -> float:
+    """One decode step's attention block at a long cache against an f32
+    softmax computed here over ``LONG_SLICE``-key slices (an online
+    max/sum across slices): the block's output x + o @ wo, as
+    max |d| / max(1, |o|)."""
+    from repro_torch.models.attention import _project_qkv
+    from repro_torch.models.common import rms_norm
+
+    p, x, cache, clen, out = got
+    b = x.shape[0]
+    pos = torch.full((b, 1), clen, dtype=torch.long, device=x.device)
+    q = _project_qkv(p, rms_norm(x, p["ln"], cfg.norm_eps), cfg, pos)[0].float()
+    kc, vc = cache["k"], cache["v"]
+    kvh, hd = kc.shape[1], kc.shape[3]
+    q = q.view(b, kvh, cfg.n_heads // kvh, hd)
+    m = torch.full(q.shape[:-1] + (1,), float("-inf"), device=x.device)
+    den = torch.zeros_like(m)
+    acc = torch.zeros_like(q)
+    for lo in range(0, clen + 1, LONG_SLICE):
+        hi = min(clen + 1, lo + LONG_SLICE)
+        sc = (q @ kc[:, :, lo:hi].float().transpose(-1, -2)) * float(cfg.hd) ** -0.5
+        if cfg.attn_softcap > 0.0:
+            sc = cfg.attn_softcap * torch.tanh(sc / cfg.attn_softcap)
+        m2 = torch.maximum(m, sc.amax(-1, keepdim=True))
+        w = torch.exp(sc - m2)
+        keep = torch.exp(m - m2)
+        den = den * keep + w.sum(-1, keepdim=True)
+        acc = acc * keep + w @ vc[:, :, lo:hi].float()
+        m = m2
+    o = (acc / den).to(x.dtype).reshape(b, 1, -1)
+    return _flash_err(out, x + (o @ p["wo"]).to(x.dtype))
+
+
+def round_mantissa(torch, t, bits: int):
+    """``t`` with each element rounded to ``bits`` mantissa bits (to
+    nearest, ties away from zero), in ``t``'s dtype."""
+    drop = 23 - bits
+    x = t.float().contiguous().view(torch.int32)
+    x = (x + (1 << (drop - 1))) & -(1 << drop)
+    return x.view(torch.float32).to(t.dtype)
+
+
+def rounded_copy(torch, module, bits: int):
+    """A deep copy of ``module`` with every parameter through
+    ``round_mantissa`` (the control of ``SSM_CONTROL_BITS``)."""
+    import copy
+
+    out = copy.deepcopy(module)
+    with torch.no_grad():
+        for prm in out.parameters():
+            prm.copy_(round_mantissa(torch, prm, bits))
+    return out
+
+
+def block_err(torch, kind: str, x16, y16, x32, y32) -> float:
+    """A bf16 block's own error against the f32 block (see
+    ``SSM_LAYER_TOL``): its update's relative error less, in quadrature,
+    the bf16 residual stream's rounding."""
+    u32 = y32 - x32
+    e = float((y16.float() - x16.float() - u32).norm() / u32.norm())
+    r = float((y32.to(torch.bfloat16).float() - y32).norm() / u32.norm())
+    return max(e * e - RESIDUAL_ADDS[kind] * r * r, 0.0) ** 0.5
+
+
+def logit_gap(got, want):
+    """Per position max |d| / max |logit| over the vocabulary: (median,
+    90th percentile, max) over all positions."""
+    r = ((got.float() - want).abs().amax(-1) / want.abs().amax(-1)).flatten().double()
+    return float(r.median()), float(r.quantile(0.9)), float(r.max())
+
+
+def ssm_bf16_gate(torch, m16, m32, prompt):
+    """(g): ``m16`` (bf16) against ``m32``, its f32 copy, on ``prompt``
+    (see ``SSM_LAYER_TOL``), with the ``SSM_CONTROL_BITS`` control beside
+    it, in one pass over the layers: the f32 chain; each bf16 and control
+    layer on the f32 layer's input, in prefill and in ``SSM_GATE_DECODES``
+    decode steps of the prompt's first tokens, each from the f32 layer's
+    state before it; and the bf16 and control
+    models' own chains.  Prints the readings; returns (readings, failures,
+    the f32 chain's last-position logits)."""
+    from repro_torch.models.common import embed, rms_norm, unembed
+    from repro_torch.models.transformer import ATTN_KINDS, _pad_seq
+
+    cfg = m16.cfg
+    b, s = prompt.shape
+    bf = torch.bfloat16
+    pos = m32._pos(None, b, s)
+    use_cuda = m32.use_cuda
+    tables = {"bf16": m16.embed["table"],
+              "control": round_mantissa(torch, m16.embed["table"], SSM_CONTROL_BITS)}
+    x32 = embed(prompt, m32.embed["table"])
+    xd32 = embed(prompt[:, :SSM_GATE_DECODES], m32.embed["table"])
+    own = {w: embed(prompt, t) for w, t in tables.items()}
+    errs = {w: {"prefill": {}, "decode": {}} for w in tables}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        for l32, l16 in zip(m32.layers, m16.layers):
+            kind = l32.kind
+            base = getattr(l16, "block", l16)  # a shared position runs the one block
+            layers = {"bf16": base, "control": rounded_copy(torch, base, SSM_CONTROL_BITS)}
+            y32, c32 = l32.prefill(x32, pos, use_cuda)
+            if kind in ATTN_KINDS:  # room for the decode steps
+                c32 = {k: _pad_seq(t, s + SSM_GATE_DECODES) for k, t in c32.items()}
+            xin = x32.to(bf)
+            for w, layer in layers.items():
+                y, _ = layer.prefill(xin, pos, use_cuda)
+                errs[w]["prefill"].setdefault(kind, []).append(block_err(torch, kind, xin, y, x32, y32))
+                own[w] = layer.prefill(own[w], pos, use_cuda)[0]
+            yd32, yd = [], {w: [] for w in layers}
+            for j in range(SSM_GATE_DECODES):  # each from the f32 layer's state before it
+                xj = xd32[:, j:j + 1]
+                for w, layer in layers.items():
+                    cj = {k: t.to(bf) if kind in ATTN_KINDS else t.clone() for k, t in c32.items()}
+                    yd[w].append(layer.decode(xj.to(bf), cj, s + j)[0])
+                y, c32 = l32.decode(xj, c32, s + j)
+                yd32.append(y)
+            yd32 = torch.cat(yd32, dim=1)
+            for w in layers:
+                errs[w]["decode"].setdefault(kind, []).append(
+                    block_err(torch, kind, xd32.to(bf), torch.cat(yd[w], dim=1), xd32, yd32))
+            x32, xd32 = y32, yd32
+        want = m32._head(x32)
+        gaps = {}
+        for w, x in own.items():
+            g = m16.final_ln if w == "bf16" else round_mantissa(torch, m16.final_ln, SSM_CONTROL_BITS)
+            gaps[w] = logit_gap(unembed(rms_norm(x, g, cfg.norm_eps), tables[w], cfg.logit_softcap), want)
+    torch.cuda.synchronize()
+    gate_s = time.perf_counter() - t0
+    fails = []
+    for w in ("bf16", "control"):
+        for phase, by_kind in errs[w].items():
+            for kind, e in by_kind.items():
+                lim = SSM_LAYER_TOL[phase][kind]
+                print(f"ssm {cfg.name} (g) {w} vs f32, {phase}, {len(e)} {kind} layers: block error "
+                      f"min {min(e):.5g} median {float(np.median(e)):.5g} max {max(e):.5g} "
+                      f"(limit {lim}: {'every layer within' if w == 'bf16' else 'every layer above'})",
+                      flush=True)
+                if w == "bf16" and max(e) > lim:
+                    fails.append(f"ssm {cfg.name} (g): a bf16 {kind} layer's {phase} error "
+                                 f"{max(e)} > {lim}")
+                if w == "control" and min(e) <= lim:
+                    fails.append(f"ssm {cfg.name} (g): the {SSM_CONTROL_BITS}-bit control's {kind} "
+                                 f"{phase} error {min(e)} passes the limit {lim}")
+        med, p90, mx = gaps[w]
+        lim = SSM_E2E_TOL[cfg.name]
+        print(f"ssm {cfg.name} (g) {w} vs f32, prefill logits over {b} x {s} positions, max|d| / "
+              f"max|logit|: median {med:.5g} p90 {p90:.5g} max {mx:.5g} (limit on the median {lim})",
+              flush=True)
+        if (med > lim) if w == "bf16" else (med <= lim):
+            fails.append(f"ssm {cfg.name} (g): the {w} model's median logit gap {med} "
+                         f"{'>' if w == 'bf16' else '<='} {lim}")
+    print(f"ssm {cfg.name} (g) took {gate_s:.2f} s; {len(fails)} failures", flush=True)
+    return dict(errs=errs, gaps=gaps, seconds=gate_s), fails, want[:, -1]
+
+
+def ssm_long_decode(torch, model, seed: int, K):
+    """(d): zamba2-7b's long_500k decode cell.  ``init_caches(1, 524288,
+    524288 - 16)``; the claimed prefix of each shared-block position's K
+    and V filled in place with seeded random bf16 (the reference's dry run
+    takes cache contents as inputs), the Mamba2 states zero; one cold
+    step, then ``LONG_STEPS - 1`` timed ones.  Gates: finite logits, the
+    last step's last shared layer against ``long_attention_check``, no
+    flash launch, and the peak under ``LONG_PEAK_SHARE_MAX`` of the card
+    and within 10% above its reckoning (weights, caches, one f32 copy of a
+    K or V cache in ``attn_decode``, the f32 table for the logits)."""
+    from repro_torch.models import transformer as T
+
+    cfg = model.cfg
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    prefix = LONG_CACHE - LONG_STEPS
+    t0 = time.perf_counter()
+    caches = model.init_caches(1, LONG_CACHE, prefix)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    shared = [i for i, l in enumerate(model.layers) if l.kind == "shared_attn"]
+    for i in shared:
+        for key in ("k", "v"):
+            caches["layers"][i][key][:, :, :prefix].normal_(generator=gen)
+    torch.cuda.synchronize()
+    fill_s = time.perf_counter() - t0
+    w_bytes = sum(t.numel() * t.element_size() for t in model.parameters())
+    c_bytes = sum(t.numel() * t.element_size() for c in caches["layers"] for t in c.values())
+    k0 = caches["layers"][shared[0]]["k"]
+    reckoned = w_bytes + c_bytes + 4 * k0.numel() + 4 * cfg.vocab * cfg.d_model
+    total = torch.cuda.get_device_properties(0).total_memory
+    toks = torch.from_numpy(np.random.default_rng(seed).integers(0, cfg.vocab, (LONG_STEPS, 1))).to("cuda")
+    rec = DecodeRecorder(T)
+    K.reset_launch_counts()
+    logits = []
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lg, caches = model.decode_step(caches, toks[0])
+        torch.cuda.synchronize()
+        cold_ms = 1e3 * (time.perf_counter() - t0)
+        logits.append(lg)
+        t0 = time.perf_counter()
+        for i in range(1, LONG_STEPS):
+            if i == LONG_STEPS - 1:
+                rec.at = len(shared) - 1  # the last shared position
+            lg, caches = model.decode_step(caches, toks[i])
+            logits.append(lg)
+        torch.cuda.synchronize()
+        warm_ms = 1e3 * (time.perf_counter() - t0) / (LONG_STEPS - 1)
+    finally:
+        rec.restore()
+    peak = torch.cuda.max_memory_allocated()
+    check(caches["len"] == LONG_CACHE, f"ssm long_500k: len {caches['len']} after {LONG_STEPS} steps")
+    check(sum(K.launch_counts().values()) == 0, "ssm long_500k: a kernel launched in decode")
+    logits = torch.stack(logits)
+    check(bool(torch.isfinite(logits).all()), "ssm long_500k: non-finite logits")
+    check(rec.got is not None and rec.got[3] == LONG_CACHE - 1, "ssm long_500k: no last-step attention call")
+    err = long_attention_check(torch, cfg, rec.got)
+    check(err <= FLASH_TOL["bfloat16"], f"ssm long_500k: attention vs f32 slices {err} > {FLASH_TOL['bfloat16']}")
+    check(peak <= LONG_PEAK_SHARE_MAX * total, f"ssm long_500k: peak {peak} > {LONG_PEAK_SHARE_MAX} of {total}")
+    check(peak <= 1.1 * reckoned, f"ssm long_500k: peak {peak} > 1.1 x the reckoned {reckoned}")
+    print(f"ssm {cfg.name} long_500k decode: batch 1, cache {LONG_CACHE} positions ({prefix} claimed, "
+          f"shared-block K/V seeded random bf16, Mamba2 states 0; filled in {fill_s:.3f} s); cold step "
+          f"{cold_ms:.3f} ms, decode_ms_per_step={warm_ms:.3f} over {LONG_STEPS - 1} steps; "
+          f"max_memory_allocated={peak} ({peak / total:.4f} of {total}; reckoned {reckoned}: weights "
+          f"{w_bytes} + caches {c_bytes} + an f32 K/V copy {4 * k0.numel()} + the f32 table "
+          f"{4 * cfg.vocab * cfg.d_model}; measured/reckoned {peak / reckoned:.4f}); last step's "
+          f"last shared layer vs an f32 softmax over {LONG_SLICE}-key slices: {err:.3g} "
+          f"(bound {FLASH_TOL['bfloat16']}); logits finite, |logit| max {float(logits.abs().max()):.4g}",
+          flush=True)
+    del caches
+    torch.cuda.empty_cache()
+    return dict(cold_ms=cold_ms, decode_ms_per_step=warm_ms, peak=peak, reckoned=reckoned, err=err)
+
+
+def ssm_phase(torch, seed: int, profile_dir: str = ""):
+    """xlstm-125m and zamba2-7b served at full width and depth (see the
+    module doc, item 13).  Returns the figures, the flash kernel's
+    launches, its first recorded call (zamba2's shared block) and its
+    launches a zamba2 ``generate``."""
+    from repro_torch.configs import get_config, get_model
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import ops as K
+
+    summary, flash_total, per_generate = {}, 0, 0
+    gate_fails = []  # (g)'s, checked once both models have printed theirs
+    frec = FlashRecorder(FA)
+    try:
+        for arch, plen in SSM_PROMPTS.items():
+            torch.cuda.empty_cache()
+            cfg = get_config(arch)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            model = get_model(cfg, "cuda", generator=torch.Generator(device="cuda").manual_seed(seed))
+            torch.cuda.synchronize()
+            init_s = time.perf_counter() - t0
+            n_params = sum(p.numel() for p in model.parameters())
+            n_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
+            kinds = {k: cfg.blocks().count(k) for k in dict.fromkeys(cfg.blocks())}
+            n_flash = kinds.get("shared_attn", 0)
+            per_generate = max(per_generate, n_flash)
+            prompt = torch.from_numpy(np.random.default_rng(seed).integers(
+                0, cfg.vocab, (SSM_BATCH, plen))).to("cuda")
+            print(f"ssm {arch}: {cfg.n_layers} layers {kinds}, d_model {cfg.d_model}, {cfg.n_heads} "
+                  f"heads (head_dim {cfg.hd}), vocab {cfg.vocab}, chunk {cfg.chunk}, {cfg.dtype}; "
+                  f"{n_params} params ({n_bytes} bytes), init_s={init_s:.3f}; batch {SSM_BATCH} x "
+                  f"prompt {plen}, {SSM_STEPS} greedy steps", flush=True)
+            marks = [("start", time.perf_counter())]
+            fig = ssm_generate(torch, model, prompt, n_flash, K)
+            flash_total += fig["flash"]
+            marks.append(("generate+replay", time.perf_counter()))
+            if "slstm" in kinds:
+                fig["slstm_loop"] = slstm_loop_cost(torch, model, seed, plen, bool(profile_dir))
+            if profile_dir:  # and the bf16 prefill-then-decode figure (SSM_TAIL)
+                profile_lm(torch, model, prompt, plen + SSM_STEPS, profile_dir, tag=f"ssm_{arch}")
+                fig["consistency_bf16"] = ssm_consistency(torch, model, prompt, gate=False)
+            marks.append(("slstm loop/profile", time.perf_counter()))
+            if arch == "zamba2-7b":
+                fig["long_500k"] = ssm_long_decode(torch, model, seed, K)
+            marks.append(("long_500k", time.perf_counter()))
+            torch.cuda.empty_cache()  # the f32 copy beside the bf16 model, for (g)
+            m32 = get_model(dataclasses.replace(cfg, dtype="float32"), "cuda",
+                            generator=torch.Generator(device="cuda").manual_seed(seed))
+            if n_flash:  # the f32 replay's 5% bound (ssm_generate)
+                fig["f32"] = ssm_generate(torch, m32, prompt, n_flash, K, warm=False)
+                flash_total += fig["f32"]["flash"]
+            marks.append(("f32 replay", time.perf_counter()))
+            K.reset_launch_counts()
+            fig["bf16_gate"], fails, want = ssm_bf16_gate(torch, model, m32, prompt)
+            gate_fails += fails
+            n = K.launch_counts()["flash_attention"]  # the f32 chain, 2 bf16 and 2 control runs
+            check(n == 5 * n_flash, f"ssm {arch} (g): flash launched {n} times, not {5 * n_flash}")
+            flash_total += n
+            del model
+            marks.append(("(g) bf16 vs f32", time.perf_counter()))
+            K.reset_launch_counts()
+            fig["consistency"] = ssm_consistency(torch, m32, prompt, gate=True, want=want)
+            del m32
+            n = K.launch_counts()["flash_attention"]  # the P - SSM_TAIL prefill's
+            check(n == n_flash, f"ssm {arch} f32 consistency: flash launched {n} times, not {n_flash}")
+            flash_total += n
+            marks.append(("f32 consistency", time.perf_counter()))
+            print(f"ssm {arch} seconds: " + ", ".join(
+                f"{name} {t - marks[i][1]:.1f}" for i, (name, t) in enumerate(marks[1:])), flush=True)
+            summary[arch] = dict(fig, n_params=n_params, init_s=init_s)
+    finally:
+        frec.restore()
+    torch.cuda.empty_cache()
+    check(not gate_fails, "; ".join(gate_fails))
+    check(frec.best is not None, "ssm: no flash call was recorded")
+    launches = {k: 0 for k in GYM_KERNELS}
+    launches["flash_attention"] = flash_total
+    return summary, launches, frec.best, per_generate
+
+
 # ---------------------------------------------------------------- training
 # the train phase: smollm-360m at full width and depth, bf16, AdamW with f32
 # moments, batch 8 x 2048 tokens (16384 a step; 2048 keys meet
 # CHUNKED_MIN_KV, so every layer's attention takes the chunked scan)
 TRAIN_ARCH, TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = "smollm-360m", 8, 2048, 8
+# launch/train.py's steps with --ckpt (the script's time limit: 8 until
+# the ssm phase came)
+TRAIN_CLI_STEPS = 2
 # the corpus join at a size that gives the gym kernels real work
 TRAIN_BIG_CORPUS = dict(n_docs=2**20, n_shards=2**10)
 # chunked against dense attention at the real shape, bf16: both compute in
@@ -2990,7 +3577,7 @@ def _mismatch(torch, a, b, tol, bound):
 
 
 def train_phase(torch, seed: int, profile_dir: str = "", dev: str = "cuda"):
-    """The LM training path (see the module doc, item 13): returns the
+    """The LM training path (see the module doc, item 14): returns the
     figures and the kernels' launches over the phase's training runs."""
     from repro_torch.configs import get_config, get_model
     from repro_torch.data import CorpusConfig, batches
@@ -3135,13 +3722,13 @@ def train_phase(torch, seed: int, profile_dir: str = "", dev: str = "cuda"):
     # the launch/train.py loop on the pipeline's batches, with --ckpt
     run_dir = os.path.join(tmp, "run")
     t0 = time.perf_counter()
-    out = train_cli.main(["--arch", TRAIN_ARCH, "--steps", str(TRAIN_STEPS), "--batch",
+    out = train_cli.main(["--arch", TRAIN_ARCH, "--steps", str(TRAIN_CLI_STEPS), "--batch",
                           str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ), "--ckpt", run_dir,
                           "--device", dev])
     cli_s = time.perf_counter() - t0
-    check(len(out["losses"]) == TRAIN_STEPS and all(np.isfinite(out["losses"])),
+    check(len(out["losses"]) == TRAIN_CLI_STEPS and all(np.isfinite(out["losses"])),
           f"launch/train: losses {out['losses']}")
-    check(ckpt.latest_step(run_dir) == TRAIN_STEPS, "launch/train: no final checkpoint")
+    check(ckpt.latest_step(run_dir) == TRAIN_CLI_STEPS, "launch/train: no final checkpoint")
     del out
     torch.cuda.empty_cache()
     counts = K.launch_counts()
@@ -3151,7 +3738,7 @@ def train_phase(torch, seed: int, profile_dir: str = "", dev: str = "cuda"):
         launches[f"semijoin_probe/{k}"] += v
     launches["flash_attention"] = counts["flash_attention"]
     check(counts["flash_attention"] == 0, f"training launched the flash kernel {counts}")
-    print(f"train launch/train.py: {TRAIN_STEPS} steps with --ckpt in {cli_s:.2f} s; flash "
+    print(f"train launch/train.py: {TRAIN_CLI_STEPS} steps with --ckpt in {cli_s:.2f} s; flash "
           f"launches while training: {counts['flash_attention']}", flush=True)
 
     # a 'cuda'-backend loss refuses the kernel (a child process)
@@ -3213,21 +3800,23 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--reps", type=int, default=30)
-    ap.add_argument("--phases", default="gym,grid,skew,logdepth,wire,snapshot,joinserve,lm,moe,train",
+    ap.add_argument("--phases", default="gym,grid,skew,logdepth,wire,snapshot,joinserve,lm,moe,ssm,train",
                     help="comma-separated main paths to drive: gym (the join path), "
                          "grid (the grid engine), skew (the hybrid engine beside hash "
                          "and grid on skewed data), logdepth (Log-GTA, Log-GTA', Shares), "
                          "wire (the packed wire and plan='auto'), snapshot (save/load "
                          "mid-query), joinserve (the multi-tenant join server), lm "
                          "(gemma2-9b serving), moe (grok-1-314b serving on both MoE "
-                         "routes, the MoE layer alone, reduced kimi-k2 training), train "
+                         "routes, the MoE layer alone, reduced kimi-k2 training), ssm "
+                         "(xlstm-125m and zamba2-7b serving, zamba2's long_500k decode), train "
                          "(smollm-360m training on the GYM-assembled data pipeline)")
     ap.add_argument("--sizes", default="bench,real",
                     help="comma-separated gym, grid, skew, wire, snapshot and joinserve "
                          "sizes to drive: bench, real")
     ap.add_argument("--profile", default="",
                     help="comma-separated families (S_8,C_8,TC_9) to profile at real size, "
-                         "lm to profile the LM serving path, moe the MoE serving path")
+                         "lm to profile the LM serving path, moe the MoE serving path, "
+                         "ssm the xlstm-125m and zamba2-7b serving paths")
     ap.add_argument("--profile-out", default=os.path.join(HERE, "chiprun_out", "profile"))
     args = ap.parse_args(argv)
     phases = set(args.phases.split(","))
@@ -3322,7 +3911,7 @@ def main(argv=None) -> int:
         recorded = {k: (r.best, r.kw) for k, r in recorders.items()}
         kernels += kernel_timing(torch, K, ref, recorded, launches, args.reps)
         by_path["gym"] = launches
-        fams = [f for f in args.profile.split(",") if f and f not in ("lm", "moe")]
+        fams = [f for f in args.profile.split(",") if f and f not in ("lm", "moe", "ssm")]
         if fams:
             profile_queries(torch, args.seed, fams, args.profile_out)
     wire_recorded = None
@@ -3378,6 +3967,20 @@ def main(argv=None) -> int:
         else:
             kernels.append(moe_flash)
         by_path["moe"] = launches
+    if "ssm" in phases:
+        t0 = time.perf_counter()
+        _, launches, zamba_call, per_generate = ssm_phase(
+            torch, args.seed, profile_dir=args.profile_out if "ssm" in args.profile.split(",") else "")
+        print(f"ssm path launches ('cuda' generate and consistency runs): {launches}; phase "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        zamba_flash = flash_timing(torch, zamba_call, per_generate, args.reps)
+        flash = [r for r in kernels if r["name"] == "flash_attention"]
+        if flash:  # the lm phase's call is the record; zamba2's call rides beside it
+            flash[0]["zamba_call"] = {k: v for k, v in zamba_flash.items()
+                                      if k not in ("name", "route", "source", "replaces")}
+        else:
+            kernels.append(zamba_flash)
+        by_path["ssm"] = launches
     if "train" in phases:
         t0 = time.perf_counter()
         _, launches = train_phase(torch, args.seed, args.profile_out)

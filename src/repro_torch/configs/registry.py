@@ -30,13 +30,11 @@ CONFIGS: Dict[str, ArchConfig] = {
 }
 
 #: families whose model is ported: decoder LMs of attention + MLP blocks
-#: (qwen2-vl's backbone is one, with M-RoPE) and of attention + MoE blocks
-PORTED_FAMILIES = ("dense", "vlm", "moe")
-_FAMILY_ITEM = {
-    "ssm": LATER["mlstm"],
-    "hybrid": LATER["mamba"],
-    "audio": LATER["whisper"],
-}
+#: (qwen2-vl's backbone is one, with M-RoPE), of attention + MoE blocks,
+#: of mLSTM + sLSTM blocks (ssm: xlstm-125m) and of Mamba2 blocks with a
+#: shared attention block (hybrid: zamba2-7b)
+PORTED_FAMILIES = ("dense", "vlm", "moe", "ssm", "hybrid")
+_FAMILY_ITEM = {"audio": LATER["whisper"]}
 
 
 def get_config(arch: str) -> ArchConfig:

@@ -73,11 +73,15 @@ def _lm_paths(cfg: ArchConfig, tree: Dict[str, Any]):
     """``(port name, key path, layer)`` of every leaf of a reference
     ``DecoderLM.init``-shaped tree: a segment's leaf holds its layers on
     axis 0 (``layer`` is the slice), the others are whole (``layer``
-    None)."""
+    None).  zamba2's shared block is one unstacked ``shared_attn`` subtree
+    (``shared_attn.*`` in the port); its segments are empty placeholders,
+    which hold no leaf but still count their layers."""
     yield "embed.table", ("embed", "table"), None
     yield "final_ln", ("final_ln",), None
     if "unembed" in tree:
         yield "unembed.table", ("unembed", "table"), None
+    for sub in _subpaths(tree.get("shared_attn", {})):
+        yield "shared_attn." + ".".join(sub), ("shared_attn",) + sub, None
     first = 0
     for s, ((_, count), seg) in enumerate(zip(cfg.segments(), tree["segments"])):
         for sub in _subpaths(seg):  # ("attn", "wq"), ("moe", "shared", "wg")
@@ -182,17 +186,15 @@ def snapshot_from_reference(src: str, dst: str) -> None:
         np.savez(f, meta=json.dumps(meta), **arrays)
 
 
-def _reference_names(manifest: Dict[str, Any]):
-    """Map a reference training checkpoint's keys onto the port's: yields
-    ``(reference key, port key, layer or None, shared)``.  Segment counts
-    come from the stacked parameters' leading axes; ``shared`` marks the
-    column statistic of a stacked vector, which every layer gets whole."""
+def _reference_names(cfg: ArchConfig, manifest: Dict[str, Any]):
+    """Map a reference training checkpoint of a ``cfg`` model onto the
+    port's keys: yields ``(reference key, port key, layer or None,
+    shared)``.  Segment counts come from ``cfg``: an empty placeholder
+    segment (zamba2's shared block) holds no key to count.  ``shared``
+    marks the column statistic of a stacked vector, which every layer gets
+    whole."""
     shapes = manifest["shapes"]
-    counts: Dict[int, int] = {}
-    for key, shape in shapes.items():
-        parts = key.split("/")
-        if parts[:2] == ["params", "segments"]:
-            counts[int(parts[2])] = shape[0]
+    counts = {s: count for s, (_, count) in enumerate(cfg.segments())}
     firsts, first = {}, 0
     for s in sorted(counts):
         firsts[s], first = first, first + counts[s]
@@ -217,18 +219,20 @@ def _reference_names(manifest: Dict[str, Any]):
             yield key, port, (None if shared else i), shared
 
 
-def checkpoint_from_reference(src: str, dst: str, step: Optional[int] = None) -> int:
-    """Copy the reference's training checkpoint under ``src`` (its latest
-    step, or ``step``) into the port's layout under ``dst``; returns the
-    step.  Segment leaves are unstacked into per-layer keys (as
-    ``train_state_from_numpy`` does); leaves, dtypes (bf16 bits included),
-    ``step`` and ``extra`` are kept."""
+def checkpoint_from_reference(cfg: ArchConfig, src: str, dst: str,
+                              step: Optional[int] = None) -> int:
+    """Copy the reference's training checkpoint of a ``cfg`` model under
+    ``src`` (its latest step, or ``step``) into the port's layout under
+    ``dst``; returns the step.  Segment leaves are unstacked into
+    per-layer keys (as ``train_state_from_numpy`` does), the shared
+    block's leaves go to ``shared_attn.*``; leaves, dtypes (bf16 bits
+    included), ``step`` and ``extra`` are kept."""
     from .train import checkpoint as ckpt
 
     path, manifest = ckpt.read_manifest(src, step)
     arrays, dtypes = {}, {}
     with np.load(os.path.join(path, "arrays.npz")) as z:
-        for key, port, i, _ in _reference_names(manifest):
+        for key, port, i, _ in _reference_names(cfg, manifest):
             a = z[key]
             arrays[port] = a if i is None else np.ascontiguousarray(a[i])
             dtypes[port] = manifest["dtypes"][key]
@@ -252,7 +256,10 @@ def checkpoint_to_reference(cfg: ArchConfig, src: str, dst: str,
     """Inverse of ``checkpoint_from_reference``: the port's training
     checkpoint of a ``cfg`` model under ``src`` -> the reference's layout
     under ``dst`` (each segment's layers stacked back on axis 0, a
-    stacked vector's shared ``c`` once); returns the step."""
+    stacked vector's shared ``c`` once, ``shared_attn.*`` as the one
+    ``shared_attn`` subtree); returns the step.  The segment indices
+    count the shared block's empty placeholder segments, which hold no
+    key, as the reference's ``save`` writes them."""
     from .train import checkpoint as ckpt
 
     path, manifest = ckpt.read_manifest(src, step)

@@ -20,10 +20,6 @@ from torch import nn
 
 #: what each model part that the port does not have yet waits for
 LATER = {
-    "mamba": "ROADMAP queue A, item 'SSM/xLSTM'",
-    "mlstm": "ROADMAP queue A, item 'SSM/xLSTM'",
-    "slstm": "ROADMAP queue A, item 'SSM/xLSTM'",
-    "shared_attn": "ROADMAP queue A, item 'SSM/xLSTM' (zamba2's shared block)",
     "whisper": "ROADMAP queue A, item 'Whisper'",
 }
 

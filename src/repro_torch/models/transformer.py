@@ -1,14 +1,16 @@
 """Decoder LM over a block pattern (counterpart of
 ``repro/models/transformer.py``): prefill of a prompt batch and one-token
-decode steps over a KV cache for serving, and the training loss
+decode steps over per-layer caches for serving, and the training loss
 (``loss``, ``loss_and_stats``) with per-layer rematerialization.
 
 One ``Block`` module per layer in ``cfg.blocks()`` order (a Python loop
 takes the place of the reference's ``lax.scan`` over stacked segments).
-Block kinds ``attn``, ``local`` (sliding window ``cfg.window``) and
+Block kinds: ``attn``, ``local`` (sliding window ``cfg.window``) and
 ``moe`` (attention, then the Mixture-of-Experts layer of ``models/mlp.py``
-on ``cfg.moe_route``) are ported; the others raise
-``NotImplementedError`` naming their ROADMAP item.
+on ``cfg.moe_route``); ``mamba`` (Mamba2, ``models/ssm.py``), ``mlstm``
+and ``slstm`` (``models/xlstm.py``); and ``shared_attn``, zamba2's one
+attention + MLP block, held once as ``DecoderLM.shared_attn`` and run at
+every ``shared_attn`` position, each position with its own KV cache.
 
 The backend follows ``GymConfig.local_backend``: ``'cuda'`` runs prefill
 attention on the Hopper flash kernel and refuses CPU tensors, ``'torch'``
@@ -17,18 +19,21 @@ CUDA device and ``'torch'`` on the CPU.  The flash kernel has no
 backward, so the loss takes ``kernels.ops.attention``'s rule under
 autograd (the chunked scan at 2048 keys and more, the plain version
 below) unless ``impl`` names one; with the ``'cuda'`` backend named it
-reaches the kernel, which refuses to be recorded.  The device defaults to
-the CUDA card and raises without one; the CPU is used only when asked for.
+reaches the kernel, which refuses to be recorded.  The recurrent kinds
+run plain PyTorch on either backend (the reference has no kernel there).
+The device defaults to the CUDA card and raises without one; the CPU is
+used only when asked for.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..relational.spmd import resolve_device
+from . import ssm, xlstm
 from .attention import attn_decode, attn_forward, attn_prefill, init_attn
 from .common import (
     LATER, ArchConfig, embed, init_embed, init_norm, rms_norm, softmax_xent, unembed,
@@ -36,7 +41,27 @@ from .common import (
 from .mlp import init_mlp, init_moe, mlp_forward, moe_forward_stats
 
 BACKENDS = ("torch", "cuda")
-PORTED_KINDS = ("attn", "local", "moe")
+#: the kinds whose cache is a KV cache (the reference's ``ATTN_KINDS``)
+ATTN_KINDS = ("attn", "local", "moe", "shared_attn")
+
+
+class Recurrent(NamedTuple):
+    """A recurrent block kind's functions (``models/ssm.py``,
+    ``models/xlstm.py``)."""
+    init: Callable
+    prefill: Callable
+    decode: Callable
+    init_state: Callable
+
+
+RECURRENT = {
+    "mamba": Recurrent(ssm.init_mamba, ssm.mamba_prefill, ssm.mamba_decode, ssm.mamba_init_state),
+    "mlstm": Recurrent(xlstm.init_mlstm, xlstm.mlstm_prefill, xlstm.mlstm_decode,
+                       xlstm.mlstm_init_state),
+    "slstm": Recurrent(xlstm.init_slstm, xlstm.slstm_prefill, xlstm.slstm_decode,
+                       xlstm.slstm_init_state),
+}
+PORTED_KINDS = ATTN_KINDS + tuple(RECURRENT)
 MOE_STATS = ("routed", "dropped", "heavy")
 
 
@@ -51,14 +76,19 @@ def check_kinds(cfg: ArchConfig) -> None:
 
 
 class Block(nn.Module):
-    """One decoder layer: attention (global or windowed) then the MLP, or
-    for kind ``moe`` global attention then the MoE layer."""
+    """One decoder layer: attention (global or windowed) then the MLP, for
+    kind ``moe`` global attention then the MoE layer, or one recurrent
+    block (``mamba``, ``mlstm``, ``slstm``: its parameters under the kind's
+    name, as in the reference's tree)."""
 
     def __init__(self, kind: str, cfg: ArchConfig, gen: torch.Generator):
         super().__init__()
         self.kind = kind
         self.cfg = cfg
         self.window = cfg.window if kind == "local" else 0
+        if kind in RECURRENT:
+            setattr(self, kind, RECURRENT[kind].init(gen, cfg))
+            return
         self.attn = init_attn(gen, cfg)
         if kind == "moe":
             self.moe = init_moe(gen, cfg)
@@ -74,6 +104,8 @@ class Block(nn.Module):
     def forward(self, x: torch.Tensor, pos: torch.Tensor, use_cuda: Optional[bool],
                 impl: Optional[str] = None):
         """(output, MoE stats ``{routed, dropped, heavy}`` or None)."""
+        if self.kind in RECURRENT:
+            return RECURRENT[self.kind].prefill(getattr(self, self.kind), x, self.cfg)[0], None
         x = attn_forward(
             self.attn, x, self.cfg, pos=pos, causal=True, window=self.window,
             use_cuda=use_cuda, impl=impl,
@@ -81,6 +113,8 @@ class Block(nn.Module):
         return self._ffn(x)
 
     def prefill(self, x, pos, use_cuda: bool):
+        if self.kind in RECURRENT:
+            return RECURRENT[self.kind].prefill(getattr(self, self.kind), x, self.cfg)
         x, cache = attn_prefill(
             self.attn, x, self.cfg, pos=pos, causal=True, window=self.window,
             use_cuda=use_cuda,
@@ -88,8 +122,43 @@ class Block(nn.Module):
         return self._ffn(x)[0], cache
 
     def decode(self, x, cache, cache_len: int):
+        if self.kind in RECURRENT:
+            return RECURRENT[self.kind].decode(getattr(self, self.kind), x, cache, self.cfg)
         x, cache = attn_decode(self.attn, x, cache, cache_len, self.cfg, window=self.window)
         return self._ffn(x)[0], cache
+
+    def init_cache(self, batch: int, s_cache: int, device) -> Dict[str, torch.Tensor]:
+        """This layer's empty cache: zero ``{k, v}`` of ``s_cache``
+        positions, or the recurrent kind's initial state."""
+        if self.kind in RECURRENT:
+            return RECURRENT[self.kind].init_state(self.cfg, batch, device)
+        cfg = self.cfg
+        shape = (batch, cfg.n_kv_heads, s_cache, cfg.hd)
+        return {k: torch.zeros(shape, dtype=cfg.torch_dtype, device=device) for k in ("k", "v")}
+
+
+class SharedPosition(nn.Module):
+    """A ``shared_attn`` position: it runs the model's one shared block and
+    holds no parameter of its own (the block is not registered here, so
+    the model's parameters and state dict hold it once, as
+    ``shared_attn.*``, and its gradient sums over the positions)."""
+
+    def __init__(self, block: Block):
+        super().__init__()
+        self.kind = block.kind
+        self.__dict__["block"] = block  # bypasses nn.Module's registration
+
+    def forward(self, *args):
+        return self.block(*args)
+
+    def prefill(self, *args):
+        return self.block.prefill(*args)
+
+    def decode(self, *args):
+        return self.block.decode(*args)
+
+    def init_cache(self, *args):
+        return self.block.init_cache(*args)
 
 
 class DecoderLM(nn.Module):
@@ -98,8 +167,11 @@ class DecoderLM(nn.Module):
     and ``logits`` for the full forward pass; training surface: ``loss``,
     ``loss_and_stats`` and ``param_leaves``.
 
-    Caches are ``{"layers": [{"k", "v"} (B, KV, s_cache, hd) per layer],
-    "len": int}``; decode writes them in place."""
+    Caches are ``{"layers": [one dict a layer], "len": int}``, each
+    layer's by its kind as in the reference: ``{"k", "v"}`` (B, KV,
+    s_cache, hd) for the attention kinds, written in place by decode;
+    ``{"conv", "ssm"}`` for ``mamba``, ``{"c", "n"}`` for ``mlstm`` and
+    ``{"c", "n", "h", "m"}`` for ``slstm``, all f32, replaced each step."""
 
     def __init__(
         self,
@@ -133,7 +205,15 @@ class DecoderLM(nn.Module):
         self.final_ln = init_norm(cfg.d_model, cfg.torch_dtype, dev)
         if not cfg.tie_embeddings:
             self.unembed = init_embed(gen, cfg.vocab, cfg.d_model, cfg.torch_dtype)
-        self.layers = nn.ModuleList(Block(kind, cfg, gen) for kind in cfg.blocks())
+        layers: List[nn.Module] = []
+        for kind in cfg.blocks():
+            if kind != "shared_attn":
+                layers.append(Block(kind, cfg, gen))
+                continue
+            if not hasattr(self, "shared_attn"):  # one block for every position
+                self.shared_attn = Block(kind, cfg, gen)
+            layers.append(SharedPosition(self.shared_attn))
+        self.layers = nn.ModuleList(layers)
 
     # ------------------------------------------------------------- helpers
     @property
@@ -221,7 +301,9 @@ class DecoderLM(nn.Module):
 
     def param_leaves(self) -> List[Tuple[Tuple[str, ...], bool]]:
         """The reference's parameter leaves over this model's parameter
-        names, ``(names, stacked)``: the unstacked ones, then each
+        names, ``(names, stacked)``: the unstacked ones (the tables, the
+        final norm, zamba2's shared block, which the reference keeps as
+        one unstacked leaf whatever its count of positions), then each
         segment's.  The
         reference stacks each run of equal block kinds (``cfg.segments()``)
         on a leading layer axis, so one leaf there is ``stacked`` layers
@@ -242,7 +324,7 @@ class DecoderLM(nn.Module):
     @torch.no_grad()
     def prefill(self, batch: Dict[str, torch.Tensor], s_cache: Optional[int] = None):
         """Run the prompt; returns (last-token logits (B, V), caches), the
-        caches zero-padded to ``s_cache`` positions with ``len = S``."""
+        KV caches zero-padded to ``s_cache`` positions with ``len = S``."""
         tokens = batch["tokens"].to(self.device)
         b, s = tokens.shape
         s_cache = s_cache or s
@@ -254,27 +336,29 @@ class DecoderLM(nn.Module):
         caches: List[Dict[str, torch.Tensor]] = []
         for layer in self.layers:
             x, c = layer.prefill(x, pos, use_cuda)
-            caches.append({k: _pad_seq(t, s_cache) for k, t in c.items()})
+            if layer.kind in ATTN_KINDS:
+                c = {k: _pad_seq(t, s_cache) for k, t in c.items()}
+            caches.append(c)
         logits = self._head(x[:, -1:])
         return logits[:, 0], {"layers": caches, "len": s}
 
     def init_caches(self, batch: int, s_cache: int, prefix_len: int) -> Dict[str, Any]:
-        """Zero caches of ``s_cache`` positions claiming a valid prefix of
-        ``prefix_len`` (each layer gets its own tensors)."""
-        cfg = self.cfg
-        shape = (batch, cfg.n_kv_heads, s_cache, cfg.hd)
-        layers = [
-            {k: torch.zeros(shape, dtype=cfg.torch_dtype, device=self.device) for k in ("k", "v")}
-            for _ in self.layers
-        ]
+        """Empty caches claiming a valid prefix of ``prefix_len``: zero KV
+        caches of ``s_cache`` positions, each recurrent layer's initial
+        state (each layer gets its own tensors)."""
+        layers = [layer.init_cache(batch, s_cache, self.device) for layer in self.layers]
         return {"layers": layers, "len": int(prefix_len)}
 
     @torch.no_grad()
     def decode_step(self, caches: Dict[str, Any], tokens: torch.Tensor):
-        """One token for every sequence: tokens (B,) -> logits (B, V)."""
+        """One token for every sequence: tokens (B,) -> logits (B, V).  A
+        model with attention refuses a full KV cache; a recurrent-only
+        one has no cache length."""
         clen = int(caches["len"])
-        if clen >= caches["layers"][0]["k"].shape[2]:
-            raise ValueError(f"cache full: len {clen} of {caches['layers'][0]['k'].shape[2]}")
+        kv = [c["k"].shape[2] for layer, c in zip(self.layers, caches["layers"])
+              if layer.kind in ATTN_KINDS]
+        if kv and clen >= kv[0]:
+            raise ValueError(f"cache full: len {clen} of {kv[0]}")
         x = embed(tokens.to(self.device)[:, None], self.embed["table"])
         new: List[Dict[str, torch.Tensor]] = []
         for layer, cache in zip(self.layers, caches["layers"]):
@@ -290,4 +374,3 @@ def _pad_seq(t: torch.Tensor, s_cache: int) -> torch.Tensor:
     out = torch.zeros((b, kv, s_cache, hd), dtype=t.dtype, device=t.device)
     out[:, :, :s] = t
     return out
-

@@ -15,7 +15,8 @@ chunked attention must match the dense plain version at smollm-360m's
 shape, and a training checkpoint must round-trip on the card bit for
 bit.  The MoE layer on the card must route as on the CPU and agree with it
 on both routes, and reduced kimi-k2 must generate the same tokens with the
-``'cuda'`` and ``'torch'`` backends on both routes."""
+``'cuda'`` and ``'torch'`` backends on both routes, as must reduced
+xlstm-125m and zamba2-7b."""
 from __future__ import annotations
 
 import dataclasses
@@ -840,4 +841,35 @@ def test_cuda_moe_generate_matches_torch_backend(cuda_device, route):
         assert K.launch_counts()["flash_attention"] == (cfg.n_layers if backend == "cuda" else 0)
     assert torch.equal(out["cuda"][0], out["torch"][0])
     np.testing.assert_allclose(out["cuda"][1].cpu().numpy(), out["torch"][1].cpu().numpy(),
+                               atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["xlstm-125m", "zamba2-7b"])
+def test_cuda_recurrent_generate_matches_torch_backend(cuda_device, arch):
+    """Reduced xlstm-125m and zamba2-7b (f32) on the card: greedy tokens
+    and logits with the 'cuda' backend equal the 'torch' backend's; the
+    flash kernel runs at each shared-block position in zamba2's prefill
+    and never in xlstm; the card's logits agree with the CPU's.  A prompt
+    of 37 tokens is off the chunk (16), so the mLSTM's gate padding runs."""
+    from repro_torch.configs import get_config, get_model, reduced_config
+    from repro_torch.kernels import ops as K
+    from repro_torch.serve import generate
+
+    cfg = reduced_config(get_config(arch))
+    model = get_model(cfg, cuda_device, generator=torch.Generator(device=cuda_device).manual_seed(2))
+    prompt = torch.from_numpy(np.random.default_rng(4).integers(0, cfg.vocab, (2, 37))).to(cuda_device)
+    out = {}
+    n_shared = sum(k == "shared_attn" for k in cfg.blocks())
+    for backend in ("cuda", "torch"):
+        model.backend = backend
+        K.reset_launch_counts()
+        out[backend] = generate(model, prompt, steps=6, return_logits=True)
+        assert K.launch_counts()["flash_attention"] == (n_shared if backend == "cuda" else 0)
+    assert torch.equal(out["cuda"][0], out["torch"][0])
+    np.testing.assert_allclose(out["cuda"][1].cpu().numpy(), out["torch"][1].cpu().numpy(),
+                               atol=1e-4, rtol=1e-4)
+    cpu = get_model(cfg, "cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    np.testing.assert_allclose(cpu.logits(prompt.cpu()).numpy(), model.logits(prompt).cpu().numpy(),
                                atol=1e-4, rtol=1e-4)

@@ -38,7 +38,7 @@ def test_port_modules_exist():
         "kernels/sorted_probe.py", "kernels/build.py", "data/synthetic.py",
         "interop.py", "kernels/flash_attention.py", "kernels/ops.py", "kernels/ref.py",
         "models/common.py", "models/attention.py", "models/mlp.py",
-        "models/moe_routing.py", "models/transformer.py", "configs/registry.py", "configs/gemma2_9b.py",
+        "models/moe_routing.py", "models/transformer.py", "models/ssm.py", "models/xlstm.py", "configs/registry.py", "configs/gemma2_9b.py",
         "serve/decode.py", "launch/serve.py", "relational/grid.py", "core/loggta.py",
         "core/loggta_prime.py", "core/cgta.py", "core/acq_mr.py", "core/shares.py",
         "relational/wire.py", "relational/shuffle.py", "kernels/wire_codec.py",

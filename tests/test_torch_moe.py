@@ -554,7 +554,7 @@ def test_moe_checkpoints_both_ways(kimi, tmp_path):
     ptree, stree, _ = kimi["dense"]
     jsrc, pdst = str(tmp_path / "ref1"), str(tmp_path / "port1")
     jckpt.save(jsrc, 1, {"params": ptree, "opt": stree}, extra={"next_step": 1})
-    assert checkpoint_from_reference(jsrc, pdst) == 1
+    assert checkpoint_from_reference(cfg, jsrc, pdst) == 1
     fresh = get_model(cfg, "cpu")
     st = init_train_state(fresh, tcfg)
     got, _ = ckpt.restore(pdst, state_tree(fresh, st))

@@ -359,7 +359,7 @@ def test_checkpoint_from_reference_resumes(ref_steps, tmp_path):
     p1, s1, _ = step(r.params, joptim.opt_init(tcfg.opt, r.params), _jb(batch))
     src, dst = str(tmp_path / "ref"), str(tmp_path / "port")
     jckpt.save(src, 1, {"params": p1, "opt": s1}, extra={"next_step": 1})
-    assert checkpoint_from_reference(src, dst) == 1
+    assert checkpoint_from_reference(r.cfg, src, dst) == 1
     model = get_model(r.cfg, "cpu")
     ptcfg = TrainConfig(opt=OptConfig(lr=STEP_LR, warmup=1))
     state = init_train_state(model, ptcfg)
@@ -415,7 +415,7 @@ def test_checkpoint_bf16_leaves_by_their_bits(tmp_path):
     st = jax.tree_util.tree_map(lambda a: a + jnp.asarray(0.5, a.dtype) if a.ndim else a, st)
     src, dst = str(tmp_path / "ref"), str(tmp_path / "port")
     jckpt.save(src, 3, {"params": params, "opt": st})
-    checkpoint_from_reference(src, dst)
+    checkpoint_from_reference(cfg, src, dst)
     model = get_model(cfg, "cpu", generator=torch.Generator().manual_seed(1))
     state = optim.opt_init(OptConfig(moments_dtype="bfloat16"), dict(model.named_parameters()))
     restored, _ = ckpt.restore(dst, state_tree(model, state))
