@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch/CUDA port of GYM on one CUDA card.
 
     python3 chip_smoke.py [--seed N] [--reps N]
-                          [--phases gym,grid,skew,logdepth,wire,snapshot,joinserve,lm,moe,ssm,train]
+                          [--phases gym,grid,skew,logdepth,wire,snapshot,joinserve,lm,moe,ssm,whisper,train]
 
 Run from the root of a checkout on a machine with a CUDA card (sm_90a,
 an H100) and the CUDA toolkit.  In order it:
@@ -134,7 +134,8 @@ an H100) and the CUDA toolkit.  In order it:
    16 greedy tokens through ``generate`` with the ``'cuda'`` backend, on
    the dense route (capacity factor 1.25) and on the calibrated route
    under ``MoEPlan.sound(4096, 2, 8)`` over the same tensors
-   (``DecoderLM.with_config``), each cold and warm.  The flash kernel must
+   (``DecoderLM.with_config``), each cold (and warm with ``--profile
+   moe``, which also profiles both routes).  The flash kernel must
    launch once per layer a ``generate`` (D = 128), the calibrated route
    must route t*k pairs and drop 0 in every MoE call, the dense route's
    drops must equal a host bincount of its own router decisions against
@@ -175,18 +176,37 @@ an H100) and the CUDA toolkit.  In order it:
    (``SSM_LAYER_TOL``): each layer's update in prefill and in one decode
    step on the f32 layer's input, per block kind, and the prefill logits'
    median gap; a control with 4-bit weights must fail every one of those
-   limits.  zamba2-7b runs its ``long_500k`` decode cell (before the
-   f32 copy):
-   batch 1, ``init_caches(1, 524288, 524288 - 16)`` with the six shared
+   limits.  Each model runs its ``long_500k`` decode cell (the port's
+   ``SHAPES`` and ``cell_enabled``; before the f32 copy):
+   batch 1, ``init_caches(1, 524288, 524288 - 16)`` with zamba2's six shared
    positions' claimed K/V prefixes filled with seeded random bf16 and the
-   Mamba2 states zero, one cold and 15 timed steps; the logits must be
-   finite, the last shared layer's attention at the last step must agree
-   with an f32 softmax over 64K-key slices, and the peak must stay under
-   0.9 of the card and within 10% of its reckoning.  It prints prefill
+   recurrent states zero, one cold and 15 timed steps; the logits must be
+   finite, zamba2's last shared layer's attention at the last step must
+   agree with an f32 softmax over 64K-key slices, and the peak must stay
+   under 0.9 of the card and within 10% of its reckoning.  It prints prefill
    seconds, decode ms a step, tokens/s and peaks, one sLSTM and one mLSTM
    layer's warm prefill (host ms, device ms and device operations a
    position), and times the flash kernel at zamba2's call;
-14. (phase ``train``) drives the port's LM training path on smollm-360m
+14. (phase ``whisper``) drives the port's encoder-decoder serving path,
+   ``generate_whisper`` over ``WhisperModel.prefill`` and ``decode_step``,
+   on whisper-small at full width and depth in bf16 (random weights and
+   frames from ``--seed``), with the ``'cuda'`` backend: (a) 32 x 1500
+   frames (whisper's 30-s window, ``SHAPES["prefill_32k"]``'s batch), 32
+   greedy tokens, cold and warm: the flash kernel must launch 396 times a
+   ``generate`` (the 12 encoder layers, then each decoder layer's
+   cross-attention in the BOS step and in each of 31 decode steps, at one
+   query a sequence), the logits must meet the margin rule against a
+   teacher-forced ``'torch'`` replay, and on an f32 copy the 5% rule for
+   the replay and for the teacher-forced decode against the decoder's full
+   forward over the same tokens; (b) ``prefill_32k`` with the batch cut to
+   4 (4 x 32768 frames, 4 decode steps), cold and warm, the recorded
+   encoder call held once to the plain version; (c) ``decode_32k`` with
+   the batch cut to 48: ``init_caches(48, 32768, 64)``, the cross K/V
+   seeded random bf16, 8 decode steps; the logits must be finite and the
+   peak within ``WHISPER_PEAK_MARGIN`` of its reckoning.  It prints
+   prefill seconds, decode ms a step, tokens/s and peaks, and times the
+   flash kernel at (a)'s encoder call and (c)'s cross call;
+15. (phase ``train``) drives the port's LM training path on smollm-360m
    at full width and depth in bf16 (random weights from ``--seed``, AdamW
    with f32 moments, batch 8 x 2048 tokens, so every layer's attention
    takes the chunked scan): the data pipeline's corpus join
@@ -206,9 +226,9 @@ an H100) and the CUDA toolkit.  In order it:
    --ckpt`` serves the trained checkpoint with the kernel once per layer.
    It prints the warm step seconds (median of seven), tokens/s, peak
    memory, the checkpoint's bytes and save/load seconds, the model FLOPs
-   a step as a share of the bf16 peak, and one profiled step's device
-   busy share and top device work;
-15. times each kernel at the largest inputs its path gave it (CUDA events,
+   a step as a share of the bf16 peak, and with ``--profile train`` one
+   profiled step's device busy share and top device work;
+16. times each kernel at the largest inputs its path gave it (CUDA events,
    L2 flushed before each launch) beside its plain version, one PyTorch
    library call where one computes the same function, and its bound,
    prints the sorted probe's census of that call (the share of probes its
@@ -292,6 +312,8 @@ LOGDEPTH_MAX_CAP = 2**25
 LOGDEPTH_MIN_BAG = 16_000_000
 # the LM serving phase: gemma2-9b at full width and depth
 LM_ARCH, LM_BATCH, LM_PROMPT, LM_STEPS = "gemma2-9b", 2, 4608, 16
+# the paths `--profile` names (any other name is a gym family)
+PROFILE_PATHS = ("lm", "moe", "ssm", "whisper", "train")
 # flash kernel vs its plain version: f32 both accumulate in f32 and differ
 # in summation order only; bf16 both round an f32 result once, a value on
 # a rounding boundary may land one or two bf16 ulps apart (2**-7 relative
@@ -2158,8 +2180,9 @@ def flash_edge_checks(torch, dev):
     bf16, zamba2's, padded to 128), f32 and
     bf16, GQA groups 1/2/8, causal or not, window 0, shorter than a tile
     or longer, softcap 0 or 50, Sq != Skv both ways, Sq and Skv off the
-    bf16 kernel's 128-row block and 64-key tile, Skv = 1, the main path's
-    shape, and fully masked rows, which must be exactly 0."""
+    bf16 kernel's 128-row block and 64-key tile, Skv = 1, Sq = 1 (whisper's
+    cross-attention in decode), the main paths' shapes, and fully masked
+    rows, which must be exactly 0."""
     import itertools
 
     from repro_torch.kernels import flash_attention as FA
@@ -2214,6 +2237,14 @@ def flash_edge_checks(torch, dev):
     for causal, sq, sk in ((True, 130, 130), (False, 77, 333), (True, 333, 77)):
         run("bfloat16", 2, 8, 8, sq, sk, 112, causal, 0, 0.0)
     run("bfloat16", 2, 32, 32, 4096, 4096, 112, True, 0, 0.0)
+    # whisper-small, D = 64, non-causal: cross-attention in decode (one
+    # query a sequence: the bf16 kernel's 128-row block holds one real
+    # row, the rest arrive as zeros and are never stored) and the encoder
+    # at its 1500 frames (off the 128-row block and the 64-key tile)
+    for dtype in ("float32", "bfloat16"):
+        for sk in (1, 63, 64, 1500, 4097):
+            run(dtype, 3, 12, 12, 1, sk, 64, False, 0, 0.0)
+        run(dtype, 2, 12, 12, 1500, 1500, 64, False, 0, 0.0)
     # and once against the dense oracle
     q = torch.from_numpy(rng.standard_normal((2, 8, 150, 64))).to(dev, torch.float32)
     k = torch.from_numpy(rng.standard_normal((2, 2, 150, 64))).to(dev, torch.float32)
@@ -2226,17 +2257,21 @@ def flash_edge_checks(torch, dev):
 
 class FlashRecorder:
     """Wraps the flash wrapper to keep clones of the first call of a
-    global (window 0) layer; the wrapped call still launches the kernel."""
+    global (window 0) layer (without ``clone``, the tensors themselves:
+    for inputs nothing writes afterwards); the wrapped call still launches
+    the kernel."""
 
-    def __init__(self, mod):
+    def __init__(self, mod, clone: bool = True):
         self.mod = mod
         self.orig = mod.flash_attention
         self.best = None
+        self.clone = clone
         mod.flash_attention = self
 
     def __call__(self, q, k, v, **kw):
         if self.best is None and not kw.get("window"):
-            self.best = (q.clone(), k.clone(), v.clone(), dict(kw))
+            qkv = tuple(t.clone() for t in (q, k, v)) if self.clone else (q, k, v)
+            self.best = qkv + (dict(kw),)
         return self.orig(q, k, v, **kw)
 
     def restore(self):
@@ -2345,21 +2380,22 @@ def lm_phase(torch, seed: int, profile_dir: str = ""):
     )
     check(rec.best is not None, "lm: no global-layer flash call was recorded")
     if profile_dir:
-        profile_lm(torch, model, prompt, s_cache, profile_dir)
+        profile_lm(torch, model, {"tokens": prompt}, s_cache, profile_dir)
     del model, logits, ref_logits, runs, cold, warm
     torch.cuda.empty_cache()
     return out, rec.best, n_layers
 
 
-def profile_lm(torch, model, prompt, s_cache: int, out_dir: str, tag: str = "lm") -> None:
-    """``torch.profiler`` over one warm prefill and, apart, over the decode
-    steps of one ``generate``: host seconds, the device's busy share, and
-    the top device work by name (operator tables go to ``out_dir``)."""
+def profile_lm(torch, model, batch, s_cache: int, out_dir: str, tag: str = "lm") -> None:
+    """``torch.profiler`` over one warm prefill of ``batch`` and, apart,
+    over the decode steps of one ``generate``: host seconds, the device's
+    busy share, and the top device work by name (operator tables go to
+    ``out_dir``)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     os.makedirs(out_dir, exist_ok=True)
-    logits, caches = model.prefill({"tokens": prompt}, s_cache=s_cache)
+    logits, caches = model.prefill(batch, s_cache=s_cache)
     tok = logits.argmax(-1)
     windows = {}
     for name in ("prefill", "decode"):
@@ -2367,7 +2403,7 @@ def profile_lm(torch, model, prompt, s_cache: int, out_dir: str, tag: str = "lm"
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             if name == "prefill":
-                model.prefill({"tokens": prompt}, s_cache=s_cache)
+                model.prefill(batch, s_cache=s_cache)
             else:
                 for _ in range(LM_STEPS - 1):
                     logits, caches = model.decode_step(caches, tok)
@@ -2548,17 +2584,17 @@ class MoERecorder:
         self.mlp.router_pairs = self.mr.router_pairs = self.orig_router
 
 
-def moe_serve(torch, model, prompt, s_cache, rec, K):
-    """Cold and warm ``generate`` through the 'cuda' backend, then a
-    teacher-forced replay of the cold run through the 'torch' backend:
-    returns the runs' figures and the flash launches."""
+def moe_serve(torch, model, prompt, s_cache, rec, K, warm: bool = False):
+    """A cold (and with ``warm`` a warm) ``generate`` through the 'cuda'
+    backend, then a teacher-forced replay of the cold run through the
+    'torch' backend: returns the runs' figures and the flash launches."""
     from repro_torch.serve import generate
 
     cfg = model.cfg
     n_layers, k = len(cfg.blocks()), cfg.topk
     route = cfg.moe_route
     runs = []
-    for name in ("cold", "warm"):
+    for name in ("cold", "warm")[:1 + warm]:
         torch.cuda.reset_peak_memory_stats()
         K.reset_launch_counts()
         stats = {}
@@ -2649,7 +2685,7 @@ def moe_serve(torch, model, prompt, s_cache, rec, K):
           f"choice differed from the run's (forced to the run's): {flips} of {len(replay)}, "
           f"{sum(f[2] for f in forced)} tokens, largest top-k margin among them "
           f"{max(f[3] for f in forced):.3g}; warm "
-          f"tokens == cold: {bool(torch.equal(runs[1]['toks'], toks))}; tokens[0][:8]="
+          f"tokens == cold: {bool(torch.equal(runs[-1]['toks'], toks))}; tokens[0][:8]="
           f"{toks[0, :8].tolist()}", flush=True)
     check(delta <= LM_LOGIT_REL_TOL * scale,
           f"moe {route}: max |dlogit| {delta} > {LM_LOGIT_REL_TOL} * max |logit| {scale}")
@@ -2798,8 +2834,8 @@ def moe_kimi_train_check(torch, seed: int):
 def moe_phase(torch, seed: int, profile_dir: str = ""):
     """grok-1-314b served at full width on both MoE routes, its layer alone
     on no-drop and zipf-hot traffic, and reduced kimi-k2's train step (see
-    the module doc, item 12).  With ``profile_dir``, one more warm prefill
-    and decode of each route are profiled.  Returns the figures, the flash
+    the module doc, item 12).  With ``profile_dir``, each route's warm
+    ``generate`` and one more warm prefill and decode, profiled.  Returns the figures, the flash
     kernel's launches, its first recorded call and the launches per
     generate."""
     from repro_torch.configs import get_config, get_model
@@ -2835,20 +2871,20 @@ def moe_phase(torch, seed: int, profile_dir: str = ""):
     rec = MoERecorder(T, mlp, mr)
     frec = FlashRecorder(FA)
     try:
-        dense = moe_serve(torch, model, prompt, s_cache, rec, K)
+        dense = moe_serve(torch, model, prompt, s_cache, rec, K, warm=bool(profile_dir))
         plan = mr.MoEPlan.sound(MOE_BATCH * MOE_PROMPT, cfg.topk, cfg.n_experts)
         cal_model = model.with_config(mr.apply_plan(cfg, plan))
         check(all(a.data_ptr() == b.data_ptr() for a, b in
                   zip(model.parameters(), cal_model.parameters())), "moe: a second copy of the weights")
         print(f"moe calibrated route: {plan} (ret_cap_send {plan.ret_cap_send}, ret_cap_recv "
               f"{plan.ret_cap_recv}) over the dense model's own tensors", flush=True)
-        calibrated = moe_serve(torch, cal_model, prompt, s_cache, rec, K)
+        calibrated = moe_serve(torch, cal_model, prompt, s_cache, rec, K, warm=bool(profile_dir))
     finally:
         rec.restore()
         frec.restore()
     if profile_dir:
-        profile_lm(torch, model, prompt, s_cache, profile_dir, tag="moe_dense")
-        profile_lm(torch, cal_model, prompt, s_cache, profile_dir, tag="moe_calibrated")
+        profile_lm(torch, model, {"tokens": prompt}, s_cache, profile_dir, tag="moe_dense")
+        profile_lm(torch, cal_model, {"tokens": prompt}, s_cache, profile_dir, tag="moe_calibrated")
     del cal_model
     layer = moe_layer_checks(torch, model, seed)
     del model
@@ -2914,10 +2950,11 @@ SSM_LAYER_TOL = {
     "decode": {"mlstm": 0.021, "slstm": 0.0089, "mamba": 0.012, "shared_attn": 0.012},
 }
 SSM_E2E_TOL = {"xlstm-125m": 0.49, "zamba2-7b": 0.33}
-# (d) zamba2-7b's long_500k decode cell (the reference's SHAPES): batch 1,
-# a 524288-position cache, the first 524288 - LONG_STEPS claimed; the check
-# of one shared layer's attention reads the cache LONG_SLICE keys at a time
-LONG_CACHE, LONG_STEPS, LONG_SLICE = 524288, 16, 65536
+# (d) the long_500k decode cell of each arch that ``cell_enabled`` admits
+# (the port's SHAPES["long_500k"], as the reference's): batch 1, a
+# 524288-position cache, the first 524288 - LONG_STEPS claimed; the check of
+# one shared layer's attention reads the cache LONG_SLICE keys at a time
+LONG_STEPS, LONG_SLICE = 16, 65536
 LONG_PEAK_SHARE_MAX = 0.9
 
 
@@ -3258,23 +3295,28 @@ def ssm_bf16_gate(torch, m16, m32, prompt):
 
 
 def ssm_long_decode(torch, model, seed: int, K):
-    """(d): zamba2-7b's long_500k decode cell.  ``init_caches(1, 524288,
-    524288 - 16)``; the claimed prefix of each shared-block position's K
-    and V filled in place with seeded random bf16 (the reference's dry run
-    takes cache contents as inputs), the Mamba2 states zero; one cold
-    step, then ``LONG_STEPS - 1`` timed ones.  Gates: finite logits, the
-    last step's last shared layer against ``long_attention_check``, no
-    flash launch, and the peak under ``LONG_PEAK_SHARE_MAX`` of the card
-    and within 10% above its reckoning (weights, caches, one f32 copy of a
-    K or V cache in ``attn_decode``, the f32 table for the logits)."""
+    """(d): the model's long_500k decode cell.  ``init_caches(1, S, S -
+    16)`` with ``S = SHAPES["long_500k"][0]``; the claimed prefix of each
+    shared-block position's K and V (zamba2-7b's) filled in place with
+    seeded random bf16 (the reference's dry run takes cache contents as
+    inputs), the recurrent states zero; one cold step, then ``LONG_STEPS -
+    1`` timed ones.  Gates: finite logits, no flash launch, the peak under
+    ``LONG_PEAK_SHARE_MAX`` of the card and within 10% above its reckoning
+    (what is allocated when the cell starts: the weights and what the phase
+    still holds; the caches, one f32 copy of a K or V cache in
+    ``attn_decode``, the f32 table for the logits), and with shared positions the last
+    step's last shared layer against ``long_attention_check``."""
+    from repro_torch.configs import SHAPES
     from repro_torch.models import transformer as T
 
     cfg = model.cfg
+    long_cache = SHAPES["long_500k"][0]
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    prefix = LONG_CACHE - LONG_STEPS
+    base = torch.cuda.memory_allocated()
+    prefix = long_cache - LONG_STEPS
     t0 = time.perf_counter()
-    caches = model.init_caches(1, LONG_CACHE, prefix)
+    caches = model.init_caches(1, long_cache, prefix)
     gen = torch.Generator(device="cuda").manual_seed(seed)
     shared = [i for i, l in enumerate(model.layers) if l.kind == "shared_attn"]
     for i in shared:
@@ -3284,8 +3326,8 @@ def ssm_long_decode(torch, model, seed: int, K):
     fill_s = time.perf_counter() - t0
     w_bytes = sum(t.numel() * t.element_size() for t in model.parameters())
     c_bytes = sum(t.numel() * t.element_size() for c in caches["layers"] for t in c.values())
-    k0 = caches["layers"][shared[0]]["k"]
-    reckoned = w_bytes + c_bytes + 4 * k0.numel() + 4 * cfg.vocab * cfg.d_model
+    kv_copy = 4 * caches["layers"][shared[0]]["k"].numel() if shared else 0
+    reckoned = base + c_bytes + kv_copy + 4 * cfg.vocab * cfg.d_model
     total = torch.cuda.get_device_properties(0).total_memory
     toks = torch.from_numpy(np.random.default_rng(seed).integers(0, cfg.vocab, (LONG_STEPS, 1))).to("cuda")
     rec = DecodeRecorder(T)
@@ -3300,7 +3342,7 @@ def ssm_long_decode(torch, model, seed: int, K):
         logits.append(lg)
         t0 = time.perf_counter()
         for i in range(1, LONG_STEPS):
-            if i == LONG_STEPS - 1:
+            if i == LONG_STEPS - 1 and shared:
                 rec.at = len(shared) - 1  # the last shared position
             lg, caches = model.decode_step(caches, toks[i])
             logits.append(lg)
@@ -3309,24 +3351,28 @@ def ssm_long_decode(torch, model, seed: int, K):
     finally:
         rec.restore()
     peak = torch.cuda.max_memory_allocated()
-    check(caches["len"] == LONG_CACHE, f"ssm long_500k: len {caches['len']} after {LONG_STEPS} steps")
-    check(sum(K.launch_counts().values()) == 0, "ssm long_500k: a kernel launched in decode")
+    what = f"ssm {cfg.name} long_500k"
+    check(caches["len"] == long_cache, f"{what}: len {caches['len']} after {LONG_STEPS} steps")
+    check(sum(K.launch_counts().values()) == 0, f"{what}: a kernel launched in decode")
     logits = torch.stack(logits)
-    check(bool(torch.isfinite(logits).all()), "ssm long_500k: non-finite logits")
-    check(rec.got is not None and rec.got[3] == LONG_CACHE - 1, "ssm long_500k: no last-step attention call")
-    err = long_attention_check(torch, cfg, rec.got)
-    check(err <= FLASH_TOL["bfloat16"], f"ssm long_500k: attention vs f32 slices {err} > {FLASH_TOL['bfloat16']}")
-    check(peak <= LONG_PEAK_SHARE_MAX * total, f"ssm long_500k: peak {peak} > {LONG_PEAK_SHARE_MAX} of {total}")
-    check(peak <= 1.1 * reckoned, f"ssm long_500k: peak {peak} > 1.1 x the reckoned {reckoned}")
-    print(f"ssm {cfg.name} long_500k decode: batch 1, cache {LONG_CACHE} positions ({prefix} claimed, "
-          f"shared-block K/V seeded random bf16, Mamba2 states 0; filled in {fill_s:.3f} s); cold step "
-          f"{cold_ms:.3f} ms, decode_ms_per_step={warm_ms:.3f} over {LONG_STEPS - 1} steps; "
-          f"max_memory_allocated={peak} ({peak / total:.4f} of {total}; reckoned {reckoned}: weights "
-          f"{w_bytes} + caches {c_bytes} + an f32 K/V copy {4 * k0.numel()} + the f32 table "
-          f"{4 * cfg.vocab * cfg.d_model}; measured/reckoned {peak / reckoned:.4f}); last step's "
-          f"last shared layer vs an f32 softmax over {LONG_SLICE}-key slices: {err:.3g} "
-          f"(bound {FLASH_TOL['bfloat16']}); logits finite, |logit| max {float(logits.abs().max()):.4g}",
-          flush=True)
+    check(bool(torch.isfinite(logits).all()), f"{what}: non-finite logits")
+    err = None
+    if shared:
+        check(rec.got is not None and rec.got[3] == long_cache - 1, f"{what}: no last-step attention call")
+        err = long_attention_check(torch, cfg, rec.got)
+        check(err <= FLASH_TOL["bfloat16"], f"{what}: attention vs f32 slices {err} > {FLASH_TOL['bfloat16']}")
+    check(peak <= LONG_PEAK_SHARE_MAX * total, f"{what}: peak {peak} > {LONG_PEAK_SHARE_MAX} of {total}")
+    check(peak <= 1.1 * reckoned, f"{what}: peak {peak} > 1.1 x the reckoned {reckoned}")
+    attn = (f"; last step's last shared layer vs an f32 softmax over {LONG_SLICE}-key slices: "
+            f"{err:.3g} (bound {FLASH_TOL['bfloat16']})" if shared else "")
+    print(f"{what} decode: batch 1, cache {long_cache} positions ({prefix} claimed, "
+          f"{'shared-block K/V seeded random bf16, ' if shared else ''}recurrent states 0; filled in "
+          f"{fill_s:.3f} s); cold step {cold_ms:.3f} ms, decode_ms_per_step={warm_ms:.3f} over "
+          f"{LONG_STEPS - 1} steps; max_memory_allocated={peak} ({peak / total:.4f} of {total}; "
+          f"reckoned {reckoned}: allocated at the start {base} (weights {w_bytes}) + caches {c_bytes} "
+          f"+ an f32 K/V copy {kv_copy} + "
+          f"the f32 table {4 * cfg.vocab * cfg.d_model}; measured/reckoned {peak / reckoned:.4f})"
+          f"{attn}; logits finite, |logit| max {float(logits.abs().max()):.4g}", flush=True)
     del caches
     torch.cuda.empty_cache()
     return dict(cold_ms=cold_ms, decode_ms_per_step=warm_ms, peak=peak, reckoned=reckoned, err=err)
@@ -3337,7 +3383,7 @@ def ssm_phase(torch, seed: int, profile_dir: str = ""):
     module doc, item 13).  Returns the figures, the flash kernel's
     launches, its first recorded call (zamba2's shared block) and its
     launches a zamba2 ``generate``."""
-    from repro_torch.configs import get_config, get_model
+    from repro_torch.configs import cell_enabled, get_config, get_model
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import ops as K
 
@@ -3371,10 +3417,11 @@ def ssm_phase(torch, seed: int, profile_dir: str = ""):
             if "slstm" in kinds:
                 fig["slstm_loop"] = slstm_loop_cost(torch, model, seed, plen, bool(profile_dir))
             if profile_dir:  # and the bf16 prefill-then-decode figure (SSM_TAIL)
-                profile_lm(torch, model, prompt, plen + SSM_STEPS, profile_dir, tag=f"ssm_{arch}")
+                profile_lm(torch, model, {"tokens": prompt}, plen + SSM_STEPS, profile_dir,
+                           tag=f"ssm_{arch}")
                 fig["consistency_bf16"] = ssm_consistency(torch, model, prompt, gate=False)
             marks.append(("slstm loop/profile", time.perf_counter()))
-            if arch == "zamba2-7b":
+            if cell_enabled(arch, "long_500k"):
                 fig["long_500k"] = ssm_long_decode(torch, model, seed, K)
             marks.append(("long_500k", time.perf_counter()))
             torch.cuda.empty_cache()  # the f32 copy beside the bf16 model, for (g)
@@ -3410,6 +3457,292 @@ def ssm_phase(torch, seed: int, profile_dir: str = ""):
     launches = {k: 0 for k in GYM_KERNELS}
     launches["flash_attention"] = flash_total
     return summary, launches, frec.best, per_generate
+
+
+# ---------------------------------------------------------------- Whisper
+# the whisper phase: whisper-small at full width and depth, nothing cut (12
+# encoder + 12 decoder layers, d_model 768, 12 heads of 64, d_ff 3072, vocab
+# 51865, tied table, bf16, 294683904 params), random weights from the seed;
+# the frames (the conv frontend is a stub in both packages) are normal values
+# drawn on the card from the seed.
+# (a) serving at whisper's own audio context: 1500 frames (its 30-s window
+# after the conv stride), SHAPES["prefill_32k"]'s batch (32), 32 greedy
+# tokens, a self cache of 32 + 4 positions (launch/serve.py's rule)
+WHISPER_ARCH, WHISPER_FRAMES, WHISPER_STEPS = "whisper-small", 1500, 32
+# (b) SHAPES["prefill_32k"] with the batch cut 32 -> 4 for the script's time
+# (each of the 12 encoder calls is then 1.32e13 flop), 4 decode steps
+WHISPER_PREFILL_BATCH, WHISPER_PREFILL_STEPS = 4, 4
+# (c) SHAPES["decode_32k"] with the batch cut 128 -> 48: the cross caches
+# take 1.208e9 B a sequence (12 layers x K and V x 12 heads x 32768 x 64 x
+# 2 B), 154.6 GB at 128, and 64 would need 78.0 GB in all (0.92 of the card);
+# the self cache holds 64 positions (the reference's input_specs), 8 steps
+WHISPER_DECODE_BATCH, WHISPER_DECODE_STEPS = 48, 8
+# (c)'s peak: at most this share above its reckoning (what is allocated when
+# the cell starts, the weights among it; the caches; the f32 copy of the
+# table for the logits)
+WHISPER_PEAK_MARGIN = 0.02
+
+
+def whisper_serve(torch, model, frames, n_flash: int, K, warm: bool = True):
+    """(a): cold (and with ``warm`` warm) ``generate_whisper`` through the
+    'cuda' backend, the flash kernel ``n_flash`` times each and no gym
+    kernel, then a teacher-forced replay of the cold run through the
+    'torch' backend under ``logit_rule``, whose 5% bound holds an f32
+    model (the margin rule holds both).  Returns the figures and the cold
+    run's tokens and logits."""
+    from repro_torch.serve import generate_whisper
+
+    cfg = model.cfg
+    b = frames.shape[0]
+    dec_cache = WHISPER_STEPS + 4
+    runs = []
+    for name in ("cold", "warm")[:1 + warm]:
+        torch.cuda.reset_peak_memory_stats()
+        K.reset_launch_counts()
+        stats = {}
+        toks, logits = generate_whisper(model, frames, steps=WHISPER_STEPS, dec_cache=dec_cache,
+                                        return_logits=True, stats=stats)
+        counts = K.launch_counts()
+        check(counts["flash_attention"] == n_flash,
+              f"whisper {cfg.dtype} {name}: flash launched {counts['flash_attention']} times, not {n_flash}")
+        check(all(counts[k] == 0 for k in GYM_KERNELS), f"whisper {name}: a gym kernel launched")
+        runs.append(dict(name=name, toks=toks, logits=logits, stats=stats,
+                         peak=torch.cuda.max_memory_allocated()))
+    toks, logits = runs[0]["toks"], runs[0]["logits"]
+    check(toks.shape == (b, WHISPER_STEPS) and logits.shape == (b, WHISPER_STEPS, cfg.vocab),
+          f"whisper {cfg.dtype}: output shapes")
+    check(bool(torch.isfinite(logits).all()), f"whisper {cfg.dtype}: non-finite logits")
+    check(torch.equal(toks, logits.argmax(-1)), f"whisper {cfg.dtype}: greedy tokens are not the argmax")
+    model.backend = "torch"
+    K.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    lg, caches = model.prefill({"frames": frames}, s_cache=dec_cache)
+    ref_logits = [lg]
+    for i in range(WHISPER_STEPS - 1):
+        lg, caches = model.decode_step(caches, toks[:, i])
+        ref_logits.append(lg)
+    ref_logits = torch.stack(ref_logits, dim=1)
+    torch.cuda.synchronize()
+    torch_s = time.perf_counter() - t0
+    model.backend = None
+    check(sum(K.launch_counts().values()) == 0, "whisper: the 'torch' backend launched a kernel")
+    del caches
+    out = {}
+    for r in runs:
+        st = r["stats"]
+        total = st["prefill_s"] + st["decode_s"]
+        out[r["name"]] = m = dict(
+            prefill_s=st["prefill_s"], decode_ms_per_step=1e3 * st["decode_s"] / (WHISPER_STEPS - 1),
+            tokens_per_s=b * WHISPER_STEPS / total, peak_bytes=r["peak"],
+        )
+        print(f"whisper {cfg.name} {cfg.dtype} generate {r['name']}: prefill_s={st['prefill_s']:.4f} "
+              f"decode_s={st['decode_s']:.4f} decode_ms_per_step={m['decode_ms_per_step']:.3f} "
+              f"tokens_per_s={m['tokens_per_s']:.2f} max_memory_allocated={r['peak']} "
+              f"flash_launches={n_flash}", flush=True)
+    bound = cfg.dtype == "float32"
+    delta, scale, same, decided = logit_rule(torch, logits, ref_logits, toks,
+                                             f"whisper {cfg.dtype} cuda vs torch", bound)
+    print(f"whisper {cfg.dtype} cuda vs torch backend (teacher-forced; the torch backend took "
+          f"{torch_s:.3f} s): max|dlogit|={delta:.6g} max|logit|={scale:.6g} ratio={delta / scale:.3g} "
+          f"({f'bound {LM_LOGIT_REL_TOL}' if bound else 'the margin rule only'}); argmax equal on "
+          f"{same}/{toks.numel()} steps, margin > 2 max|dlogit| on {decided}; warm tokens == cold: "
+          f"{bool(torch.equal(runs[-1]['toks'], toks))}; tokens[0][:8]={toks[0, :8].tolist()}",
+          flush=True)
+    out["replay"] = (delta, scale)
+    return out, toks, logits
+
+
+def whisper_phase(torch, seed: int, reps: int, profile_dir: str = ""):
+    """whisper-small served at full width and depth (see the module doc,
+    item 14): (a) 1500 frames, (b) prefill_32k, (c) decode_32k, and the
+    flash kernel timed at (a)'s encoder call and (c)'s cross call.
+    Returns the figures, the flash launches, the two timing records and
+    the launches a (a) ``generate``."""
+    from repro_torch.configs import SHAPES, get_config, get_model
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import ops as K
+    from repro_torch.serve import generate_whisper
+
+    def gen():
+        return torch.Generator(device="cuda").manual_seed(seed)
+
+    torch.cuda.empty_cache()
+    cfg = get_config(WHISPER_ARCH)
+    n_enc, n_dec, d = cfg.enc_layers, cfg.n_layers, cfg.d_model
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model = get_model(cfg, "cuda", generator=gen())
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    w_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    check(n_params == 294683904, f"whisper: {n_params} params, not whisper-small's 294683904")
+    per_generate = n_enc + n_dec * WHISPER_STEPS  # the encoder, then cross-attention a step
+    _, batch, _ = SHAPES["prefill_32k"]
+    print(f"whisper {cfg.name}: {n_enc} encoder + {n_dec} decoder layers, d_model {d}, "
+          f"{cfg.n_heads} heads (head_dim {cfg.hd}), d_ff {cfg.d_ff}, vocab {cfg.vocab}, "
+          f"{cfg.dtype}; {n_params} params ({w_bytes} bytes), init_s={init_s:.3f}", flush=True)
+    summary, flash_total, records = dict(n_params=n_params, init_s=init_s), 0, {}
+    marks = [("start", time.perf_counter())]
+
+    # (a) whisper's own context, bf16, then the f32 copy
+    frames = torch.randn((batch, WHISPER_FRAMES, d), generator=gen(), device="cuda").to(cfg.torch_dtype)
+    print(f"whisper (a): batch {batch} x {WHISPER_FRAMES} frames, {WHISPER_STEPS} greedy steps, "
+          f"self cache {WHISPER_STEPS + 4}", flush=True)
+    rec = FlashRecorder(FA)  # the first call: encoder layer 0
+    try:
+        summary["a"], _, _ = whisper_serve(torch, model, frames, per_generate, K)
+    finally:
+        rec.restore()
+    flash_total += 2 * per_generate
+    check(rec.best is not None and rec.best[0].shape == (batch, cfg.n_heads, WHISPER_FRAMES, cfg.hd)
+          and not rec.best[3]["causal"], "whisper (a): the encoder call was not recorded")
+    records["encoder"] = flash_timing(torch, rec.best, per_generate, reps)
+    del rec
+    if profile_dir:
+        profile_lm(torch, model, {"frames": frames}, WHISPER_STEPS + 4, profile_dir, tag="whisper")
+    marks.append(("(a) bf16", time.perf_counter()))
+    torch.cuda.empty_cache()  # the f32 copy (1.18 GB) beside the bf16 model
+    m32 = get_model(dataclasses.replace(cfg, dtype="float32"), "cuda", generator=gen())
+    f32, toks, logits = whisper_serve(torch, m32, frames.float(), per_generate, K, warm=False)
+    flash_total += per_generate
+    # teacher-forced decode against the decoder's full forward over the
+    # same tokens (BOS, then the first 31 generated)
+    seq = torch.cat([torch.zeros_like(toks[:, :1]), toks[:, :-1]], dim=1)
+    K.reset_launch_counts()
+    full = m32.logits(frames.float(), seq)
+    n = K.launch_counts()["flash_attention"]
+    check(n == n_enc + 2 * n_dec, f"whisper f32 full forward: flash launched {n} times, not {n_enc + 2 * n_dec}")
+    flash_total += n
+    delta, scale, same, decided = logit_rule(torch, logits, full, toks, "whisper f32 decode vs full forward")
+    print(f"whisper float32 teacher-forced decode vs the decoder's full forward over the same "
+          f"{WHISPER_STEPS} tokens: max|dlogit|={delta:.6g} max|logit|={scale:.6g} "
+          f"ratio={delta / scale:.3g} (bound {LM_LOGIT_REL_TOL}); argmax equal on {same}/"
+          f"{toks.numel()}, margin > 2 max|dlogit| on {decided}", flush=True)
+    summary["a_f32"] = dict(f32, full_forward=(delta, scale))
+    del m32, full, logits, frames
+    marks.append(("(a) f32", time.perf_counter()))
+
+    # (b) prefill_32k, batch cut to WHISPER_PREFILL_BATCH
+    s, _, _ = SHAPES["prefill_32k"]
+    b = WHISPER_PREFILL_BATCH
+    torch.cuda.empty_cache()
+    frames = torch.randn((b, s, d), generator=gen(), device="cuda").to(cfg.torch_dtype)
+    n_flash = n_enc + n_dec * WHISPER_PREFILL_STEPS
+    rec = FlashRecorder(FA)
+    runs = []
+    base = torch.cuda.memory_allocated() - b * s * d * 2  # the weights and what the script holds
+    try:
+        for name in ("cold", "warm"):
+            torch.cuda.reset_peak_memory_stats()
+            K.reset_launch_counts()
+            stats = {}
+            toks = generate_whisper(model, frames, steps=WHISPER_PREFILL_STEPS,
+                                    dec_cache=WHISPER_PREFILL_STEPS + 4, stats=stats)
+            n = K.launch_counts()["flash_attention"]
+            check(n == n_flash, f"whisper (b) {name}: flash launched {n} times, not {n_flash}")
+            check(toks.shape == (b, WHISPER_PREFILL_STEPS), "whisper (b): output shape")
+            runs.append(dict(stats, peak=torch.cuda.max_memory_allocated()))
+    finally:
+        rec.restore()
+    flash_total += 2 * n_flash
+    q, k, v, kw = rec.best
+    check(q.shape == (b, cfg.n_heads, s, cfg.hd) and not kw["causal"], "whisper (b): no encoder call")
+    err = _flash_err(FA.flash_attention(q, k, v, **kw), FA.flash_attention_plain(q, k, v, **kw))
+    check(err <= FLASH_TOL["bfloat16"], f"whisper (b): the encoder call vs the plain version {err}")
+    # the peak falls while prefill builds the cross K/V: what is allocated
+    # before the frames (the weights and what the script holds), the
+    # frames, the encoder output, the recorded call's clones, the cross
+    # caches and one layer's projections (cross_kv: K and V, each before
+    # and after its contiguous copy)
+    cross = 2 * n_dec * b * cfg.n_kv_heads * s * cfg.hd * 2
+    clones = 3 * q.numel() * q.element_size()
+    act = b * s * d * 2
+    reckoned = base + cross + 2 * act + clones + 2 * cross // n_dec
+    del rec, q, k, v
+    for name, r in zip(("cold", "warm"), runs):
+        print(f"whisper (b) prefill_32k, batch {b} (cut from {batch}) x {s} frames, generate "
+              f"{name}: prefill_s={r['prefill_s']:.4f} decode_ms_per_step="
+              f"{1e3 * r['decode_s'] / (WHISPER_PREFILL_STEPS - 1):.3f} max_memory_allocated="
+              f"{r['peak']} (reckoned {reckoned}: allocated before {base} (weights {w_bytes}) + cross "
+              f"caches {cross} + the "
+              f"frames and the encoder output {2 * act} + the recorded call's clones {clones} + "
+              f"one layer's cross K/V projections {2 * cross // n_dec}; measured/reckoned "
+              f"{r['peak'] / reckoned:.4f}) flash_launches={n_flash}", flush=True)
+    print(f"whisper (b): the encoder call q {(b, cfg.n_heads, s, cfg.hd)} non-causal vs the plain "
+          f"version: {err:.3g} (bound {FLASH_TOL['bfloat16']})", flush=True)
+    summary["b"] = dict(runs=runs, reckoned=reckoned, err=err)
+    del frames
+    marks.append(("(b)", time.perf_counter()))
+
+    # (c) decode_32k, batch cut to WHISPER_DECODE_BATCH, random cross K/V
+    s, _, _ = SHAPES["decode_32k"]
+    b = WHISPER_DECODE_BATCH
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()  # the weights and what the script holds
+    t0 = time.perf_counter()
+    caches = model.init_caches(b, s, 64)
+    g = gen()
+    for key in ("k", "v"):
+        caches["cross"][key].normal_(generator=g)
+    torch.cuda.synchronize()
+    fill_s = time.perf_counter() - t0
+    c_bytes = sum(t.numel() * t.element_size() for part in ("cross", "self")
+                  for t in caches[part].values())
+    table = 4 * cfg.vocab * d
+    reckoned = base + c_bytes + table
+    total = torch.cuda.get_device_properties(0).total_memory
+    toks = torch.from_numpy(np.random.default_rng(seed).integers(
+        0, cfg.vocab, (WHISPER_DECODE_STEPS, b))).to("cuda")
+    rec = FlashRecorder(FA, clone=False)  # layer 0's cross call: q (b, 12, 1, 64)
+    K.reset_launch_counts()
+    logits = []
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lg, caches = model.decode_step(caches, toks[0])
+        torch.cuda.synchronize()
+        cold_ms = 1e3 * (time.perf_counter() - t0)
+        logits.append(lg)
+        t0 = time.perf_counter()
+        for i in range(1, WHISPER_DECODE_STEPS):
+            lg, caches = model.decode_step(caches, toks[i])
+            logits.append(lg)
+        torch.cuda.synchronize()
+        warm_ms = 1e3 * (time.perf_counter() - t0) / (WHISPER_DECODE_STEPS - 1)
+    finally:
+        rec.restore()
+    peak = torch.cuda.max_memory_allocated()
+    n = K.launch_counts()["flash_attention"]
+    check(n == n_dec * WHISPER_DECODE_STEPS, f"whisper (c): flash launched {n} times")
+    flash_total += n
+    logits = torch.stack(logits)
+    check(caches["len"] == WHISPER_DECODE_STEPS and bool(torch.isfinite(logits).all()),
+          "whisper (c): non-finite logits or a wrong cache length")
+    check(base + c_bytes <= peak <= (1 + WHISPER_PEAK_MARGIN) * reckoned,
+          f"whisper (c): peak {peak} outside [{base + c_bytes}, {1 + WHISPER_PEAK_MARGIN} x {reckoned}]")
+    print(f"whisper (c) decode_32k, batch {b} (cut from {SHAPES['decode_32k'][1]}), cross caches "
+          f"{s} frames seeded random bf16 (filled in {fill_s:.3f} s), self cache 64: cold step "
+          f"{cold_ms:.3f} ms, decode_ms_per_step={warm_ms:.3f} over {WHISPER_DECODE_STEPS - 1} steps; "
+          f"max_memory_allocated={peak} ({peak / total:.4f} of {total}; reckoned {reckoned}: allocated "
+          f"at the start {base} (weights {w_bytes}) + caches {c_bytes} + the f32 table {table}; "
+          f"measured/reckoned "
+          f"{peak / reckoned:.4f}); logits finite, |logit| max {float(logits.abs().max()):.4g}; "
+          f"flash_launches={n}", flush=True)
+    check(rec.best is not None and rec.best[0].shape == (b, cfg.n_heads, 1, cfg.hd),
+          "whisper (c): the cross call was not recorded")
+    records["cross"] = flash_timing(torch, rec.best, n_dec * WHISPER_DECODE_STEPS, reps)
+    summary["c"] = dict(cold_ms=cold_ms, decode_ms_per_step=warm_ms, peak=peak, reckoned=reckoned)
+    del rec, caches, logits, model
+    torch.cuda.empty_cache()
+    marks.append(("(c) and the timings", time.perf_counter()))
+    print("whisper seconds: " + ", ".join(
+        f"{name} {t - marks[i][1]:.1f}" for i, (name, t) in enumerate(marks[1:])), flush=True)
+    launches = {k: 0 for k in GYM_KERNELS}
+    launches["flash_attention"] = flash_total
+    return summary, launches, records, per_generate
 
 
 # ---------------------------------------------------------------- training
@@ -3577,7 +3910,7 @@ def _mismatch(torch, a, b, tol, bound):
 
 
 def train_phase(torch, seed: int, profile_dir: str = "", dev: str = "cuda"):
-    """The LM training path (see the module doc, item 14): returns the
+    """The LM training path (see the module doc, item 15): returns the
     figures and the kernels' launches over the phase's training runs."""
     from repro_torch.configs import get_config, get_model
     from repro_torch.data import CorpusConfig, batches
@@ -3691,8 +4024,8 @@ def train_phase(torch, seed: int, profile_dir: str = "", dev: str = "cuda"):
           f"backward sums by atomics)", flush=True)
     del other, ostate, pb, got
 
-    # one profiled step: the device's busy share and top device work
-    busy = profile_train(torch, step, opt, batch, profile_dir)
+    # with profile_dir, one profiled step: the device's busy share and top device work
+    busy = profile_train(torch, step, opt, batch, profile_dir) if profile_dir else None
     del model, opt, step, pa, want, batch, m_a, m_b
     torch.cuda.empty_cache()
 
@@ -3800,7 +4133,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--reps", type=int, default=30)
-    ap.add_argument("--phases", default="gym,grid,skew,logdepth,wire,snapshot,joinserve,lm,moe,ssm,train",
+    ap.add_argument("--phases",
+                    default="gym,grid,skew,logdepth,wire,snapshot,joinserve,lm,moe,ssm,whisper,train",
                     help="comma-separated main paths to drive: gym (the join path), "
                          "grid (the grid engine), skew (the hybrid engine beside hash "
                          "and grid on skewed data), logdepth (Log-GTA, Log-GTA', Shares), "
@@ -3808,15 +4142,17 @@ def main(argv=None) -> int:
                          "mid-query), joinserve (the multi-tenant join server), lm "
                          "(gemma2-9b serving), moe (grok-1-314b serving on both MoE "
                          "routes, the MoE layer alone, reduced kimi-k2 training), ssm "
-                         "(xlstm-125m and zamba2-7b serving, zamba2's long_500k decode), train "
-                         "(smollm-360m training on the GYM-assembled data pipeline)")
+                         "(xlstm-125m and zamba2-7b serving, their long_500k decode), whisper "
+                         "(whisper-small serving at 1500 frames, prefill_32k and decode_32k), "
+                         "train (smollm-360m training on the GYM-assembled data pipeline)")
     ap.add_argument("--sizes", default="bench,real",
                     help="comma-separated gym, grid, skew, wire, snapshot and joinserve "
                          "sizes to drive: bench, real")
     ap.add_argument("--profile", default="",
                     help="comma-separated families (S_8,C_8,TC_9) to profile at real size, "
                          "lm to profile the LM serving path, moe the MoE serving path, "
-                         "ssm the xlstm-125m and zamba2-7b serving paths")
+                         "ssm the xlstm-125m and zamba2-7b serving paths, whisper the "
+                         "whisper-small serving path, train a training step")
     ap.add_argument("--profile-out", default=os.path.join(HERE, "chiprun_out", "profile"))
     args = ap.parse_args(argv)
     phases = set(args.phases.split(","))
@@ -3910,8 +4246,9 @@ def main(argv=None) -> int:
               f"a main-path semijoin_probe launch took the hash path: {launches}")
         recorded = {k: (r.best, r.kw) for k, r in recorders.items()}
         kernels += kernel_timing(torch, K, ref, recorded, launches, args.reps)
+        del recorders, recorded  # the recorded inputs: the later phases' peaks exclude them
         by_path["gym"] = launches
-        fams = [f for f in args.profile.split(",") if f and f not in ("lm", "moe", "ssm")]
+        fams = [f for f in args.profile.split(",") if f and f not in PROFILE_PATHS]
         if fams:
             profile_queries(torch, args.seed, fams, args.profile_out)
     wire_recorded = None
@@ -3949,10 +4286,12 @@ def main(argv=None) -> int:
         by_path[path] = launches
     if wire_recorded is not None:
         kernels += wire_timing(torch, wire_recorded, by_path["wire"], args.reps)
+        del wire_recorded
     if "lm" in phases:
         lm, flash_call, per_generate = lm_phase(
             torch, args.seed, args.profile_out if "lm" in args.profile.split(",") else "")
         kernels.append(flash_timing(torch, flash_call, per_generate, args.reps))
+        del flash_call
     if "moe" in phases:
         t0 = time.perf_counter()
         _, launches, moe_call, per_generate = moe_phase(
@@ -3960,6 +4299,7 @@ def main(argv=None) -> int:
         print(f"moe path launches ('cuda' generate runs): {launches}; phase "
               f"{time.perf_counter() - t0:.1f} s", flush=True)
         moe_flash = flash_timing(torch, moe_call, per_generate, args.reps)
+        del moe_call
         flash = [r for r in kernels if r["name"] == "flash_attention"]
         if flash:  # the lm phase's call is the record; grok's call rides beside it
             flash[0]["moe_call"] = {k: v for k, v in moe_flash.items()
@@ -3974,6 +4314,7 @@ def main(argv=None) -> int:
         print(f"ssm path launches ('cuda' generate and consistency runs): {launches}; phase "
               f"{time.perf_counter() - t0:.1f} s", flush=True)
         zamba_flash = flash_timing(torch, zamba_call, per_generate, args.reps)
+        del zamba_call
         flash = [r for r in kernels if r["name"] == "flash_attention"]
         if flash:  # the lm phase's call is the record; zamba2's call rides beside it
             flash[0]["zamba_call"] = {k: v for k, v in zamba_flash.items()
@@ -3981,9 +4322,27 @@ def main(argv=None) -> int:
         else:
             kernels.append(zamba_flash)
         by_path["ssm"] = launches
+    if "whisper" in phases:
+        t0 = time.perf_counter()
+        _, launches, calls, per_generate = whisper_phase(
+            torch, args.seed, args.reps,
+            profile_dir=args.profile_out if "whisper" in args.profile.split(",") else "")
+        print(f"whisper path launches ('cuda' generate, full-forward and decode runs): {launches}; "
+              f"phase {time.perf_counter() - t0:.1f} s", flush=True)
+        rides = {f"whisper_{name}_call": {k: v for k, v in rec.items()
+                                          if k not in ("name", "route", "source", "replaces")}
+                 for name, rec in calls.items()}
+        flash = [r for r in kernels if r["name"] == "flash_attention"]
+        if not flash:  # without the lm phase the encoder call is the record
+            kernels.append(calls["encoder"])
+            del rides["whisper_encoder_call"]
+            flash = kernels[-1:]
+        flash[0].update(rides)
+        by_path["whisper"] = launches
     if "train" in phases:
         t0 = time.perf_counter()
-        _, launches = train_phase(torch, args.seed, args.profile_out)
+        _, launches = train_phase(
+            torch, args.seed, args.profile_out if "train" in args.profile.split(",") else "")
         print(f"train path launches (the corpus joins' 'cuda' runs and the training runs): "
               f"{launches}; phase {time.perf_counter() - t0:.1f} s", flush=True)
         check(all(launches[k] > 0 for k in GYM_KERNELS), f"train: a kernel never launched: {launches}")

@@ -1,3 +1,9 @@
-from .registry import CONFIGS, get_config, get_model, make_smoke_batch, reduced_config
+from .registry import (
+    CONFIGS, SHAPES, cell_enabled, cells, get_config, get_model, input_specs, make_smoke_batch,
+    reduced_config,
+)
 
-__all__ = ["CONFIGS", "get_config", "get_model", "make_smoke_batch", "reduced_config"]
+__all__ = [
+    "CONFIGS", "SHAPES", "cells", "cell_enabled", "get_config", "get_model",
+    "input_specs", "make_smoke_batch", "reduced_config",
+]

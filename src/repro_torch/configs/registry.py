@@ -1,15 +1,16 @@
-"""Architecture registry (counterpart of ``repro/configs/registry.py``):
-config lookup by ``--arch`` id, the model for a config, the reduced
-smoke configs and a concrete smoke batch.  The dry run's ``input_specs``
-and ``cells`` are not ported yet."""
+"""Architecture + shape registry (counterpart of
+``repro/configs/registry.py``): config lookup by ``--arch`` id, the model
+for a config, the reduced smoke configs and a concrete smoke batch, the
+cells of the dry run (``SHAPES``, ``LONG_OK``, ``cell_enabled``,
+``cells``) and their inputs as meta-device tensors (``input_specs``)."""
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict
+from typing import Dict, Tuple
 
 import torch
 
-from ..models.common import LATER, ArchConfig
+from ..models.common import ArchConfig
 from .gemma2_9b import CONFIG as _gemma2
 from .grok_1_314b import CONFIG as _grok
 from .kimi_k2_1t_a32b import CONFIG as _kimi
@@ -29,12 +30,34 @@ CONFIGS: Dict[str, ArchConfig] = {
     ]
 }
 
-#: families whose model is ported: decoder LMs of attention + MLP blocks
-#: (qwen2-vl's backbone is one, with M-RoPE), of attention + MoE blocks,
-#: of mLSTM + sLSTM blocks (ssm: xlstm-125m) and of Mamba2 blocks with a
-#: shared attention block (hybrid: zamba2-7b)
-PORTED_FAMILIES = ("dense", "vlm", "moe", "ssm", "hybrid")
-_FAMILY_ITEM = {"audio": LATER["whisper"]}
+# shape id -> (seq_len, global_batch, kind)
+SHAPES: Dict[str, Tuple[int, int, str]] = {
+    "train_4k": (4_096, 256, "train"),
+    "prefill_32k": (32_768, 32, "prefill"),
+    "decode_32k": (32_768, 128, "decode"),
+    "long_500k": (524_288, 1, "decode"),
+}
+
+# long_500k only for sub-quadratic (SSM/hybrid) archs, as in the reference
+LONG_OK = {"xlstm-125m", "zamba2-7b"}
+
+
+def cell_enabled(arch: str, shape: str) -> bool:
+    if shape == "long_500k":
+        return arch in LONG_OK
+    return True
+
+
+def cells() -> Tuple[Tuple[str, str], ...]:
+    return tuple((a, s) for a in CONFIGS for s in SHAPES if cell_enabled(a, s))
+
+
+#: families whose model is ported, every family of CONFIGS: decoder LMs of
+#: attention + MLP blocks (qwen2-vl's backbone is one, with M-RoPE), of
+#: attention + MoE blocks, of mLSTM + sLSTM blocks (ssm: xlstm-125m) and of
+#: Mamba2 blocks with a shared attention block (hybrid: zamba2-7b), and the
+#: encoder-decoder (audio: whisper-small)
+PORTED_FAMILIES = ("dense", "vlm", "moe", "ssm", "hybrid", "audio")
 
 
 def get_config(arch: str) -> ArchConfig:
@@ -42,16 +65,15 @@ def get_config(arch: str) -> ArchConfig:
 
 
 def get_model(cfg: ArchConfig, device=None, **kw):
-    """The ``DecoderLM`` of ``cfg`` on ``device`` (None = the CUDA card);
-    ``kw`` goes to its constructor (``backend``, ``generator``)."""
+    """The model of ``cfg`` on ``device`` (None = the CUDA card): a
+    ``WhisperModel`` for an encoder-decoder, else a ``DecoderLM``; ``kw``
+    goes to its constructor (``backend``, ``generator``)."""
     if cfg.family not in PORTED_FAMILIES:
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family!r} family is not ported yet "
-            f"({_FAMILY_ITEM.get(cfg.family, 'ROADMAP queue A')})"
-        )
+        raise ValueError(f"{cfg.name}: unknown family {cfg.family!r} (known: {PORTED_FAMILIES})")
     from ..models.transformer import DecoderLM
+    from ..models.whisper import WhisperModel
 
-    return DecoderLM(cfg, device, **kw)
+    return (WhisperModel if cfg.encdec else DecoderLM)(cfg, device, **kw)
 
 
 # -------------------------------------------------------------- reductions
@@ -91,15 +113,60 @@ def reduced_config(cfg: ArchConfig) -> ArchConfig:
     )
 
 
+# ------------------------------------------------------------- input specs
+def _tok(b: int, s: int) -> torch.Tensor:
+    return torch.empty((b, s), dtype=torch.int32, device="meta")
+
+
+def input_specs(cfg: ArchConfig, shape: str) -> Dict:
+    """Meta-device stand-ins (shapes and dtypes, no storage) for every
+    model input of the cell, as the reference's ShapeDtypeStructs:
+
+    train   -> ``{"batch": {...}}``, the train step's batch;
+    prefill -> ``{"batch": {...}}``, the prefill's;
+    decode  -> ``{"caches", "tokens"}``: ``init_caches`` of the model on
+    ``meta`` and one token a sequence."""
+    s, b, kind = SHAPES[shape]
+
+    def frames(n: int) -> torch.Tensor:
+        return torch.empty((b, n, cfg.d_model), dtype=cfg.torch_dtype, device="meta")
+
+    if kind in ("train", "prefill"):
+        if cfg.encdec:
+            batch = {"frames": frames(s)}
+            if kind == "train":
+                batch["tokens"] = batch["targets"] = _tok(b, s // cfg.dec_ratio)
+            return {"batch": batch}
+        batch = {"tokens": _tok(b, s)}
+        if kind == "train":
+            batch["targets"] = _tok(b, s)
+        if cfg.rope == "mrope":
+            batch["pos"] = torch.empty((3, b, s), dtype=torch.int32, device="meta")
+        return {"batch": batch}
+    # decode: one new token against an S-length cache
+    model = get_model(cfg, "meta")
+    caches = model.init_caches(b, s, 64) if cfg.encdec else model.init_caches(b, s, s - 1)
+    return {"caches": caches, "tokens": torch.empty((b,), dtype=torch.int32, device="meta")}
+
+
 def make_smoke_batch(cfg: ArchConfig, generator: torch.Generator, b: int = 2,
                      s: int = 32) -> Dict[str, torch.Tensor]:
-    """A concrete small training batch (reduced configs): random tokens and
-    targets in ``[0, vocab)`` from ``generator``, on its device, and the
-    ``(3, B, S)`` text positions for an M-RoPE config.  The draws have the
-    reference's distribution, not its bits."""
-    if cfg.encdec:
-        raise NotImplementedError(f"{cfg.name}: enc-dec models are not ported yet ({LATER['whisper']})")
+    """A concrete small training batch (reduced configs) from ``generator``,
+    on its device: random tokens and targets in ``[0, vocab)`` and the
+    ``(3, B, S)`` text positions for an M-RoPE config; for an
+    encoder-decoder, normal frames ``(B, S, d_model)`` in the config's
+    dtype and ``max(4, S // dec_ratio)`` tokens and targets.  The draws
+    have the reference's distribution, not its bits."""
     dev = generator.device
+    if cfg.encdec:
+        sd = max(4, s // cfg.dec_ratio)
+        frames = torch.randn((b, s, cfg.d_model), generator=generator, device=dev)
+        batch = {"frames": frames.to(cfg.torch_dtype)}
+        batch.update({
+            k: torch.randint(0, cfg.vocab, (b, sd), generator=generator, device=dev)
+            for k in ("tokens", "targets")
+        })
+        return batch
     batch = {
         k: torch.randint(0, cfg.vocab, (b, s), generator=generator, device=dev)
         for k in ("tokens", "targets")

@@ -6,8 +6,9 @@ Python and numpy — never by importing it.
   ``Query``;
 - ``dtable_from_numpy``: a ``(data, valid, schema)`` numpy triple -> a
   ``DTable`` on a given device;
-- ``lm_params_from_numpy``: the reference ``DecoderLM.init`` param tree,
-  converted to numpy -> the port's ``DecoderLM`` state dict;
+- ``lm_params_from_numpy``: the reference ``DecoderLM.init`` or
+  ``WhisperModel.init`` param tree, converted to numpy -> the port's
+  model's state dict;
 - ``train_state_from_numpy``: the reference's ``(params, opt_state)`` ->
   the port's state dict and optimizer state;
 - ``wire_policy_from_tuple``: a ``WirePolicy.attr_bits`` tuple -> the
@@ -19,7 +20,8 @@ Python and numpy — never by importing it.
   the backend name differs);
 - ``checkpoint_from_reference`` / ``checkpoint_to_reference``: a training
   checkpoint in one package's keys -> the other's (the layout is the same;
-  the reference stacks a segment's layers in one leaf).
+  the reference stacks a segment's, the encoder's or the decoder's layers
+  in one leaf).
 """
 from __future__ import annotations
 
@@ -69,25 +71,38 @@ def _subpaths(tree: Dict[str, Any], prefix: Tuple[str, ...] = ()):
             yield prefix + (key,)
 
 
+def _stacks(cfg: ArchConfig):
+    """``(reference key path, port name of layer i, layer count)`` of each
+    stack of layers that the reference holds in one subtree, its leaves
+    with the layer on axis 0: a decoder's segments (``cfg.segments()``;
+    zamba2's shared-block segments are empty placeholders, which hold no
+    leaf but still count their layers), or an encoder-decoder's ``enc``
+    and ``dec``."""
+    if cfg.encdec:
+        return [(("enc",), "enc.{}".format, cfg.enc_layers or cfg.n_layers),
+                (("dec",), "dec.{}".format, cfg.n_layers)]
+    out, first = [], 0
+    for s, (_, count) in enumerate(cfg.segments()):
+        out.append((("segments", s), lambda i, f=first: f"layers.{f + i}", count))
+        first += count
+    return out
+
+
 def _lm_paths(cfg: ArchConfig, tree: Dict[str, Any]):
     """``(port name, key path, layer)`` of every leaf of a reference
-    ``DecoderLM.init``-shaped tree: a segment's leaf holds its layers on
-    axis 0 (``layer`` is the slice), the others are whole (``layer``
-    None).  zamba2's shared block is one unstacked ``shared_attn`` subtree
-    (``shared_attn.*`` in the port); its segments are empty placeholders,
-    which hold no leaf but still count their layers."""
-    yield "embed.table", ("embed", "table"), None
-    yield "final_ln", ("final_ln",), None
-    if "unembed" in tree:
-        yield "unembed.table", ("unembed", "table"), None
-    for sub in _subpaths(tree.get("shared_attn", {})):
-        yield "shared_attn." + ".".join(sub), ("shared_attn",) + sub, None
-    first = 0
-    for s, ((_, count), seg) in enumerate(zip(cfg.segments(), tree["segments"])):
-        for sub in _subpaths(seg):  # ("attn", "wq"), ("moe", "shared", "wg")
+    ``DecoderLM.init`` or ``WhisperModel.init`` tree: a stacked leaf
+    (``_stacks``) holds its layers on axis 0 (``layer`` is the slice),
+    the others are whole (``layer`` None): the tables, the final norms,
+    and zamba2's shared block, one unstacked ``shared_attn`` subtree
+    (``shared_attn.*`` in the port)."""
+    stacks = _stacks(cfg)
+    roots = {ref[0] for ref, _, _ in stacks}
+    for sub in _subpaths({k: v for k, v in tree.items() if k not in roots}):
+        yield ".".join(sub), sub, None
+    for ref, port, count in stacks:
+        for sub in _subpaths(_at(tree, ref)):  # ("attn", "wq"), ("moe", "shared", "wg")
             for i in range(count):
-                yield f"layers.{first + i}." + ".".join(sub), ("segments", s) + sub, i
-        first += count
+                yield f"{port(i)}." + ".".join(sub), ref + sub, i
 
 
 def _at(tree, path):
@@ -109,12 +124,13 @@ def _tensor(arr, device) -> torch.Tensor:
 def lm_params_from_numpy(
     cfg: ArchConfig, tree: Dict[str, Any], device="cpu"
 ) -> Dict[str, torch.Tensor]:
-    """The reference's ``DecoderLM.init`` tree (numpy leaves) -> a state
-    dict for ``repro_torch.models.DecoderLM(cfg).load_state_dict``.
+    """The reference's ``DecoderLM.init`` or ``WhisperModel.init`` tree
+    (numpy leaves) -> a state dict for ``get_model(cfg).load_state_dict``.
 
-    The reference stacks each run of equal block kinds (``cfg.segments()``)
-    on a leading layer axis; the port has one module per layer, so layer
-    ``i`` of a segment is slice ``i`` of each leaf.  The output table is
+    The reference stacks each run of equal block kinds (``cfg.segments()``),
+    or an encoder-decoder's ``enc`` and ``dec`` layers, on a leading layer
+    axis; the port has one module per layer, so layer ``i`` of a stack is
+    slice ``i`` of each leaf.  The output table is
     the embedding's unless the tree holds ``unembed``."""
     return {
         name: _tensor(leaf if i is None else np.asarray(leaf)[i], device)
@@ -130,7 +146,7 @@ def train_state_from_numpy(
 
     AdamW's ``m``/``v`` and Adafactor's ``f/{r,c,v}`` are unstacked as the
     parameters are, except the column statistic ``c`` of a stacked vector
-    (a norm's gain): it spans the segment's layers, and each layer gets
+    (a norm's gain): it spans the stack's layers, and each layer gets
     it whole."""
     state: Dict[str, Any] = {
         "step": torch.tensor(int(np.asarray(opt_tree["step"])), dtype=torch.int32, device=device)
@@ -189,15 +205,12 @@ def snapshot_from_reference(src: str, dst: str) -> None:
 def _reference_names(cfg: ArchConfig, manifest: Dict[str, Any]):
     """Map a reference training checkpoint of a ``cfg`` model onto the
     port's keys: yields ``(reference key, port key, layer or None,
-    shared)``.  Segment counts come from ``cfg``: an empty placeholder
-    segment (zamba2's shared block) holds no key to count.  ``shared``
-    marks the column statistic of a stacked vector, which every layer gets
-    whole."""
+    shared)``.  Layer counts come from ``cfg`` (``_stacks``): an empty
+    placeholder segment (zamba2's shared block) holds no key to count.
+    ``shared`` marks the column statistic of a stacked vector, which every
+    layer gets whole."""
     shapes = manifest["shapes"]
-    counts = {s: count for s, (_, count) in enumerate(cfg.segments())}
-    firsts, first = {}, 0
-    for s in sorted(counts):
-        firsts[s], first = first, first + counts[s]
+    stacks = [(tuple(str(r) for r in ref), port, count) for ref, port, count in _stacks(cfg)]
     for key in manifest["keys"]:
         parts = key.split("/")
         if parts[0] == "opt" and parts[1] == "step":
@@ -208,15 +221,15 @@ def _reference_names(cfg: ArchConfig, manifest: Dict[str, Any]):
         tail = ""
         if head == ["opt", "f"]:
             rest, tail = rest[:-1], "/" + rest[-1]
-        if rest[0] != "segments":
+        stack = next((st for st in stacks if tuple(rest[:len(st[0])]) == st[0]), None)
+        if stack is None:
             yield key, "/".join(head + [".".join(rest)]) + tail, None, False
             continue
-        s, part, name = int(rest[1]), rest[2], ".".join(rest[3:])  # moe/shared/wg nests
-        pshape = shapes["/".join(["params", "segments", str(s), part] + rest[3:])]
-        shared = tail == "/c" and len(pshape) == 2
-        for i in range(counts[s]):
-            port = "/".join(head + [f"layers.{firsts[s] + i}.{part}.{name}"]) + tail
-            yield key, port, (None if shared else i), shared
+        ref, port, count = stack
+        name = ".".join(rest[len(ref):])  # moe/shared/wg nests
+        shared = tail == "/c" and len(shapes["/".join(["params"] + rest)]) == 2
+        for i in range(count):
+            yield key, "/".join(head + [f"{port(i)}.{name}"]) + tail, (None if shared else i), shared
 
 
 def checkpoint_from_reference(cfg: ArchConfig, src: str, dst: str,
@@ -255,29 +268,29 @@ def checkpoint_to_reference(cfg: ArchConfig, src: str, dst: str,
                             step: Optional[int] = None) -> int:
     """Inverse of ``checkpoint_from_reference``: the port's training
     checkpoint of a ``cfg`` model under ``src`` -> the reference's layout
-    under ``dst`` (each segment's layers stacked back on axis 0, a
-    stacked vector's shared ``c`` once, ``shared_attn.*`` as the one
+    under ``dst`` (each stack's layers (``_stacks``) stacked back on axis
+    0, a stacked vector's shared ``c`` once, ``shared_attn.*`` as the one
     ``shared_attn`` subtree); returns the step.  The segment indices
     count the shared block's empty placeholder segments, which hold no
     key, as the reference's ``save`` writes them."""
     from .train import checkpoint as ckpt
 
     path, manifest = ckpt.read_manifest(src, step)
-    seg_of, first = {}, 0
-    for s, (_, count) in enumerate(cfg.segments()):
+    layer_of = {}  # a port layer's name -> (its stack's reference key parts, layer)
+    for ref, port, count in _stacks(cfg):
         for i in range(count):
-            seg_of[first + i] = (s, i)
-        first += count
+            layer_of[port(i)] = ([str(r) for r in ref], i)
     groups: Dict[str, list] = {}
     for key in manifest["keys"]:
         head, name, tail = _split_port_key(key)
-        if name.startswith("layers."):
-            _, j, part, pname = name.split(".", 3)
-            s, i = seg_of[int(j)]
-            ref = "/".join(head + ["segments", str(s), part] + pname.split(".")) + tail
+        parts = name.split(".")
+        stacked = layer_of.get(".".join(parts[:2]))
+        if stacked is not None:
+            ref_parts, i = stacked
+            ref = "/".join(head + ref_parts + parts[2:]) + tail
             shared = tail == "/c" and len(manifest["shapes"][f"params/{name}"]) == 1
         else:
-            ref, i, shared = "/".join(head + name.split(".")) + tail, None, False
+            ref, i, shared = "/".join(head + parts) + tail, None, False
         groups.setdefault(ref, []).append((i, key, shared))
     arrays, dtypes = {}, {}
     with np.load(os.path.join(path, "arrays.npz")) as z:

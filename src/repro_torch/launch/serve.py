@@ -6,7 +6,11 @@ decode N tokens, report tokens/s (counterpart of
         --reduced --device cpu --batch 2 --prompt 16 --steps 8
 
 Without ``--device`` it runs on the CUDA card, and raises without one.
-The prompt is drawn with numpy from ``--seed``; the weights are random,
+The prompt is drawn with numpy from ``--seed``; for an encoder-decoder
+(``--arch whisper-small``) the prompt is ``--prompt`` frames
+``(batch, prompt, d_model)`` of normal values in the config's dtype, and
+``generate_whisper`` decodes against a self cache of ``steps + 4``
+positions.  The weights are random,
 from a ``torch.Generator`` seeded with ``--seed``, or with ``--ckpt`` the
 parameters of a training checkpoint (``launch/train.py --ckpt``).
 """
@@ -20,7 +24,7 @@ import torch
 
 from ..configs import get_config, get_model, reduced_config
 from ..relational.spmd import resolve_device
-from ..serve import generate
+from ..serve import generate, generate_whisper
 from ..train import checkpoint as ckpt
 
 
@@ -52,12 +56,20 @@ def main(argv: Optional[List[str]] = None) -> torch.Tensor:
         params = {k: p.detach() for k, p in model.named_parameters()}
         restored, _ = ckpt.restore(args.ckpt, {"params": params}, partial=True)
         model.load_state_dict(restored["params"])
-    prompt = np.random.default_rng(args.seed).integers(0, cfg.vocab, (args.batch, args.prompt))
+    rng = np.random.default_rng(args.seed)
     stats: dict = {}
-    toks = generate(
-        model, torch.from_numpy(prompt).to(dev), steps=args.steps,
-        temperature=args.temperature, generator=gen, stats=stats,
-    )
+    if cfg.encdec:
+        frames = rng.standard_normal((args.batch, args.prompt, cfg.d_model), dtype=np.float32)
+        toks = generate_whisper(
+            model, torch.from_numpy(frames).to(dev, cfg.torch_dtype), steps=args.steps,
+            dec_cache=args.steps + 4, temperature=args.temperature, generator=gen, stats=stats,
+        )
+    else:
+        prompt = rng.integers(0, cfg.vocab, (args.batch, args.prompt))
+        toks = generate(
+            model, torch.from_numpy(prompt).to(dev), steps=args.steps,
+            temperature=args.temperature, generator=gen, stats=stats,
+        )
     n = args.batch * args.steps
     total = stats["prefill_s"] + stats["decode_s"]
     decode_ms = 1e3 * stats["decode_s"] / max(1, args.steps - 1)

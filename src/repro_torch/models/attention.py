@@ -1,13 +1,17 @@
-"""Attention block: GQA, RoPE/M-RoPE, qk-norm, softcap, sliding window
-and KV-cache decode (counterpart of ``repro/models/attention.py``).
+"""Attention block: GQA, RoPE/M-RoPE, qk-norm, softcap, sliding window,
+cross-attention and KV-cache decode (counterpart of
+``repro/models/attention.py``).
 
 Prefill runs through ``kernels.ops.attention``: the Hopper flash kernel
 with the ``'cuda'`` backend, its plain version with ``'torch'``; the
 training forward passes ``impl`` (the chunked scan or the plain version:
-the kernel has no backward).  Decode
-attends one query per sequence to the cache in plain torch, as the
-reference does outside any Pallas kernel.  Cross-attention waits for the
-Whisper slice.
+the kernel has no backward).  Self-attention decode attends one query per
+sequence to the cache in plain torch, as the reference does outside any
+Pallas kernel.  Cross-attention (the Whisper decoder's, against K/V that
+``cross_kv`` projects once from the encoder's output) calls
+``kernels.ops.attention`` as prefill does, in decode too, where the
+reference reaches its Pallas kernel with one query a sequence: under
+``'cuda'`` and no autograd it is the flash kernel at Sq = 1.
 """
 from __future__ import annotations
 
@@ -100,15 +104,19 @@ def attn_decode(
     cache tensors are written in place (one row per layer instead of a
     copy of the whole cache) and returned."""
     b = x.shape[0]
+    kc, vc = cache["k"], cache["v"]
+    kvh, s_cache, hd = kc.shape[1], kc.shape[2], kc.shape[3]
+    if not 0 <= cache_len < s_cache:
+        # the reference's dynamic_update_slice clamps the start: past the
+        # end it would overwrite the last slot without a word
+        raise ValueError(f"attn_decode: cache_len {cache_len} outside a cache of {s_cache} positions")
     xin = rms_norm(x, p["ln"], cfg.norm_eps)
     posv = torch.full((b, 1), cache_len, dtype=torch.long, device=x.device)
     if cfg.rope == "mrope":
         posv = posv[None].expand(3, b, 1)
     q, k, v = _project_qkv(p, xin, cfg, posv)
-    kc, vc = cache["k"], cache["v"]
     kc[:, :, cache_len] = k[:, :, 0].to(kc.dtype)
     vc[:, :, cache_len] = v[:, :, 0].to(vc.dtype)
-    kvh, s_cache, hd = kc.shape[1], kc.shape[2], kc.shape[3]
     g = cfg.n_heads // kvh
     # head h = kv * g + i reads kv-head kv: group the query heads instead
     # of repeating the cache
@@ -124,3 +132,38 @@ def attn_decode(
     o = (pr @ vc.float()).to(x.dtype)  # (B,KV,g,hd)
     o = o.reshape(b, 1, -1)
     return x + (o @ p["wo"]).to(x.dtype), {"k": kc, "v": vc}
+
+
+# ------------------------------------------------------- cross attention
+def init_cross_attn(gen: torch.Generator, cfg: ArchConfig) -> nn.ParameterDict:
+    """The parameters of ``init_attn`` (``wk``/``wv`` project the encoder's
+    output, ``ln`` norms the decoder's stream for q only)."""
+    return init_attn(gen, cfg)
+
+
+def cross_kv(p, mem: torch.Tensor, cfg: ArchConfig) -> Dict[str, torch.Tensor]:
+    """Encoder-side K/V for cross-attention: ``mem`` (B, S, D), already
+    normed by the encoder, projected with no norm -> k/v (B, KV, S, hd)."""
+    b, s, _ = mem.shape
+    kv, hd = cfg.n_kv_heads, cfg.hd
+    k = (mem @ p["wk"]).view(b, s, kv, hd).transpose(1, 2)
+    v = (mem @ p["wv"]).view(b, s, kv, hd).transpose(1, 2)
+    return {"k": k.contiguous(), "v": v.contiguous()}
+
+
+def cross_attn_forward(
+    p, x: torch.Tensor, mem_kv: Dict[str, torch.Tensor], cfg: ArchConfig, *,
+    use_cuda: Optional[bool] = False, impl: Optional[str] = None,
+) -> torch.Tensor:
+    """Decoder cross-attention of x (B, S, D) against ``mem_kv`` (``cross_kv``),
+    non-causal; ``use_cuda`` and ``impl`` go to ``kernels.ops.attention``."""
+    b, s, _ = x.shape
+    h, hd = cfg.n_heads, cfg.hd
+    xin = rms_norm(x, p["ln"], cfg.norm_eps)
+    q = (xin @ p["wq"]).view(b, s, h, hd).transpose(1, 2).contiguous()
+    o = kops.attention(
+        q, mem_kv["k"], mem_kv["v"], causal=False, softcap=cfg.attn_softcap,
+        use_cuda=use_cuda, impl=impl,
+    )
+    o = o.transpose(1, 2).reshape(b, s, -1)
+    return x + (o @ p["wo"]).to(x.dtype)

@@ -18,12 +18,6 @@ from typing import Any, Optional, Sequence, Tuple
 import torch
 from torch import nn
 
-#: what each model part that the port does not have yet waits for
-LATER = {
-    "whisper": "ROADMAP queue A, item 'Whisper'",
-}
-
-
 @dataclasses.dataclass(frozen=True)
 class ArchConfig:
     name: str

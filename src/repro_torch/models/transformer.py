@@ -36,7 +36,7 @@ from ..relational.spmd import resolve_device
 from . import ssm, xlstm
 from .attention import attn_decode, attn_forward, attn_prefill, init_attn
 from .common import (
-    LATER, ArchConfig, embed, init_embed, init_norm, rms_norm, softmax_xent, unembed,
+    ArchConfig, embed, init_embed, init_norm, rms_norm, softmax_xent, unembed,
 )
 from .mlp import init_mlp, init_moe, mlp_forward, moe_forward_stats
 
@@ -66,13 +66,10 @@ MOE_STATS = ("routed", "dropped", "heavy")
 
 
 def check_kinds(cfg: ArchConfig) -> None:
-    """Raise for the first block kind of ``cfg`` that is not ported yet."""
+    """Raise for the first block kind of ``cfg`` that no model knows."""
     for kind in cfg.blocks():
         if kind not in PORTED_KINDS:
-            raise NotImplementedError(
-                f"{cfg.name}: block kind {kind!r} is not ported yet "
-                f"({LATER.get(kind, 'ROADMAP queue A')})"
-            )
+            raise ValueError(f"{cfg.name}: unknown block kind {kind!r} (known: {PORTED_KINDS})")
 
 
 class Block(nn.Module):
@@ -161,7 +158,55 @@ class SharedPosition(nn.Module):
         return self.block.init_cache(*args)
 
 
-class DecoderLM(nn.Module):
+class ModelBase(nn.Module):
+    """What ``DecoderLM`` and ``WhisperModel`` (``models/whisper.py``)
+    share: the device (None = the CUDA card), the backend and the
+    generator the parameters are drawn from."""
+
+    def __init__(self, cfg: ArchConfig, device=None, backend: Optional[str] = None):
+        super().__init__()
+        if backend not in (None,) + BACKENDS:
+            raise ValueError(f"backend {backend!r} not in {BACKENDS}")
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        #: 'cuda' | 'torch' | None (follow the device); may be switched later
+        self.backend = backend
+
+    def _generator(self, gen: Optional[torch.Generator]) -> Optional[torch.Generator]:
+        """The generator to draw parameters from: ``gen``, or one seeded
+        with 0 on the model's device; None on the meta device (shapes
+        only: nothing is drawn)."""
+        dev = self.device
+        if dev.type == "meta":
+            if gen is not None:
+                raise ValueError("a model on the meta device takes no generator")
+            return None
+        if gen is None:
+            gen = torch.Generator(device=dev)
+            gen.manual_seed(0)
+        elif gen.device.type != dev.type:
+            raise ValueError(f"generator on {gen.device}, model on {dev}")
+        return gen
+
+    @property
+    def use_cuda(self) -> bool:
+        """Whether serving attention launches the Hopper kernel."""
+        backend = self.backend
+        if backend is None:
+            backend = "cuda" if self.device.type == "cuda" else "torch"
+        if backend not in BACKENDS:
+            raise ValueError(f"backend {backend!r} not in {BACKENDS}")
+        return backend == "cuda"
+
+    def _train_use_cuda(self) -> Optional[bool]:
+        """The loss's ``use_cuda``: None follows the tensors and autograd
+        (``kernels.ops.attention``), a named backend is kept."""
+        if self.backend not in (None,) + BACKENDS:
+            raise ValueError(f"backend {self.backend!r} not in {BACKENDS}")
+        return None if self.backend is None else self.backend == "cuda"
+
+
+class DecoderLM(ModelBase):
     """Serving surface: ``prefill(batch, s_cache) -> (last logits, caches)``,
     ``decode_step(caches, tokens) -> (logits, caches)``, ``init_caches``,
     and ``logits`` for the full forward pass; training surface: ``loss``,
@@ -181,26 +226,13 @@ class DecoderLM(nn.Module):
         backend: Optional[str] = None,
         generator: Optional[torch.Generator] = None,
     ):
-        super().__init__()
         if cfg.encdec:
-            raise NotImplementedError(f"{cfg.name}: enc-dec models are not ported yet ({LATER['whisper']})")
+            raise ValueError(f"{cfg.name} is an encoder-decoder: build it with "
+                             "configs.get_model, which gives a WhisperModel")
         check_kinds(cfg)
-        if backend not in (None,) + BACKENDS:
-            raise ValueError(f"backend {backend!r} not in {BACKENDS}")
-        dev = resolve_device(device)
-        self.cfg = cfg
-        self.device = dev
-        #: 'cuda' | 'torch' | None (follow the device); may be switched later
-        self.backend = backend
-        gen = generator
-        if dev.type == "meta":  # shapes only: nothing is drawn
-            if gen is not None:
-                raise ValueError("a model on the meta device takes no generator")
-        elif gen is None:
-            gen = torch.Generator(device=dev)
-            gen.manual_seed(0)
-        elif gen.device.type != dev.type:
-            raise ValueError(f"generator on {gen.device}, model on {dev}")
+        super().__init__(cfg, device, backend)
+        dev = self.device
+        gen = self._generator(generator)
         self.embed = init_embed(gen, cfg.vocab, cfg.d_model, cfg.torch_dtype)
         self.final_ln = init_norm(cfg.d_model, cfg.torch_dtype, dev)
         if not cfg.tie_embeddings:
@@ -216,16 +248,6 @@ class DecoderLM(nn.Module):
         self.layers = nn.ModuleList(layers)
 
     # ------------------------------------------------------------- helpers
-    @property
-    def use_cuda(self) -> bool:
-        """Whether prefill attention launches the Hopper kernel."""
-        backend = self.backend
-        if backend is None:
-            backend = "cuda" if self.device.type == "cuda" else "torch"
-        if backend not in BACKENDS:
-            raise ValueError(f"backend {backend!r} not in {BACKENDS}")
-        return backend == "cuda"
-
     def _table(self) -> torch.Tensor:
         return (self.unembed if not self.cfg.tie_embeddings else self.embed)["table"]
 
@@ -281,11 +303,8 @@ class DecoderLM(nn.Module):
         """Loss plus the MoE routing counts ``{routed, dropped, heavy}``
         summed over MoE layers (int32; zeros for a model without MoE
         blocks, as in the reference)."""
-        if self.backend not in (None,) + BACKENDS:
-            raise ValueError(f"backend {self.backend!r} not in {BACKENDS}")
-        # None follows the tensors and autograd (kernels.ops.attention)
-        use_cuda = None if self.backend is None else self.backend == "cuda"
-        logits, stats = self._forward(batch["tokens"], batch.get("pos"), use_cuda, impl, remat)
+        logits, stats = self._forward(batch["tokens"], batch.get("pos"), self._train_use_cuda(),
+                                      impl, remat)
         return softmax_xent(logits, batch["targets"].to(self.device)), stats
 
     def with_config(self, cfg: ArchConfig) -> "DecoderLM":

@@ -1,4 +1,4 @@
-from .decode import generate, sample
+from .decode import generate, generate_whisper, sample
 from .join_server import JoinServer, JoinTicket
 
-__all__ = ["generate", "sample", "JoinServer", "JoinTicket"]
+__all__ = ["generate", "generate_whisper", "sample", "JoinServer", "JoinTicket"]

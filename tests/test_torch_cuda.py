@@ -16,7 +16,9 @@ shape, and a training checkpoint must round-trip on the card bit for
 bit.  The MoE layer on the card must route as on the CPU and agree with it
 on both routes, and reduced kimi-k2 must generate the same tokens with the
 ``'cuda'`` and ``'torch'`` backends on both routes, as must reduced
-xlstm-125m and zamba2-7b."""
+xlstm-125m, zamba2-7b and whisper-small (whose encoder and every
+cross-attention call, at one query a sequence in decode, launch the flash
+kernel); the flash kernel at Sq = 1 must agree with its plain version."""
 from __future__ import annotations
 
 import dataclasses
@@ -873,3 +875,57 @@ def test_cuda_recurrent_generate_matches_torch_backend(cuda_device, arch):
     cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
     np.testing.assert_allclose(cpu.logits(prompt.cpu()).numpy(), model.logits(prompt).cpu().numpy(),
                                atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.cuda
+def test_cuda_whisper_generate_matches_torch_backend(cuda_device):
+    """Reduced whisper-small (f32) on the card: ``generate_whisper``'s
+    greedy tokens and logits with the 'cuda' backend equal the 'torch'
+    backend's; the flash kernel runs once an encoder layer and once a
+    decoder layer each step (the BOS step included), and never with
+    'torch'; the card's full forward agrees with the CPU's."""
+    from repro_torch.configs import get_config, get_model, reduced_config
+    from repro_torch.kernels import ops as K
+    from repro_torch.serve import generate_whisper
+
+    cfg = reduced_config(get_config("whisper-small"))
+    model = get_model(cfg, cuda_device, generator=torch.Generator(device=cuda_device).manual_seed(2))
+    frames = torch.from_numpy(np.random.default_rng(4).standard_normal((2, 37, cfg.d_model),
+                                                                       dtype=np.float32))
+    steps, out = 6, {}
+    for backend in ("cuda", "torch"):
+        model.backend = backend
+        K.reset_launch_counts()
+        out[backend] = generate_whisper(model, frames.to(cuda_device), steps=steps, dec_cache=8,
+                                        return_logits=True)
+        want = cfg.enc_layers + cfg.n_layers * steps if backend == "cuda" else 0
+        assert K.launch_counts()["flash_attention"] == want
+    assert torch.equal(out["cuda"][0], out["torch"][0])
+    np.testing.assert_allclose(out["cuda"][1].cpu().numpy(), out["torch"][1].cpu().numpy(),
+                               atol=1e-4, rtol=1e-4)
+    cpu = get_model(cfg, "cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    toks = out["cuda"][0]
+    np.testing.assert_allclose(cpu.logits(frames, toks.cpu()).numpy(),
+                               model.logits(frames.to(cuda_device), toks).cpu().numpy(),
+                               atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("sk", [1, 63, 64, 1500, 4097])
+def test_cuda_flash_attention_one_query(cuda_device, dtype, sk):
+    """Sq = 1 (cross-attention in decode), D = 64, non-causal: the bf16
+    kernel's 128-row block holds one real row, the rest arrive as zeros
+    and are never stored."""
+    from repro_torch.kernels import flash_attention as FA
+
+    rng = np.random.default_rng(sk)
+    dt = getattr(torch, dtype)
+    q, k, v = (torch.from_numpy(rng.standard_normal(s)).to(cuda_device, dt)
+               for s in ((3, 12, 1, 64), (3, 12, sk, 64), (3, 12, sk, 64)))
+    got = FA.flash_attention(q, k, v, causal=False)
+    want = FA.flash_attention_plain(q, k, v, causal=False)
+    tol = 1e-4 if dtype == "float32" else 1.6e-2  # chip_smoke.FLASH_TOL
+    err = float(((got.float() - want.float()).abs() / want.float().abs().clamp(min=1.0)).max())
+    assert got.shape == q.shape and err <= tol

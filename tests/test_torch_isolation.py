@@ -45,6 +45,9 @@ def test_port_modules_exist():
         "core/costs.py", "core/optimizer.py", "serve/join_server.py",
         "kernels/chunked.py", "train/optim.py", "train/compression.py", "train/step.py",
         "train/checkpoint.py", "train/elastic.py", "data/pipeline.py", "launch/train.py",
+        "models/whisper.py", "examples/quickstart.py", "examples/gym_fault_tolerance.py",
+        "examples/serve_joins.py", "examples/moe_routing.py", "examples/serve_decode.py",
+        "examples/train_lm.py",
     ):
         assert mod in names, mod
     assert (PKG / "csrc" / "gym_kernels.cu").exists()

@@ -165,9 +165,3 @@ def test_backends_and_devices():
         model.prefill({"tokens": torch.zeros((1, 4), dtype=torch.long)})
     with pytest.raises(ValueError, match="backend"):
         get_model(cfg, "cpu", backend="jnp")
-
-
-@pytest.mark.parametrize("arch,item", [("whisper-small", "Whisper")])
-def test_later_families_name_their_item(arch, item):
-    with pytest.raises(NotImplementedError, match=item):
-        get_model(reduced_config(get_config(arch)), "cpu")
