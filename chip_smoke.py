@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch/CUDA port of GYM on one CUDA card.
 
     python3 chip_smoke.py [--seed N] [--reps N]
-                          [--phases gym,grid,skew,logdepth,wire,snapshot,joinserve,lm,moe,ssm,whisper,train]
+                          [--phases gym,grid,skew,logdepth,wire,snapshot,joinserve,lm,moe,ssm,whisper,train,dryrun]
 
 Run from the root of a checkout on a machine with a CUDA card (sm_90a,
 an H100) and the CUDA toolkit.  In order it:
@@ -228,7 +228,21 @@ an H100) and the CUDA toolkit.  In order it:
    memory, the checkpoint's bytes and save/load seconds, the model FLOPs
    a step as a share of the bf16 peak, and with ``--profile train`` one
    profiled step's device busy share and top device work;
-16. times each kernel at the largest inputs its path gave it (CUDA events,
+16. (phase ``dryrun``) runs nothing new on the card: it reckons on
+   ``meta`` with ``launch/dryrun.py::run_cell`` the runs the earlier
+   phases measured
+   (``DRYRUN_WITNESSES``: gemma2-9b's prefill at 2 x 4608,
+   whisper-small's (b) and (c), zamba2-7b's long_500k decode and
+   smollm-360m's train step), and holds each against its measurement: the
+   measured peak, less what the script held that is not the cell's, within
+   ``DRYRUN_PEAK_RATIO`` of the reckoned peak, the flops at least the model
+   flops (gemma2-9b's prefill: the hand count), the flash operator's fake
+   once per attention call in a prefill; it prints each witness's mfu and
+   bound_over_measured (the reckoned bound over the measured warm
+   seconds), names a witness whose
+   phase did not run as skipped, and prints the flash wrapper's host us a
+   call through the operator;
+17. times each kernel at the largest inputs its path gave it (CUDA events,
    L2 flushed before each launch) beside its plain version, one PyTorch
    library call where one computes the same function, and its bound,
    prints the sorted probe's census of that call (the share of probes its
@@ -266,12 +280,13 @@ import numpy as np
 HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(HERE, "src"))
 
-# H100 SXM peaks (NVIDIA data sheet): HBM bandwidth, the 32-bit
-# non-tensor-core rate as the integer-operation ceiling, and the dense
-# bf16 tensor-core rate
-HBM_BYTES_PER_S = 3.35e12
+# the port's one count of a flash call's work and of the H100 SXM peaks
+# (NVIDIA data sheet: HBM bandwidth, the dense bf16 tensor-core rate)
+from repro_torch.kernels.flash_attention import visible_pairs  # noqa: E402
+from repro_torch.launch.roofline import HBM_BW, PEAK_FLOPS_BF16  # noqa: E402
+
+# the 32-bit non-tensor-core rate as the integer-operation ceiling
 INT32_OPS_PER_S = 67e12
-BF16_FLOPS_PER_S = 989e12
 I32MAX = 2**31 - 1
 
 GYM_SOURCE = "src/repro_torch/csrc/gym_kernels.cu"
@@ -347,7 +362,7 @@ def real_chain(n: int, *, ident: int, extra: int, domain: int, seed: int):
     iden = np.repeat(np.arange(ident, dtype=np.int32)[:, None], 2, axis=1)
     for i in range(1, n + 1):
         rnd = rng.integers(ident, domain, (extra, 2)).astype(np.int32)
-        out[f"R{i}"] = np.unique(np.concatenate([iden, rnd]), axis=0)
+        out[f"R{i}"] = unique_rows(np.concatenate([iden, rnd]))
     return out
 
 
@@ -357,7 +372,7 @@ def real_star(n: int, *, hub_rows: int, spoke_extra: int, domain: int, seed: int
     (as star_data_sparse, vectorized)."""
     rng = np.random.default_rng(seed)
     hub = rng.integers(0, domain // 2, (hub_rows, n - 1)).astype(np.int32)
-    out = {"S": np.unique(hub, axis=0)}
+    out = {"S": unique_rows(hub)}
     for i in range(1, n):
         vals = np.unique(hub[:, i - 1])
         rows = np.stack([vals, vals % 7], 1)
@@ -365,7 +380,7 @@ def real_star(n: int, *, hub_rows: int, spoke_extra: int, domain: int, seed: int
             rng.integers(domain // 2, domain, spoke_extra),
             rng.integers(0, 7, spoke_extra),
         ], 1)
-        out[f"R{i}"] = np.unique(np.concatenate([rows, ext]).astype(np.int32), axis=0)
+        out[f"R{i}"] = unique_rows(np.concatenate([rows, ext]).astype(np.int32))
     return out
 
 
@@ -380,7 +395,7 @@ def real_star_heavy(n: int, *, hub_rows: int, heavy_share: float, spoke_extra: i
     a1 = np.concatenate([np.zeros(k, np.int64), rng.integers(1, half, hub_rows - k)])
     cols = [a1] + [rng.integers(0, half, hub_rows) for _ in range(n - 2)]
     hub = np.stack(cols, 1).astype(np.int32)
-    out = {"S": np.unique(hub, axis=0)}
+    out = {"S": unique_rows(hub)}
     for i in range(1, n):
         vals = np.unique(hub[:, i - 1])
         rows = np.stack([vals, vals % 7], 1)
@@ -388,13 +403,40 @@ def real_star_heavy(n: int, *, hub_rows: int, heavy_share: float, spoke_extra: i
             rng.integers(half, domain, spoke_extra),
             rng.integers(0, 7, spoke_extra),
         ], 1)
-        out[f"R{i}"] = np.unique(np.concatenate([rows, ext]).astype(np.int32), axis=0)
+        out[f"R{i}"] = unique_rows(np.concatenate([rows, ext]).astype(np.int32))
     return out
 
 
 def real_tc(n_tri: int, *, ident: int, extra: int, domain: int, seed: int):
     """TC_n: identity triangles on [0, ident) plus random links."""
     return real_chain(3 * n_tri, ident=ident, extra=extra, domain=domain, seed=seed)
+
+
+def row_key(a) -> np.ndarray:
+    """One int64 per row of the 2-D integer array ``a`` whose order is the
+    rows' lexicographic order (equal rows, equal keys): each column's dense
+    codes (a 1-D ``np.unique``), folded column by column and re-densified
+    before the product could pass 2^62.  ``np.unique(axis=0)`` sorts rows
+    as structured records, several times slower at these sizes."""
+    key, size = np.zeros(len(a), np.int64), 1
+    for col in np.asarray(a).T:
+        vals, codes = np.unique(col, return_inverse=True)
+        if size * len(vals) >= 2**62:
+            dense, key = np.unique(key, return_inverse=True)
+            size = len(dense)
+        key = key * len(vals) + codes.reshape(-1)
+        size *= len(vals)
+    return key
+
+
+def unique_rows(a) -> np.ndarray:
+    """``np.unique(a, axis=0)`` of a 2-D integer array (the same rows, order
+    and dtype), through ``row_key``."""
+    a = np.asarray(a)
+    if len(a) == 0:
+        return a
+    _, first = np.unique(row_key(a), return_index=True)
+    return a[first]
 
 
 def np_join(a, a_schema, b, b_schema):
@@ -405,8 +447,7 @@ def np_join(a, a_schema, b, b_schema):
     out_schema = tuple(a_schema) + tuple(b_schema[i] for i in b_keep)
     ak = a[:, [a_schema.index(x) for x in shared]].astype(np.int64)
     bk = b[:, [b_schema.index(x) for x in shared]].astype(np.int64)
-    _, codes = np.unique(np.concatenate([ak, bk]), axis=0, return_inverse=True)
-    codes = codes.reshape(-1)
+    codes = row_key(np.concatenate([ak, bk]))
     ca, cb = codes[: len(a)], codes[len(a):]
     order = np.argsort(cb, kind="stable")
     cbs = cb[order]
@@ -429,7 +470,7 @@ def np_answer(q, data):
     for at in atoms[1:]:
         out, schema = np_join(out, schema, np.asarray(data[at.rel], np.int64), tuple(at.attrs))
     out = out[:, [schema.index(x) for x in q.output_attrs]]
-    out = np.unique(out, axis=0) if len(out) else out.reshape(0, len(q.output_attrs))
+    out = unique_rows(out) if len(out) else out.reshape(0, len(q.output_attrs))
     return out
 
 
@@ -602,16 +643,22 @@ print("mask", int(mask.sum()))
 """
 
 
-def bitmap_trap_check() -> str:
+def start_bitmap_trap():
+    """Start ``bitmap_trap_check``'s child process, which imports torch
+    while the other edge checks run."""
+    return subprocess.Popen([sys.executable, "-c", TRAP_CHILD, os.path.join(HERE, "src")],
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+
+def bitmap_trap_check(proc) -> str:
     """A key outside [0, bound) must stop the bitmap build with a trap, not
-    return a mask: run in a child process, whose CUDA context it loses."""
-    proc = subprocess.run([sys.executable, "-c", TRAP_CHILD, os.path.join(HERE, "src")],
-                          capture_output=True, text=True, timeout=300)
-    check(proc.returncode != 0 and "mask" not in proc.stdout,
-          f"semijoin_probe: a key >= bound did not trap: {proc.stdout[-500:]}")
-    check("CUDA error" in proc.stderr,
-          f"semijoin_probe trap child failed otherwise: {proc.stderr[-2000:]}")
-    return proc.stderr.strip().splitlines()[-1][:120]
+    return a mask: run in a child process (``start_bitmap_trap``), whose
+    CUDA context it loses."""
+    out, err = proc.communicate(timeout=300)
+    check(proc.returncode != 0 and "mask" not in out,
+          f"semijoin_probe: a key >= bound did not trap: {out[-500:]}")
+    check("CUDA error" in err, f"semijoin_probe trap child failed otherwise: {err[-2000:]}")
+    return err.strip().splitlines()[-1][:120]
 
 
 def semijoin_census(torch, q, keys, bound, mask):
@@ -755,6 +802,7 @@ def kernel_timing(torch, K, ref, recorded, launches, reps):
 
     dev = torch.device("cuda")
     flush = torch.empty(128 * 2**20 // 4, dtype=torch.int32, device=dev)  # > 50 MB L2
+    plain_reps = max(1, min(reps, 5))  # the plain versions take 46-580 ms a call
     out = []
     # -- hash_partition
     keys, valid, p, seeds = recorded["hash_partition"][0]
@@ -767,7 +815,7 @@ def kernel_timing(torch, K, ref, recorded, launches, reps):
     out.append(dict(
         name="hash_partition", shape=f"keys {tuple(keys.shape)} p={p}",
         ms=time_cold(torch, lambda: HP.hash_partition(keys, valid, p, seeds), reps, flush),
-        plain_ms=time_cold(torch, lambda: ref.hash_partition_ref(keys, valid, p, seeds), reps, flush),
+        plain_ms=time_cold(torch, lambda: ref.hash_partition_ref(keys, valid, p, seeds), plain_reps, flush),
         library_ms=None, max_abs_err=err, nbytes=nbytes, ops=ops,
     ))
     # -- semijoin_probe (library yardstick: torch.isin on segment-offset keys)
@@ -808,7 +856,7 @@ def kernel_timing(torch, K, ref, recorded, launches, reps):
         name="semijoin_probe",
         shape=f"q {tuple(q.shape)} keys {tuple(keys.shape)} bound={bound}",
         ms=ms,
-        plain_ms=time_cold(torch, lambda: ref.semijoin_probe_ref(q, keys), reps, flush),
+        plain_ms=time_cold(torch, lambda: ref.semijoin_probe_ref(q, keys), plain_reps, flush),
         library_ms=time_cold(torch, lambda: torch.isin(q64, k64), reps, flush),
         max_abs_err=err, nbytes=nbytes, ops=ops,
     ))
@@ -839,13 +887,13 @@ def kernel_timing(torch, K, ref, recorded, launches, reps):
     out.append(dict(
         name="sorted_probe_ranges", shape=f"q {tuple(q.shape)} keys {tuple(keys.shape)}",
         ms=time_cold(torch, lambda: SO.sorted_probe_ranges(q, keys), reps, flush),
-        plain_ms=time_cold(torch, lambda: ref.sorted_probe_ranges_ref(q, keys), reps, flush),
+        plain_ms=time_cold(torch, lambda: ref.sorted_probe_ranges_ref(q, keys), plain_reps, flush),
         library_ms=time_cold(torch, lib, reps, flush),
         max_abs_err=err, nbytes=nbytes, ops=ops,
     ))
     recs = []
     for r in out:
-        t_bytes = r["nbytes"] / HBM_BYTES_PER_S * 1e3
+        t_bytes = r["nbytes"] / HBM_BW * 1e3
         t_ops = r["ops"] / INT32_OPS_PER_S * 1e3
         bound = max(t_bytes, t_ops)
         print(
@@ -1143,7 +1191,7 @@ def np_bag_sizes(q, plan, data):
             at = atoms[alias]
             keep = [x for x in at.attrs if x in plan.chi[v]]
             rows = np.asarray(data[at.rel], np.int64)[:, [at.attrs.index(x) for x in keep]]
-            parts.append((np.unique(rows, axis=0), tuple(keep)))
+            parts.append((unique_rows(rows), tuple(keep)))
         attrs = [x for _, sch in parts for x in sch]
         if len(attrs) == len(set(attrs)):
             sizes[v] = int(np.prod([len(r) for r, _ in parts]))
@@ -1151,7 +1199,7 @@ def np_bag_sizes(q, plan, data):
         out, schema = parts[0]
         for rows, sch in parts[1:]:
             out, schema = np_join(out, schema, rows, sch)
-        sizes[v] = len(np.unique(out, axis=0)) if len(out) else 0
+        sizes[v] = len(unique_rows(out)) if len(out) else 0
     return sizes
 
 
@@ -1424,7 +1472,7 @@ def skew_phase(torch, seed: int, audit, gym_summary=None, sizes=("bench", "real"
                 want = np_answer(q, data) if real else None
                 res = {e: drive(name, q, g, data, e, None if real else SKEW_BENCH_MAX_CAP, want)
                        for e in SKEW_ENGINES}
-                sets = [np.unique(r[0].astype(np.int64), axis=0) for r in res.values() if r]
+                sets = [unique_rows(r[0].astype(np.int64)) for r in res.values() if r]
                 check(all(np.array_equal(x, sets[0]) for x in sets), f"{name}: engines disagree on rows")
                 hyb = res["hybrid"][1]
                 check(hyb.retries == 0, f"{name}: hybrid made {hyb.retries} retries")
@@ -1510,7 +1558,7 @@ def advisor_key(q, g, data, wire_format, p=8, deduped=False):
     from repro_torch.relational.wire import WirePolicy, wire_gain
 
     rows = {a.alias: (np.asarray(data[a.rel], np.int32) if deduped
-                      else np.unique(np.asarray(data[a.rel], np.int32), axis=0)) for a in q.atoms}
+                      else unique_rows(np.asarray(data[a.rel], np.int32))) for a in q.atoms}
     stats = {a.rel: int(rows[a.alias].shape[0]) for a in q.atoms}
     skew = {a.rel: O.skew_share(rows[a.alias]) for a in q.atoms}
     pol = WirePolicy.from_columns([(a.attrs, rows[a.alias]) for a in q.atoms])
@@ -1584,7 +1632,7 @@ def wire_phase(torch, seed: int, audit, gym_summary=None, sizes=("bench", "real"
                     same(packed, tpacked, f"{name} cuda vs torch")
                     dense, _ = counted(lambda: run(q, g, data, "cuda", strategy=engine))
                     lp, ld = packed[2], dense[2]
-                    check(np.array_equal(np.unique(packed[0].astype(np.int64), axis=0), want),
+                    check(np.array_equal(unique_rows(packed[0].astype(np.int64)), want),
                           f"{name}: rows != numpy join")
                     check(np.array_equal(packed[0], dense[0]) and lp.comm_tuples == ld.comm_tuples
                           and lp.retries == ld.retries and lp.useful_bytes == ld.useful_bytes,
@@ -1656,7 +1704,7 @@ def wire_phase(torch, seed: int, audit, gym_summary=None, sizes=("bench", "real"
             check(all(per[k] > 0 for k in kernels), f"auto {name}: a kernel never launched {per}")
             want = np_answer(q, data) if name.startswith("S_8_heavy") or not real else real_answer(
                 seed, name.split()[0])
-            check(np.array_equal(np.unique(rows.astype(np.int64), axis=0), want) and len(want) > 0,
+            check(np.array_equal(unique_rows(rows.astype(np.int64)), want) and len(want) > 0,
                   f"auto {name}: rows != numpy join")
             if not real:
                 K.reset_launch_counts()
@@ -1708,7 +1756,7 @@ def wire_timing(torch, recorded, launches, reps):
     ]
     recs = []
     for r in rows:
-        t_bytes = r["nbytes"] / HBM_BYTES_PER_S * 1e3
+        t_bytes = r["nbytes"] / HBM_BW * 1e3
         t_ops = r["ops"] / INT32_OPS_PER_S * 1e3
         bound = max(t_bytes, t_ops)
         print(f"kernel {r['name']}: {r['shape']} kernel_ms={r['ms']:.5f} plain_ms={r['plain_ms']:.5f} "
@@ -1846,7 +1894,7 @@ def snapshot_phase(torch, seed: int, audit, gym_summary=None, sizes=("bench", "r
                               "'torch' backend launched a kernel")
                     check(np.array_equal(rows, full), f"snapshot {name} {be}: resumed rows != "
                           "the uninterrupted run's")
-                    check(np.array_equal(np.unique(full.astype(np.int64), axis=0), want),
+                    check(np.array_equal(unique_rows(full.astype(np.int64)), want),
                           f"snapshot {name} {be}: rows != numpy join")
                     runs[be] = (rows, tuple(out.schema), records(drv2.ledger), drv2.ledger.retries,
                                 snap)
@@ -2298,6 +2346,7 @@ def lm_phase(torch, seed: int, profile_dir: str = ""):
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     n_params = sum(p.numel() for p in model.parameters())
+    w_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
     check(model.use_cuda, "LM model is not on the 'cuda' backend")
     prompt_np = np.random.default_rng(seed).integers(0, cfg.vocab, (LM_BATCH, LM_PROMPT))
     prompt = torch.from_numpy(prompt_np).to("cuda")
@@ -2311,6 +2360,7 @@ def lm_phase(torch, seed: int, profile_dir: str = ""):
     try:
         for name in ("cold", "warm"):
             torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
             stats = {}
             K.reset_launch_counts()
             toks, logits = generate(model, prompt, steps=LM_STEPS, s_cache=s_cache,
@@ -2322,7 +2372,7 @@ def lm_phase(torch, seed: int, profile_dir: str = ""):
                   f"not {n_layers}")
             check(all(counts[k] == 0 for k in GYM_KERNELS), f"lm {name}: gym kernel launched")
             runs.append(dict(name=name, toks=toks, logits=logits, stats=stats, peak=peak,
-                             launches=counts["flash_attention"]))
+                             launches=counts["flash_attention"], base=base))
     finally:
         rec.restore()
     cold, warm = runs
@@ -2379,6 +2429,10 @@ def lm_phase(torch, seed: int, profile_dir: str = ""):
         flush=True,
     )
     check(rec.best is not None, "lm: no global-layer flash call was recorded")
+    # the dry run's witness: the warm run's peak, less what was allocated
+    # before it that is not the cell's (the cold run's recorded call, ...)
+    out["witness"] = dict(peak=warm["peak"], warm_s=warm["stats"]["prefill_s"],
+                          held=warm["base"] - w_bytes - prompt.numel() * prompt.element_size())
     if profile_dir:
         profile_lm(torch, model, {"tokens": prompt}, s_cache, profile_dir)
     del model, logits, ref_logits, runs, cold, warm
@@ -2425,14 +2479,6 @@ def profile_lm(torch, model, batch, s_cache: int, out_dir: str, tag: str = "lm")
             print(f"  {kname[:90]:90s} device_ms={us / 1e3:.3f}", flush=True)
 
 
-def visible_pairs(sq: int, sk: int, causal: bool, window: int) -> int:
-    """(query, key) pairs the masks leave visible: the work this call needs."""
-    rows = np.arange(sq, dtype=np.int64)
-    hi = np.minimum(sk, rows + 1) if causal else np.full(sq, sk, np.int64)
-    lo = np.maximum(0, rows - window + 1) if window > 0 else np.zeros(sq, np.int64)
-    return int(np.maximum(0, hi - lo).sum())
-
-
 def flash_timing(torch, recorded, launches, reps):
     """Time the flash kernel at its recorded main-path call beside its plain
     version and SDPA (a yardstick only: it computes no softcap)."""
@@ -2470,13 +2516,13 @@ def flash_timing(torch, recorded, launches, reps):
     pairs = visible_pairs(sq, sk, causal, int(kw.get("window") or 0))
     flops = 4 * b * h * d * pairs
     nbytes = (q.numel() * 2 + k.numel() + v.numel()) * q.element_size()
-    t_ops = flops / BF16_FLOPS_PER_S * 1e3
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS_BF16 * 1e3
+    t_bytes = nbytes / HBM_BW * 1e3
     bound = max(t_ops, t_bytes)
     dk = next(w for w in FA.KERNEL_D[q.dtype] if w >= d)
     padded = "" if dk == d else (
         f"; the kernel runs D = {dk} (zero columns): {4 * b * h * dk * pairs} flop, "
-        f"{4 * b * h * dk * pairs / BF16_FLOPS_PER_S * 1e3:.6f} ms at the peak")
+        f"{4 * b * h * dk * pairs / PEAK_FLOPS_BF16 * 1e3:.6f} ms at the peak")
     print(
         f"kernel flash_attention: q {tuple(q.shape)} k/v {tuple(k.shape)} {q.dtype} {kw} "
         f"kernel_ms={ms:.5f} plain_ms={plain_ms:.5f} library_ms={library_ms:.5f} ({lib_note}) "
@@ -3375,7 +3421,8 @@ def ssm_long_decode(torch, model, seed: int, K):
           f"{attn}; logits finite, |logit| max {float(logits.abs().max()):.4g}", flush=True)
     del caches
     torch.cuda.empty_cache()
-    return dict(cold_ms=cold_ms, decode_ms_per_step=warm_ms, peak=peak, reckoned=reckoned, err=err)
+    return dict(cold_ms=cold_ms, decode_ms_per_step=warm_ms, peak=peak, reckoned=reckoned, err=err,
+                witness=dict(peak=peak, held=base - w_bytes, warm_s=warm_ms / 1e3))
 
 
 def ssm_phase(torch, seed: int, profile_dir: str = ""):
@@ -3672,7 +3719,10 @@ def whisper_phase(torch, seed: int, reps: int, profile_dir: str = ""):
               f"{r['peak'] / reckoned:.4f}) flash_launches={n_flash}", flush=True)
     print(f"whisper (b): the encoder call q {(b, cfg.n_heads, s, cfg.hd)} non-causal vs the plain "
           f"version: {err:.3g} (bound {FLASH_TOL['bfloat16']})", flush=True)
-    summary["b"] = dict(runs=runs, reckoned=reckoned, err=err)
+    # the dry run's witness: less what was allocated before the frames that
+    # is not the cell's, and the recorded call's clones
+    summary["b"] = dict(runs=runs, reckoned=reckoned, err=err, witness=dict(
+        peak=runs[1]["peak"], held=base - w_bytes + clones, warm_s=runs[1]["prefill_s"]))
     del frames
     marks.append(("(b)", time.perf_counter()))
 
@@ -3734,7 +3784,8 @@ def whisper_phase(torch, seed: int, reps: int, profile_dir: str = ""):
     check(rec.best is not None and rec.best[0].shape == (b, cfg.n_heads, 1, cfg.hd),
           "whisper (c): the cross call was not recorded")
     records["cross"] = flash_timing(torch, rec.best, n_dec * WHISPER_DECODE_STEPS, reps)
-    summary["c"] = dict(cold_ms=cold_ms, decode_ms_per_step=warm_ms, peak=peak, reckoned=reckoned)
+    summary["c"] = dict(cold_ms=cold_ms, decode_ms_per_step=warm_ms, peak=peak, reckoned=reckoned,
+                        witness=dict(peak=peak, held=base - w_bytes, warm_s=warm_ms / 1e3))
     del rec, caches, logits, model
     torch.cuda.empty_cache()
     marks.append(("(c) and the timings", time.perf_counter()))
@@ -3917,6 +3968,7 @@ def train_phase(torch, seed: int, profile_dir: str = "", dev: str = "cuda"):
     from repro_torch.kernels import ops as K
     from repro_torch.launch import serve as serve_cli
     from repro_torch.launch import train as train_cli
+    from repro_torch.launch.dryrun import leaf_tensors, storage_bytes
     from repro_torch.train import OptConfig, TrainConfig, init_train_state, make_train_step
     from repro_torch.train import checkpoint as ckpt
     from repro_torch.train.optim import global_norm
@@ -3961,6 +4013,8 @@ def train_phase(torch, seed: int, profile_dir: str = "", dev: str = "cuda"):
     opt = init_train_state(model, tcfg)
     step = make_train_step(model, tcfg)
     base = peak_reset(torch)
+    # the step's arguments: what of ``base`` is the cell's (the dry run's witness)
+    args = storage_bytes(list(model.parameters()) + leaf_tensors(opt) + leaf_tensors(batch))
     losses, step_s = [], []
     for i in range(TRAIN_STEPS):
         torch.cuda.synchronize()
@@ -3971,7 +4025,8 @@ def train_phase(torch, seed: int, profile_dir: str = "", dev: str = "cuda"):
         losses.append(loss)
         if i == 0:
             gnorm0 = m["grad_norm"].item()
-    peak = torch.cuda.max_memory_allocated() - base
+    peak_abs = torch.cuda.max_memory_allocated()
+    peak = peak_abs - base
     dl, dn = abs(losses[0] - ref0["dense"][0]), abs(gnorm0 - ref0["dense"][1])
     warm = float(np.median(step_s[1:]))
     print(f"train step 0: loss={losses[0]:.6f} grad_norm={gnorm0:.6f}; dense (remat) "
@@ -4094,10 +4149,11 @@ def train_phase(torch, seed: int, profile_dir: str = "", dev: str = "cuda"):
     flops = 6 * n_params * tokens + 12 * n_layers * cfg.n_heads * cfg.hd * TRAIN_SEQ * tokens
     print(f"train model flops a step: {flops} (6 N T + 12 L H hd S T) = "
           f"{flops / warm / 1e12:.2f} TFLOP/s at the warm step, "
-          f"{flops / warm / BF16_FLOPS_PER_S:.4f} of 989 TFLOP/s bf16", flush=True)
+          f"{flops / warm / PEAK_FLOPS_BF16:.4f} of 989 TFLOP/s bf16", flush=True)
     summary = dict(warm_step_s=warm, tokens_per_s=tokens / warm, peak_bytes=peak,
                    ckpt_bytes=nbytes, save_s=save_s, load_s=load_s, busy=busy,
-                   attn_peaks=peaks, losses=losses)
+                   attn_peaks=peaks, losses=losses,
+                   witness=dict(peak=peak_abs, held=base - args, warm_s=warm, tcfg=tcfg))
     return summary, launches
 
 
@@ -4128,13 +4184,130 @@ def profile_train(torch, step, opt, batch, out_dir: str):
         print(f"  {kname[:90]:90s} device_ms={us / 1e3:.3f}", flush=True)
     return busy_s / wall
 
+# ----------------------------------------------------------------- dry run
+# the dry run's witnesses (``launch/dryrun.py``): each run an earlier phase
+# measured, as (name, phase, arch, shape, the overrides that make the cell
+# that run); the train witness also takes the train phase's optimizer
+DRYRUN_WITNESSES = (
+    ("gemma2-9b prefill", "lm", LM_ARCH, "prefill_32k",
+     dict(batch=LM_BATCH, seq=LM_PROMPT, s_cache=LM_PROMPT + LM_STEPS + 1)),
+    ("whisper-small prefill_32k (b)", "whisper", WHISPER_ARCH, "prefill_32k",
+     dict(batch=WHISPER_PREFILL_BATCH, s_cache=WHISPER_PREFILL_STEPS + 4)),
+    ("whisper-small decode_32k (c)", "whisper", WHISPER_ARCH, "decode_32k",
+     dict(batch=WHISPER_DECODE_BATCH)),
+    ("zamba2-7b long_500k", "ssm", "zamba2-7b", "long_500k", {}),
+    ("smollm-360m train", "train", TRAIN_ARCH, "train_4k", dict(batch=TRAIN_BATCH, seq=TRAIN_SEQ)),
+)
+# measured peak (less what the script held that is not the cell's) over
+# the dry run's reckoned peak
+DRYRUN_PEAK_RATIO = (0.95, 1.05)
+# gemma2-9b's prefill flops against the hand count (its layers' 2 N a
+# token, the head at the last position only, flash's formula per layer)
+DRYRUN_FLOP_RTOL = 1e-2
+
+
+def flash_host_us(torch, FA, calls: int = 2000) -> float:
+    """Host microseconds a call of the flash wrapper takes (checks, then
+    the operator ``torch.ops.repro_torch.flash_attention``) at a tiny shape
+    (16 queries against 64 keys, D = 64, bf16), so that the card keeps up
+    with the launches."""
+    q = torch.zeros((1, 1, 16, 64), dtype=torch.bfloat16, device="cuda")
+    kv = torch.zeros((1, 1, 64, 64), dtype=torch.bfloat16, device="cuda")
+    for _ in range(50):
+        FA.flash_attention(q, kv, kv, causal=False)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        FA.flash_attention(q, kv, kv, causal=False)
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / calls * 1e6
+
+
+def gemma_prefill_hand_flops(cfg, n_params: int, b: int, s: int) -> int:
+    """2 (N - d V) a token for the layers, 2 d V for each sequence's last
+    logits, and the flash formula over every layer's call."""
+    d, v = cfg.d_model, cfg.vocab
+    attn = sum(4 * b * cfg.n_heads * cfg.hd * visible_pairs(s, s, True, cfg.window if k == "local" else 0)
+               for k in cfg.blocks())
+    return 2 * (n_params - d * v) * b * s + 2 * d * v * b + attn
+
+
+def dryrun_phase(torch, witnesses):
+    """The dry run held against the runs the card measured: each witness
+    of ``DRYRUN_WITNESSES`` whose phase ran, reckoned on ``meta`` (no card
+    work) with the overrides of its run (the train witness with the train
+    phase's own ``TrainConfig``); its measured peak less what the script
+    held that is not the cell's must lie within ``DRYRUN_PEAK_RATIO`` of
+    the reckoned peak, its flops must reach its model flops (gemma2-9b's
+    prefill, whose head runs at the last position only: the hand count
+    within ``DRYRUN_FLOP_RTOL``), and in a prefill the flash operator's fake
+    must run once per attention call.  Prints mfu (model flops over the
+    measured warm seconds at the bf16 peak), bound_over_measured (the
+    reckoned roofline bound over those seconds) and the flash wrapper's
+    host us a call.  Returns the figures."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.launch import dryrun as DR
+    from repro_torch.launch.roofline import HBM_BYTES
+
+    print(f"dryrun: {torch.cuda.get_device_name(0)} total_memory="
+          f"{torch.cuda.get_device_properties(0).total_memory} (HBM_BYTES in launch/roofline.py: "
+          f"{HBM_BYTES})", flush=True)
+    out = {}
+    for name, phase, arch, shape, ov in DRYRUN_WITNESSES:
+        w = witnesses.get(name)
+        if w is None:
+            print(f"dryrun witness {name}: skipped (the {phase} phase did not run)", flush=True)
+            continue
+        ov = dict(ov, tcfg=w["tcfg"]) if "tcfg" in w else ov
+        rec = DR.run_cell(arch, shape, ov, max_batch=False)
+        cfg = get_config(arch)
+        reckoned = rec["memory"]["peak_bytes"]
+        measured = w["peak"] - w["held"]
+        ratio = measured / reckoned
+        r = rec["roofline"]
+        flops, mf = rec["cost"]["flops"], r["model_flops"]
+        mfu = mf / (w["warm_s"] * PEAK_FLOPS_BF16)
+        frac = r["bound_s"] / w["warm_s"]
+        what = f"dryrun witness {name}"
+        line = (f"{what}: batch {rec['batch']} seq {rec['seq']}; peak measured {measured} (the run's "
+                f"{w['peak']} less {w['held']} held that is not the cell's) / reckoned {reckoned} = "
+                f"{ratio:.4f} (bounds {DRYRUN_PEAK_RATIO}); arguments {rec['memory']['argument_bytes']}; "
+                f"flops {flops:.6g} / model flops {mf:.6g} = {flops / mf:.4f}; bytes accessed "
+                f"{rec['cost']['bytes accessed']:.6g}; compute_s {r['compute_s']:.6g} memory_s "
+                f"{r['memory_s']:.6g} bound_s {r['bound_s']:.6g} ({r['dominant']}); warm s "
+                f"{w['warm_s']:.6g}: mfu {mfu:.4g} bound_over_measured {frac:.4g}; flash fake calls "
+                f"{rec['flash_calls']}; trace_s {rec['trace_s']:.2f}")
+        if phase == "lm":
+            hand = gemma_prefill_hand_flops(cfg, rec["n_params"], rec["batch"], rec["seq"])
+            line += f"; hand count {hand} ({flops / hand:.6f})"
+        print(line, flush=True)
+        check(DRYRUN_PEAK_RATIO[0] <= ratio <= DRYRUN_PEAK_RATIO[1],
+              f"{what}: measured/reckoned peak {ratio:.4f} outside {DRYRUN_PEAK_RATIO}")
+        if phase == "lm":
+            check(abs(flops / hand - 1) <= DRYRUN_FLOP_RTOL, f"{what}: flops {flops} vs the hand count {hand}")
+        else:
+            check(flops >= mf, f"{what}: flops {flops} below the model flops {mf}")
+        if rec["kind"] == "prefill":
+            calls = cfg.enc_layers + cfg.n_layers if cfg.encdec else len(cfg.blocks())
+            check(rec["flash_calls"] == calls,
+                  f"{what}: the flash fake ran {rec['flash_calls']} times, not {calls}")
+        out[name] = dict(ratio=ratio, measured=measured, reckoned=reckoned, mfu=mfu,
+                         bound_over_measured=frac, flops=flops, model_flops=mf)
+    us = flash_host_us(torch, FA)
+    print(f"dryrun: flash at q (1, 1, 16, 64) against 64 keys, bf16: wrapper_host_us={us:.2f} "
+          f"(the wrapper through torch.ops.repro_torch.flash_attention)", flush=True)
+    out["wrapper_host_us"] = us
+    return out
+
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--reps", type=int, default=30)
     ap.add_argument("--phases",
-                    default="gym,grid,skew,logdepth,wire,snapshot,joinserve,lm,moe,ssm,whisper,train",
+                    default="gym,grid,skew,logdepth,wire,snapshot,joinserve,lm,moe,ssm,whisper,train,dryrun",
                     help="comma-separated main paths to drive: gym (the join path), "
                          "grid (the grid engine), skew (the hybrid engine beside hash "
                          "and grid on skewed data), logdepth (Log-GTA, Log-GTA', Shares), "
@@ -4144,7 +4317,9 @@ def main(argv=None) -> int:
                          "routes, the MoE layer alone, reduced kimi-k2 training), ssm "
                          "(xlstm-125m and zamba2-7b serving, their long_500k decode), whisper "
                          "(whisper-small serving at 1500 frames, prefill_32k and decode_32k), "
-                         "train (smollm-360m training on the GYM-assembled data pipeline)")
+                         "train (smollm-360m training on the GYM-assembled data pipeline), "
+                         "dryrun (launch/dryrun.py held against the runs the earlier phases "
+                         "measured)")
     ap.add_argument("--sizes", default="bench,real",
                     help="comma-separated gym, grid, skew, wire, snapshot and joinserve "
                          "sizes to drive: bench, real")
@@ -4198,24 +4373,29 @@ def main(argv=None) -> int:
     check(mma != 0, "the flash kernels' SASS holds no tensor-core MMA instruction")
 
     t0 = time.perf_counter()
-    n = kernel_edge_checks(torch, K, ref, dev)
-    n += sorted_probe_edge_checks(torch, K, ref, dev)
-    n_bitmap = bitmap_edge_checks(torch, K, ref, dev)
-    print(f"kernel edge cases: {n + n_bitmap} checks ({n_bitmap} of the semijoin probe's "
-          f"bitmap path), every gym CUDA kernel == its plain version", flush=True)
-    print(f"semijoin_probe bitmap path, a key >= bound in a child process: trapped "
-          f"({bitmap_trap_check()})", flush=True)
-    n_wire = wire_edge_checks(torch, dev)
-    print(f"wire codec edge cases: {n_wire} checks, wire_encode/wire_decode == their plain "
-          f"versions and decode inverts encode (the golden fixture included)", flush=True)
-    n, worst = flash_edge_checks(torch, dev)
-    print(f"flash_attention edge cases: {n} checks within {FLASH_TOL} of the plain version "
-          f"(worst |d|/max(1,|o|): {worst}), fully masked rows exactly 0; "
-          f"edge phase {time.perf_counter() - t0:.1f} s", flush=True)
+    trap = start_bitmap_trap()
+    try:
+        n = kernel_edge_checks(torch, K, ref, dev)
+        n += sorted_probe_edge_checks(torch, K, ref, dev)
+        n_bitmap = bitmap_edge_checks(torch, K, ref, dev)
+        print(f"kernel edge cases: {n + n_bitmap} checks ({n_bitmap} of the semijoin probe's "
+              f"bitmap path), every gym CUDA kernel == its plain version", flush=True)
+        n_wire = wire_edge_checks(torch, dev)
+        print(f"wire codec edge cases: {n_wire} checks, wire_encode/wire_decode == their plain "
+              f"versions and decode inverts encode (the golden fixture included)", flush=True)
+        n, worst = flash_edge_checks(torch, dev)
+        print(f"flash_attention edge cases: {n} checks within {FLASH_TOL} of the plain version "
+              f"(worst |d|/max(1,|o|): {worst}), fully masked rows exactly 0", flush=True)
+        print(f"semijoin_probe bitmap path, a key >= bound in a child process: trapped "
+              f"({bitmap_trap_check(trap)}); edge phase {time.perf_counter() - t0:.1f} s", flush=True)
+    finally:
+        if trap.poll() is None:
+            trap.kill()
 
     kernels = []
     by_path = {}
     summary = None
+    witnesses = {}  # the dry run's, by DRYRUN_WITNESSES name
     if "gym" in phases:
         recorders = {
             "hash_partition": Recorder(torch, HP, "hash_partition"),
@@ -4292,6 +4472,7 @@ def main(argv=None) -> int:
             torch, args.seed, args.profile_out if "lm" in args.profile.split(",") else "")
         kernels.append(flash_timing(torch, flash_call, per_generate, args.reps))
         del flash_call
+        witnesses["gemma2-9b prefill"] = lm["witness"]
     if "moe" in phases:
         t0 = time.perf_counter()
         _, launches, moe_call, per_generate = moe_phase(
@@ -4309,7 +4490,7 @@ def main(argv=None) -> int:
         by_path["moe"] = launches
     if "ssm" in phases:
         t0 = time.perf_counter()
-        _, launches, zamba_call, per_generate = ssm_phase(
+        ssm, launches, zamba_call, per_generate = ssm_phase(
             torch, args.seed, profile_dir=args.profile_out if "ssm" in args.profile.split(",") else "")
         print(f"ssm path launches ('cuda' generate and consistency runs): {launches}; phase "
               f"{time.perf_counter() - t0:.1f} s", flush=True)
@@ -4322,9 +4503,10 @@ def main(argv=None) -> int:
         else:
             kernels.append(zamba_flash)
         by_path["ssm"] = launches
+        witnesses["zamba2-7b long_500k"] = ssm["zamba2-7b"]["long_500k"]["witness"]
     if "whisper" in phases:
         t0 = time.perf_counter()
-        _, launches, calls, per_generate = whisper_phase(
+        wsum, launches, calls, per_generate = whisper_phase(
             torch, args.seed, args.reps,
             profile_dir=args.profile_out if "whisper" in args.profile.split(",") else "")
         print(f"whisper path launches ('cuda' generate, full-forward and decode runs): {launches}; "
@@ -4339,14 +4521,21 @@ def main(argv=None) -> int:
             flash = kernels[-1:]
         flash[0].update(rides)
         by_path["whisper"] = launches
+        witnesses["whisper-small prefill_32k (b)"] = wsum["b"]["witness"]
+        witnesses["whisper-small decode_32k (c)"] = wsum["c"]["witness"]
     if "train" in phases:
         t0 = time.perf_counter()
-        _, launches = train_phase(
+        tsum, launches = train_phase(
             torch, args.seed, args.profile_out if "train" in args.profile.split(",") else "")
         print(f"train path launches (the corpus joins' 'cuda' runs and the training runs): "
               f"{launches}; phase {time.perf_counter() - t0:.1f} s", flush=True)
         check(all(launches[k] > 0 for k in GYM_KERNELS), f"train: a kernel never launched: {launches}")
         by_path["train"] = launches
+        witnesses["smollm-360m train"] = tsum["witness"]
+    if "dryrun" in phases:
+        t0 = time.perf_counter()
+        dryrun_phase(torch, witnesses)
+        print(f"dryrun phase {time.perf_counter() - t0:.1f} s", flush=True)
     for rec in kernels:
         rec["launches_by_path"] = {p: n.get(rec["name"], 0) for p, n in by_path.items()}
     torch.cuda.synchronize()

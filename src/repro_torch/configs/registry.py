@@ -6,7 +6,7 @@ cells of the dry run (``SHAPES``, ``LONG_OK``, ``cell_enabled``,
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -118,15 +118,21 @@ def _tok(b: int, s: int) -> torch.Tensor:
     return torch.empty((b, s), dtype=torch.int32, device="meta")
 
 
-def input_specs(cfg: ArchConfig, shape: str) -> Dict:
+def input_specs(cfg: ArchConfig, shape: str, *, batch: Optional[int] = None,
+                seq: Optional[int] = None) -> Dict:
     """Meta-device stand-ins (shapes and dtypes, no storage) for every
     model input of the cell, as the reference's ShapeDtypeStructs:
 
     train   -> ``{"batch": {...}}``, the train step's batch;
     prefill -> ``{"batch": {...}}``, the prefill's;
     decode  -> ``{"caches", "tokens"}``: ``init_caches`` of the model on
-    ``meta`` and one token a sequence."""
+    ``meta`` and one token a sequence.
+
+    ``batch`` and ``seq`` replace the shape's batch and sequence length
+    (for decode the cache's positions, for whisper its frames)."""
     s, b, kind = SHAPES[shape]
+    b = b if batch is None else int(batch)
+    s = s if seq is None else int(seq)
 
     def frames(n: int) -> torch.Tensor:
         return torch.empty((b, n, cfg.d_model), dtype=cfg.torch_dtype, device="meta")
@@ -135,7 +141,7 @@ def input_specs(cfg: ArchConfig, shape: str) -> Dict:
         if cfg.encdec:
             batch = {"frames": frames(s)}
             if kind == "train":
-                batch["tokens"] = batch["targets"] = _tok(b, s // cfg.dec_ratio)
+                batch["tokens"], batch["targets"] = _tok(b, s // cfg.dec_ratio), _tok(b, s // cfg.dec_ratio)
             return {"batch": batch}
         batch = {"tokens": _tok(b, s)}
         if kind == "train":

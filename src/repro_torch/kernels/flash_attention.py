@@ -36,6 +36,16 @@ memory; TF32 would miss the f32 tolerance) for D = 16, 32, 64, 128, 256.
 The wrapper pads any other D <= 256 with zero columns.  The launcher's
 return code reports a refused launch.
 
+The kernel is the operator ``torch.ops.repro_torch.flash_attention``
+(``torch.library.define``, its CUDA kernel ``_launch`` registered with
+``torch.library.impl``): its contract is a width of
+``KERNEL_D`` and 16-byte aligned bases, which the wrapper meets (padding
+and aligned copies happen in the wrapper, where a trace sees them).  The
+operator has a fake (``meta`` and fake tensors: an empty tensor of q's
+shape, no launch) and a flop formula for ``FlopCounterMode``, ``4 B H D``
+a visible pair (``visible_pairs``; ``register_flop_formula``), so that
+``launch/dryrun.py`` traces the ``'cuda'`` path on ``meta`` tensors.
+
 Rounding: for f32 inputs the kernel and the plain version differ only in
 summation order.  For bf16 inputs both form the scores exactly from the
 bf16 inputs with f32 sums; the kernel then rounds the weights P to bf16
@@ -140,6 +150,96 @@ def refuse_autograd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
         )
 
 
+def visible_pairs(sq: int, sk: int, causal: bool, window: int) -> int:
+    """(query, key) pairs the masks leave visible, the work a call needs,
+    in closed form (O(1) at any length).  Row ``r`` sees keys ``[lo, hi)``
+    with ``hi = min(sk, r + 1)`` (causal) or ``sk``, and ``lo = max(0, r -
+    window + 1)`` (``window > 0``) or 0: a count that is linear in ``r``
+    between the breakpoints ``sk - 1``, ``window - 1`` and ``sk + window -
+    1``, so each piece is an arithmetic series."""
+    sq, sk, window = int(sq), int(sk), int(window)
+    if sq <= 0 or sk <= 0:
+        return 0
+
+    def seen(r: int) -> int:
+        hi = min(sk, r + 1) if causal else sk
+        lo = max(0, r - window + 1) if window > 0 else 0
+        return max(0, hi - lo)
+
+    cuts = {0, sq}
+    for c in ((sk - 1, window - 1, sk + window - 1) if window > 0 else (sk - 1,)):
+        if 0 < c < sq:
+            cuts.add(c)
+    cuts = sorted(cuts)
+    return sum((seen(a) + seen(b - 1)) * (b - a) // 2 for a, b in zip(cuts, cuts[1:]))
+
+
+def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool, window: int,
+            softcap: float, scale: float) -> torch.Tensor:
+    """The operator's CUDA kernel: q ``(B,H,Sq,D)``, k/v ``(B,KVH,Skv,D)``
+    contiguous CUDA tensors of one dtype with ``D`` in ``KERNEL_D[dtype]``
+    and 16-byte aligned bases, ``window >= 0`` -> ``(B,H,Sq,D)``, one
+    ``ctypes`` launch.  The wrapper ``flash_attention`` meets that contract
+    (padding and aligned copies)."""
+    global launches
+    from . import build
+
+    b, h, sq, d = q.shape
+    kvh, sk = k.shape[1], k.shape[2]
+    out = torch.empty_like(q)
+    if out.numel():
+        lib = build.load()
+        err = lib.gym_flash_attention(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            _DTYPES[q.dtype], b, h, kvh, sq, sk, d, scale, int(causal), window, softcap,
+            build.stream_handle(q.device),
+        )
+        build.check(err, "gym_flash_attention")
+        launches += 1
+    return out
+
+
+def _flash_attention_fake(q, k, v, causal, window, softcap, scale):
+    """Shape only (``meta`` and fake tensors): nothing is launched or
+    counted."""
+    return torch.empty_like(q)
+
+
+# torch.library.define + impl rather than custom_op: custom_op wraps each
+# kernel in torch._disable_dynamo, whose first call imports torch._dynamo
+# (and triton with it), seconds of host time in every process
+torch.library.define(
+    "repro_torch::flash_attention",
+    "(Tensor q, Tensor k, Tensor v, bool causal, int window, float softcap, float scale) -> Tensor",
+)
+torch.library.impl("repro_torch::flash_attention", "cuda", _launch)
+torch.library.register_fake("repro_torch::flash_attention", _flash_attention_fake)
+
+
+def _flash_attention_flop(q_shape, k_shape, v_shape, causal, window, *args, out_shape=None,
+                          **kwargs) -> int:
+    """``4 B H D`` a visible pair (``S = Q K^T`` and ``O = P V``), at the
+    width the kernel runs (a padded ``D`` counts its zero columns)."""
+    b, h, sq, d = q_shape
+    return 4 * b * h * d * visible_pairs(sq, k_shape[2], causal, window)
+
+
+_flop_formula_registered = False
+
+
+def register_flop_formula() -> None:
+    """Register the operator's flop formula with ``FlopCounterMode`` (once;
+    ``launch/dryrun.py`` calls it).  Not done at import: importing
+    ``torch.utils.flop_counter`` costs a fresh process seconds of host
+    time, which every process that never counts flops would pay."""
+    global _flop_formula_registered
+    if not _flop_formula_registered:
+        from torch.utils.flop_counter import register_flop_formula as register
+
+        register(torch.ops.repro_torch.flash_attention)(_flash_attention_flop)
+        _flop_formula_registered = True
+
+
 def flash_attention(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -152,29 +252,30 @@ def flash_attention(
 ) -> torch.Tensor:
     """Attention of q ``(B,H,Sq,D)`` over k/v ``(B,KVH,Skv,D)`` -> ``(B,H,Sq,D)``.
 
-    CPU tensors take the plain version; CUDA tensors launch the kernel."""
+    CPU tensors take the plain version; CUDA tensors launch the kernel
+    through ``torch.ops.repro_torch.flash_attention``, and ``meta`` tensors
+    reach its fake (shapes, and the flop count under ``FlopCounterMode``).
+    Any other D <= 256 is padded here with zero columns to the next width
+    the kernel is built for, and sliced back."""
     if q.device.type == "cpu":
         return flash_attention_plain(
             q, k, v, causal=causal, window=window, softcap=softcap, scale=scale
         )
-    global launches
-    from . import build
-
     refuse_autograd(q, k, v)
 
     for name, t in (("q", q), ("k", k), ("v", v)):
         if (
-            not t.is_cuda or t.dtype not in _DTYPES or t.dtype != q.dtype
+            not (t.is_cuda or t.is_meta) or t.dtype not in _DTYPES or t.dtype != q.dtype
             or not t.is_contiguous() or t.device != q.device
         ):
             raise ValueError(
                 f"flash_attention: {name} must be a contiguous float32 or bfloat16 "
-                f"tensor on {q.device} with q's dtype, got {tuple(t.shape)} "
-                f"{t.dtype} {t.device} contiguous={t.is_contiguous()}"
+                f"tensor on {q.device} (a CUDA device, or meta) with q's dtype, got "
+                f"{tuple(t.shape)} {t.dtype} {t.device} contiguous={t.is_contiguous()}"
             )
     _check_shapes(q, k, v)
     b, h, sq, d = q.shape
-    kvh, sk = k.shape[1], k.shape[2]
+    sk = k.shape[2]
     widths = KERNEL_D[q.dtype]
     if d > widths[-1] or d == 0:
         raise ValueError(f"flash_attention: head width {d} not in 1..{widths[-1]}")
@@ -187,15 +288,7 @@ def flash_attention(
     if any(t.data_ptr() % 16 for t in (q, k, v)):
         # the bf16 kernel's tensor maps need 16-byte aligned bases
         q, k, v = (t.clone() if t.data_ptr() % 16 else t for t in (q, k, v))
-    out = torch.empty_like(q)
-    if out.numel():
-        lib = build.load()
-        err = lib.gym_flash_attention(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            _DTYPES[q.dtype], b, h, kvh, sq, sk, dk, scale, int(bool(causal)),
-            max(0, min(int(window), 2**31 - 1)), float(softcap),
-            build.stream_handle(q.device),
-        )
-        build.check(err, "gym_flash_attention")
-        launches += 1
+    out = torch.ops.repro_torch.flash_attention(
+        q, k, v, bool(causal), max(0, min(int(window), 2**31 - 1)), float(softcap), scale
+    )
     return out if dk == d else out[..., :d].contiguous()

@@ -3,6 +3,10 @@
 ``use_cuda`` picks the CUDA kernel (which needs CUDA tensors and raises on
 CPU ones) or the plain PyTorch version (any device); ``None`` follows the
 tensors' device.  There is no fallback: a failed build or launch raises.
+The one other device ``use_cuda=True`` accepts is ``meta``, which never
+computes: ``attention`` on meta tensors reaches the flash operator's fake
+(``launch/dryrun.py`` traces the model so), and the gym and codec
+wrappers refuse it.
 ``launch_counts`` / ``reset_launch_counts`` read and clear the kernels'
 launch counters, which count kernel launches only;
 ``semijoin_probe_path_counts`` splits the probe's count by path.
@@ -31,9 +35,10 @@ CHUNKED_MIN_KV = 2048
 def _want_cuda(t: torch.Tensor, use_cuda: Optional[bool], name: str) -> bool:
     if use_cuda is None:
         return t.is_cuda
-    if use_cuda and not t.is_cuda:
+    if use_cuda and not (t.is_cuda or t.is_meta):
         raise ValueError(
-            f"{name}: use_cuda=True needs CUDA tensors, got a tensor on {t.device}"
+            f"{name}: use_cuda=True needs CUDA tensors (or meta, which only "
+            f"traces), got a tensor on {t.device}"
         )
     return use_cuda
 

@@ -115,16 +115,21 @@ def adamw_update(cfg: OptConfig, grads: Tensors, state: Dict, params: Tensors,
 def adafactor_init(cfg: OptConfig, params: Tensors, leaves: Optional[Leaves] = None) -> Dict:
     f: Dict[str, Dict[str, torch.Tensor]] = {}
     for names, stacked in leaves_of(params, leaves):
+        shared_c = None
         for k in names:
             p = params[k]
             if p.dim() + stacked >= 2:
                 # r: the leaf's shape less its last axis; c less its second
-                # to last, which for a stacked vector is the layer axis
-                c_shape = p.shape[:-2] + p.shape[-1:] if p.dim() >= 2 else p.shape
-                f[k] = {
-                    "r": torch.zeros(p.shape[:-1], device=p.device),
-                    "c": torch.zeros(c_shape, device=p.device),
-                }
+                # to last, which for a stacked vector is the layer axis: one
+                # tensor that every layer of the leaf holds, as the update
+                # leaves it (the reference's one c a leaf)
+                if p.dim() >= 2:
+                    c = torch.zeros(p.shape[:-2] + p.shape[-1:], device=p.device)
+                else:
+                    if shared_c is None:
+                        shared_c = torch.zeros(p.shape, device=p.device)
+                    c = shared_c
+                f[k] = {"r": torch.zeros(p.shape[:-1], device=p.device), "c": c}
             else:
                 f[k] = {"v": _zeros(p)}
     dev = next(iter(params.values())).device

@@ -18,7 +18,8 @@ on both routes, and reduced kimi-k2 must generate the same tokens with the
 ``'cuda'`` and ``'torch'`` backends on both routes, as must reduced
 xlstm-125m, zamba2-7b and whisper-small (whose encoder and every
 cross-attention call, at one query a sequence in decode, launch the flash
-kernel); the flash kernel at Sq = 1 must agree with its plain version."""
+kernel); the flash kernel at Sq = 1 must agree with its plain version, and
+its operator must pass ``torch.library.opcheck``."""
 from __future__ import annotations
 
 import dataclasses
@@ -929,3 +930,21 @@ def test_cuda_flash_attention_one_query(cuda_device, dtype, sk):
     tol = 1e-4 if dtype == "float32" else 1.6e-2  # chip_smoke.FLASH_TOL
     err = float(((got.float() - want.float()).abs() / want.float().abs().clamp(min=1.0)).max())
     assert got.shape == q.shape and err <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,d", [("bfloat16", 128), ("float32", 64)])
+def test_cuda_flash_attention_operator_opcheck(cuda_device, dtype, d):
+    """``torch.ops.repro_torch.flash_attention`` passes ``torch.library``'s
+    checks (schema, fake against the kernel, autograd registration, AOT
+    dispatch) at a bf16 and an f32 call, and equals the wrapper."""
+    from repro_torch.kernels import flash_attention as FA
+
+    rng = np.random.default_rng(d)
+    dt = getattr(torch, dtype)
+    q, k, v = (torch.from_numpy(rng.standard_normal(s)).to(cuda_device, dt)
+               for s in ((2, 4, 70, d), (2, 2, 90, d), (2, 2, 90, d)))
+    args = (q, k, v, True, 0, 50.0, d ** -0.5)
+    torch.library.opcheck(torch.ops.repro_torch.flash_attention.default, args)
+    got = torch.ops.repro_torch.flash_attention(*args)
+    assert torch.equal(got, FA.flash_attention(q, k, v, causal=True, softcap=50.0))

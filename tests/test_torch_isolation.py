@@ -47,7 +47,7 @@ def test_port_modules_exist():
         "train/checkpoint.py", "train/elastic.py", "data/pipeline.py", "launch/train.py",
         "models/whisper.py", "examples/quickstart.py", "examples/gym_fault_tolerance.py",
         "examples/serve_joins.py", "examples/moe_routing.py", "examples/serve_decode.py",
-        "examples/train_lm.py",
+        "examples/train_lm.py", "launch/dryrun.py", "launch/roofline.py",
     ):
         assert mod in names, mod
     assert (PKG / "csrc" / "gym_kernels.cu").exists()
