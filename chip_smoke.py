@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch/CUDA port of GYM on one CUDA card.
 
     python3 chip_smoke.py [--seed N] [--reps N]
-                          [--phases gym,grid,skew,logdepth,wire,snapshot,joinserve,lm,moe,ssm,whisper,train,dryrun]
+                          [--phases gym,grid,skew,logdepth,wire,snapshot,joinserve,mesh,lm,moe,ssm,whisper,train,dryrun]
 
 Run from the root of a checkout on a machine with a CUDA card (sm_90a,
 an H100) and the CUDA toolkit.  In order it:
@@ -46,10 +46,13 @@ an H100) and the CUDA toolkit.  In order it:
    heavy-hitter engine — beside the hash and grid engines: the five
    families of ``benchmarks/bench_skew.py`` (p = 8, seed 23,
    ``max_cap_tuples=1<<18``), the planted heavy key ``S_8_heavy`` at the
-   gym phase's real S_8 scale (hub 2^20 rows, 80% of them on one A_1
-   value), and the gym phase's real S_8 under ``hybrid`` as a uniform
-   control.  Each run's rows, schema and ledger must equal the ``'torch'``
-   backend's; the engines must give one row set, the real-size rows the
+   gym phase's real S_8 scale (hub ``SKEW_REAL_HUB`` = 2^20 rows, 80% of
+   them on one A_1 value, spokes 2^18 extra rows), and the gym phase's
+   real S_8 under ``hybrid`` as a uniform control.  Each run's rows,
+   schema and ledger must equal the ``'torch'`` backend's (the control's
+   through the gym phase's hash run, which that phase holds to
+   ``'torch'``; a run of its own when the gym phase did not run); the
+   engines must give one row set, the real-size rows the
    numpy join's; ``hybrid`` must make no retry, and on ``S_8_heavy`` ship
    fewer padded slots than ``hash`` with heavy tuples; the control must
    equal the gym phase's hash run record for record; no semijoin launch
@@ -121,14 +124,32 @@ an H100) and the CUDA toolkit.  In order it:
    sequential estimate (the gym phase's warm seconds over the mix),
    per-ticket latency in ticks and seconds (p50/p99), the fusion counters,
    the server's dispatches against the standalone runs' and the peak;
-11. (phase ``lm``) drives the port's LM serving path — ``generate`` over
+11. (phase ``mesh``) drives the gym's production runtime, ``gym(...,
+   spmd=SPMD(p, mesh=mesh))``, one process a reducer
+   (``launch/mesh.py::spawn_reducers``): ``MESH_P`` = 8 gloo ranks sharing
+   the card (NCCL takes one card a rank; each block crosses through pinned
+   host memory) on S_8, C_8 and TC_9 at bench size under ``hash``,
+   ``grid``, ``hybrid`` and the packed wire, and on the real C_8 under
+   ``hash``; then, once those ranks have stopped, an NCCL mesh over every
+   visible card (p = the card count; with one card, one rank in this
+   process through ``make_reducer_mesh``) on the bench families under
+   ``hash``.  Every rank's rows, schema, records, retries and output must
+   equal the single-process ``'cuda'`` run at the same p and seed (the gym
+   and wire phases' runs, reused; run here when those phases did not
+   run), the NCCL ranks' rows the numpy join too, and every rank must
+   launch every gym kernel, each semijoin probe on its bitmap path.  It
+   prints each query's slowest wall and set-up seconds, each rank's
+   share of the wall inside the exchanges and inside the host reads'
+   gathers, each rank's launches, and the phase's seconds split into
+   spawn, host set-up and run;
+12. (phase ``lm``) drives the port's LM serving path — ``generate`` over
    ``DecoderLM.prefill`` and ``decode_step`` — on gemma2-9b at full width
    and depth in bf16 with random weights from ``--seed``: a batch of two
    4608-token prompts, 16 greedy tokens, the ``'cuda'`` backend.  The
    flash kernel must launch exactly 42 times per ``generate`` (once per
    layer, in prefill), and the per-step logits must agree with a
    teacher-forced replay through the ``'torch'`` backend on the card;
-12. (phase ``moe``) drives the Mixture-of-Experts path on grok-1-314b at
+13. (phase ``moe``) drives the Mixture-of-Experts path on grok-1-314b at
    its published widths in bf16 (random weights from ``--seed``), the
    depth cut from 64 layers to ``MOE_LAYERS``: two 2048-token prompts and
    16 greedy tokens through ``generate`` with the ``'cuda'`` backend, on
@@ -155,7 +176,7 @@ an H100) and the CUDA toolkit.  In order it:
    prints prefill seconds, decode ms a step, tokens/s, peak device
    memory, the pairs routed, dropped and heavy per layer, the layer's warm
    ms and its ledger bytes, and times the flash kernel at grok's call;
-13. (phase ``ssm``) drives the port's SSM, xLSTM and hybrid serving path
+14. (phase ``ssm``) drives the port's SSM, xLSTM and hybrid serving path
    at full width and depth in bf16 (random weights from ``--seed``):
    xlstm-125m (12 layers, 9 mLSTM and 3 sLSTM) on two 2048-token prompts
    and zamba2-7b (81 layers: 75 Mamba2, the shared attention block at 6
@@ -187,7 +208,7 @@ an H100) and the CUDA toolkit.  In order it:
    seconds, decode ms a step, tokens/s and peaks, one sLSTM and one mLSTM
    layer's warm prefill (host ms, device ms and device operations a
    position), and times the flash kernel at zamba2's call;
-14. (phase ``whisper``) drives the port's encoder-decoder serving path,
+15. (phase ``whisper``) drives the port's encoder-decoder serving path,
    ``generate_whisper`` over ``WhisperModel.prefill`` and ``decode_step``,
    on whisper-small at full width and depth in bf16 (random weights and
    frames from ``--seed``), with the ``'cuda'`` backend: (a) 32 x 1500
@@ -206,7 +227,7 @@ an H100) and the CUDA toolkit.  In order it:
    peak within ``WHISPER_PEAK_MARGIN`` of its reckoning.  It prints
    prefill seconds, decode ms a step, tokens/s and peaks, and times the
    flash kernel at (a)'s encoder call and (c)'s cross call;
-15. (phase ``train``) drives the port's LM training path on smollm-360m
+16. (phase ``train``) drives the port's LM training path on smollm-360m
    at full width and depth in bf16 (random weights from ``--seed``, AdamW
    with f32 moments, batch 8 x 2048 tokens, so every layer's attention
    takes the chunked scan): the data pipeline's corpus join
@@ -216,7 +237,7 @@ an H100) and the CUDA toolkit.  In order it:
    real shape must match the dense plain version in output and q/k/v
    gradients within ``TRAIN_ATTN_TOL`` with a lower backward peak; step
    0's loss and gradient norm must match a dense (``TRAIN_LOSS_RTOL``,
-   ``TRAIN_GNORM_RTOL``) and a no-remat run; eight steps on one batch must
+   ``TRAIN_GNORM_RTOL``) and a no-remat run; four steps on one batch must
    lower the loss; a checkpoint after them must restore bit for bit into
    a fresh model and optimizer and give the same next loss; ``accum=2``
    must match ``accum=1`` (f32, the reference test's tolerances, see
@@ -224,11 +245,11 @@ an H100) and the CUDA toolkit.  In order it:
    the flash kernel launches 0 times in all of it, a ``'cuda'``-backend
    loss refuses the kernel in a child process, and ``launch/serve.py
    --ckpt`` serves the trained checkpoint with the kernel once per layer.
-   It prints the warm step seconds (median of seven), tokens/s, peak
+   It prints the warm step seconds (median of three), tokens/s, peak
    memory, the checkpoint's bytes and save/load seconds, the model FLOPs
    a step as a share of the bf16 peak, and with ``--profile train`` one
    profiled step's device busy share and top device work;
-16. (phase ``dryrun``) runs nothing new on the card: it reckons on
+17. (phase ``dryrun``) runs nothing new on the card: it reckons on
    ``meta`` with ``launch/dryrun.py::run_cell`` the runs the earlier
    phases measured
    (``DRYRUN_WITNESSES``: gemma2-9b's prefill at 2 x 4608,
@@ -242,7 +263,7 @@ an H100) and the CUDA toolkit.  In order it:
    seconds), names a witness whose
    phase did not run as skipped, and prints the flash wrapper's host us a
    call through the operator;
-17. times each kernel at the largest inputs its path gave it (CUDA events,
+18. times each kernel at the largest inputs its path gave it (CUDA events,
    L2 flushed before each launch) beside its plain version, one PyTorch
    library call where one computes the same function, and its bound,
    prints the sorted probe's census of that call (the share of probes its
@@ -264,6 +285,7 @@ printing anything.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import functools
 import json
@@ -1057,7 +1079,8 @@ def main_path(torch, seed: int, sizes=("bench", "real"), strategy="hash", audit=
                                             rounds=led.rounds, retries=led.retries,
                                             comm=led.comm_tuples, padded=led.padded_slots,
                                             payload_bytes=led.payload_bytes, peak=peak,
-                                            records=recs, launches=per_run)
+                                            records=recs, launches=per_run,
+                                            result=gym_result(rows, schema, led))
     return summary, totals
 
 
@@ -1331,6 +1354,9 @@ def logdepth_phase(torch, seed: int, audit):
 SKEW_ENGINES = ("hash", "grid", "hybrid")
 # benchmarks/bench_skew.py's capacity ceiling for its bench-size families
 SKEW_BENCH_MAX_CAP = 1 << 18
+# the real S_8_heavy's hub rows (its spokes' extra rows a quarter of it):
+# the gym phase's real S_8 scale
+SKEW_REAL_HUB = 2**20
 
 
 @functools.lru_cache(maxsize=None)
@@ -1352,8 +1378,17 @@ def skew_families(seed: int, real: bool):
             "S_8_heavy": star + (D.star_data_heavy(8, domain=64, hub_rows=256, heavy_share=0.8,
                                                    spoke_extra=16, seed=5),),
         }
-    return {"S_8_heavy": star + (real_star_heavy(8, hub_rows=2**20, heavy_share=0.8,
-                                                 spoke_extra=2**18, domain=2**22, seed=seed),)}
+    return {"S_8_heavy": star + (real_star_heavy(8, hub_rows=SKEW_REAL_HUB, heavy_share=0.8,
+                                                 spoke_extra=SKEW_REAL_HUB // 4, domain=2**22,
+                                                 seed=seed),)}
+
+
+@functools.lru_cache(maxsize=None)
+def skew_answer(seed: int, fam: str):
+    """The numpy join of a real-size skew family, computed once per
+    process (the skew and wire phases check the same data)."""
+    q, _, data = skew_families(seed, True)[fam]
+    return np_answer(q, data)
 
 
 class HeavyRecorder:
@@ -1404,12 +1439,14 @@ def skew_phase(torch, seed: int, audit, gym_summary=None, sizes=("bench", "real"
         torch.cuda.synchronize()
         return out + (time.perf_counter() - t0,)
 
-    def drive(name, q, g, data, strategy, max_cap, want=None):
+    def drive(name, q, g, data, strategy, max_cap, want=None, twin=True):
         """A cold 'cuda' run and a 'torch' run, checked against each other
         (and ``want``, the numpy join at real size); None when both
         backends hit the ceiling.  No warm repeat: the script's time limit
         (bench-size seconds measure launch and host overhead; real-size
-        warm runs were 0.95-1.07x the cold ones, PERF.md section 6)."""
+        warm runs were 0.95-1.07x the cold ones, PERF.md section 6).
+        ``twin=False`` leaves out the 'torch' run where the caller holds
+        the 'cuda' run to records that the 'torch' backend already gave."""
         K.reset_launch_counts()
         audit.reset()
         heavy.reset()
@@ -1433,14 +1470,18 @@ def skew_phase(torch, seed: int, audit, gym_summary=None, sizes=("bench", "real"
             totals[k] += K.launch_counts()[k]
         for k, v in K.semijoin_probe_path_counts().items():
             totals[f"semijoin_probe/{k}"] += v
-        K.reset_launch_counts()
-        trows, tschema, tled, tsec = run(q, g, data, "torch", strategy, max_cap)
-        check(sum(K.launch_counts().values()) == 0, "'torch' backend launched a kernel")
-        check(tuple(schema) == tuple(tschema) == tuple(q.output_attrs), f"{name} {strategy}: schema")
-        check(np.array_equal(rows, trows), f"{name} {strategy}: cuda rows != torch rows")
-        check(recs == [dataclasses.asdict(r) for r in tled.records], f"{name} {strategy}: ledger records")
-        check((led.retries, led.output_tuples) == (tled.retries, tled.output_tuples),
-              f"{name} {strategy}: retries/output")
+        check(tuple(schema) == tuple(q.output_attrs), f"{name} {strategy}: schema")
+        tsec = None
+        if twin:
+            K.reset_launch_counts()
+            trows, tschema, tled, tsec = run(q, g, data, "torch", strategy, max_cap)
+            check(sum(K.launch_counts().values()) == 0, "'torch' backend launched a kernel")
+            check(tuple(schema) == tuple(tschema), f"{name} {strategy}: schema")
+            check(np.array_equal(rows, trows), f"{name} {strategy}: cuda rows != torch rows")
+            check(recs == [dataclasses.asdict(r) for r in tled.records],
+                  f"{name} {strategy}: ledger records")
+            check((led.retries, led.output_tuples) == (tled.retries, tled.output_tuples),
+                  f"{name} {strategy}: retries/output")
         check(all(per_run[k] > 0 for k in GYM_KERNELS), f"{name} {strategy}: a kernel never launched")
         if want is not None:
             check(np.array_equal(rows.astype(np.int64), want) and len(want) > 0,
@@ -1452,8 +1493,10 @@ def skew_phase(torch, seed: int, audit, gym_summary=None, sizes=("bench", "real"
             f"n_heavy={flagged} hybrid_routed_groups={routed} retries={led.retries} "
             f"rounds={led.rounds} dispatches={led.measured_dispatches} "
             f"measure_dispatches={led.measure_dispatches} cold_s={cold:.4f} "
-            f"torch_backend_s={tsec:.4f} launches_per_run={per_run} semijoin_audit={audited} "
-            "cuda==torch rows+ledger: yes" + (" rows==numpy join: yes" if want is not None else ""),
+            f"torch_backend_s={'not run' if tsec is None else f'{tsec:.4f}'} "
+            f"launches_per_run={per_run} semijoin_audit={audited} "
+            + ("cuda==torch rows+ledger: yes" if twin else "no 'torch' twin")
+            + (" rows==numpy join: yes" if want is not None else ""),
             flush=True,
         )
         summary[f"{name}/{strategy}"] = dict(
@@ -1469,7 +1512,7 @@ def skew_phase(torch, seed: int, audit, gym_summary=None, sizes=("bench", "real"
             real = size == "real"
             for fam, (q, g, data) in skew_families(seed, real).items():
                 name = f"{fam} {size}"
-                want = np_answer(q, data) if real else None
+                want = skew_answer(seed, fam) if real else None
                 res = {e: drive(name, q, g, data, e, None if real else SKEW_BENCH_MAX_CAP, want)
                        for e in SKEW_ENGINES}
                 sets = [unique_rows(r[0].astype(np.int64)) for r in res.values() if r]
@@ -1484,11 +1527,13 @@ def skew_phase(torch, seed: int, audit, gym_summary=None, sizes=("bench", "real"
                               f"{res['hash'][1].padded_slots}")
         if "real" in sizes:
             # the uniform control: the gym phase's real S_8 under hybrid must
-            # be the hash engine's run, record for record
+            # be the hash engine's run, record for record.  That run's
+            # records are the 'torch' backend's (the gym phase holds them
+            # so), so the control needs no 'torch' twin of its own then
             q, g, data = families(seed, True)["S_8"]
-            rows, led = drive("S_8 real (uniform control)", q, g, data, "hybrid", None,
-                              real_answer(seed, "S_8"))
             hs = (gym_summary or {}).get("S_8/real")
+            rows, led = drive("S_8 real (uniform control)", q, g, data, "hybrid", None,
+                              real_answer(seed, "S_8"), twin=hs is None)
             if hs is None:  # the gym phase did not run: run its hash query here
                 hrows, _, hled, _ = run(q, g, data, "cuda", "hash", None)
                 hs = dict(records=[dataclasses.asdict(r) for r in hled.records])
@@ -1497,7 +1542,10 @@ def skew_phase(torch, seed: int, audit, gym_summary=None, sizes=("bench", "real"
             check(led.heavy_tuples == 0, "uniform control: heavy tuples on uniform data")
             print(f"skew S_8 real (uniform control): hybrid == hash record for record "
                   f"(comm={led.comm_tuples} padded_slots={led.padded_slots} "
-                  f"dispatches={led.measured_dispatches} heavy_tuples=0)", flush=True)
+                  f"dispatches={led.measured_dispatches} heavy_tuples=0)"
+                  + ("" if hs.get("result") is None else
+                     "; the hash run's records are the gym phase's, == its 'torch' run's"),
+                  flush=True)
     finally:
         heavy.restore()
     return summary, totals
@@ -1646,7 +1694,8 @@ def wire_phase(torch, seed: int, audit, gym_summary=None, sizes=("bench", "real"
                           f"cold_s={packed[3]:.4f} launches={per} cuda==torch rows+ledger: yes "
                           "rows==numpy join: yes", flush=True)
                     summary[f"{fam}/bench/{engine}"] = dict(
-                        payload=lp.payload_bytes, dense_payload=ld.payload_bytes, launches=per)
+                        payload=lp.payload_bytes, dense_payload=ld.payload_bytes, launches=per,
+                        packed=gym_result(*packed[:3]), dense=gym_result(*dense[:3]))
         if "real" in sizes:
             for fam, (q, g, data) in families(seed, True).items():
                 name = f"wire {fam} real hash"
@@ -1702,8 +1751,8 @@ def wire_phase(torch, seed: int, audit, gym_summary=None, sizes=("bench", "real"
             check(pbackend is None and ebackend == "cuda",
                   f"auto {name}: the plan turned the kernels off")
             check(all(per[k] > 0 for k in kernels), f"auto {name}: a kernel never launched {per}")
-            want = np_answer(q, data) if name.startswith("S_8_heavy") or not real else real_answer(
-                seed, name.split()[0])
+            want = (np_answer(q, data) if not real else skew_answer(seed, "S_8_heavy")
+                    if name.startswith("S_8_heavy") else real_answer(seed, name.split()[0]))
             check(np.array_equal(unique_rows(rows.astype(np.int64)), want) and len(want) > 0,
                   f"auto {name}: rows != numpy join")
             if not real:
@@ -2203,6 +2252,220 @@ def joinserve_phase(torch, seed: int, audit, gym_summary=None, sizes=("bench", "
                                saved=led.dispatches_saved, launches=per)
         del srv, tickets
     return summary, totals
+
+
+# ------------------------------------------------------------ the mesh
+MESH_P = 8
+# the engines the mesh phase drives at bench size: what each rank is held
+# to are the wire phase's dense hash / grid / hybrid runs and its packed
+# hash run (and the gym phase's, at real size)
+MESH_ENGINES = {"hash": {}, "grid": dict(strategy="grid"), "hybrid": dict(strategy="hybrid"),
+                "packed": dict(wire_format="packed")}
+
+
+def gym_result(rows, schema, led) -> dict:
+    """What a mesh rank must reproduce of a run: rows (in order), schema,
+    every ``RoundRecord``, retries and the output count."""
+    return dict(rows=rows, schema=tuple(schema), records=[dataclasses.asdict(r) for r in led.records],
+                retries=led.retries, out=led.output_tuples)
+
+
+def same_result(a: dict, b: dict) -> bool:
+    return (np.array_equal(a["rows"], b["rows"]) and a["schema"] == b["schema"]
+            and a["records"] == b["records"] and (a["retries"], a["out"]) == (b["retries"], b["out"]))
+
+
+@contextlib.contextmanager
+def mesh_timers(spent: dict):
+    """Time the exchanges (``SPMD._all_to_all``), the host reads' gathers
+    (``SPMD.to_host``) and ``GymDriver``'s host set-up into ``spent``,
+    each between synchronizes, and put the methods back after."""
+    import torch
+    from repro_torch.core import gym as G
+    from repro_torch.relational import spmd as S
+
+    def timed(name, fn):
+        def wrapped(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                torch.cuda.synchronize()
+                spent[name] += time.perf_counter() - t0
+        return wrapped
+
+    saved = [(S.SPMD, "_all_to_all", "exchange_s"), (S.SPMD, "to_host", "gather_s"),
+             (G.GymDriver, "__init__", "setup_s")]
+    saved = [(cls, attr, cls.__dict__[attr], name) for cls, attr, name in saved]
+    for cls, attr, fn, name in saved:
+        setattr(cls, attr, timed(name, fn))
+    try:
+        yield
+    finally:
+        for cls, attr, fn, _ in saved:
+            setattr(cls, attr, fn)
+
+
+def mesh_rank(mesh, seed: int, cases, real):
+    """One reducer of the mesh phase: ``gym(..., spmd=SPMD(p,
+    mesh=mesh))`` with the 'cuda' backend on each case (fam, size,
+    engine), ``real`` holding each real-size family's query, GHD and the
+    ``.npz`` its data was saved to (a spawned process' arguments cross a
+    pipe the parent blocks on while the child imports).  Returns when the
+    rank was ready (wall clock) and per case the run's result, its wall
+    seconds, the seconds of ``GymDriver``'s host set-up, of the exchanges
+    and of the host reads (``mesh_timers``), and the gym kernels'
+    launches."""
+    import torch
+    from repro_torch.core import gym as G
+    from repro_torch.kernels import ops as K
+    from repro_torch.relational import spmd as S
+
+    ready = time.time()
+    p = mesh.size(0)
+    spent = {}
+    out = {}
+    with mesh_timers(spent):
+        for fam, size, engine in cases:
+            if size == "real":
+                q, g, path = real[fam]
+                with np.load(path) as z:
+                    data = {k: z[k] for k in z.files}
+            else:
+                q, g, data = families(seed, False)[fam]
+            cfg = G.GymConfig(seed=23, local_backend="cuda", **MESH_ENGINES[engine])
+            spent.update(exchange_s=0.0, gather_s=0.0, setup_s=0.0)
+            K.reset_launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            rows, schema, led = G.gym(q, data, ghd=g, spmd=S.SPMD(p, mesh=mesh), config=cfg)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = {k: K.launch_counts()[k] for k in GYM_KERNELS}
+            launches.update({f"semijoin_probe/{k}": v for k, v in K.semijoin_probe_path_counts().items()})
+            check(sum(K.launch_counts()[k] for k in WIRE_KERNELS) == 0 or engine == "packed",
+                  "a dense mesh run launched the codec")
+            out[(fam, size, engine)] = dict(gym_result(rows, schema, led), wall_s=wall,
+                                            launches=launches, **spent)
+    return dict(ready=ready, cases=out)
+
+
+def nccl_here(seed: int, cases):
+    """The NCCL mesh of a one-card machine, p = 1, in this process: a
+    real NCCL communicator through ``make_reducer_mesh`` over a group of
+    one rank (a store in a temporary directory), without the seconds a
+    new process takes to reach the card."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_reducer_mesh
+
+    tmp = tempfile.mkdtemp(prefix="nccl-mesh-")
+    w0 = time.time()
+    dist.init_process_group("nccl", store=dist.FileStore(os.path.join(tmp, "store"), 1),
+                            rank=0, world_size=1)
+    try:
+        res = mesh_rank(make_reducer_mesh(1, "cuda"), seed, cases, {})
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+    return [res], w0
+
+
+def mesh_phase(torch, seed: int, gym_summary=None, wire_summary=None, sizes=("bench", "real")):
+    """The gym's production runtime (see the module doc): ``MESH_P`` gloo
+    ranks sharing the card, then an NCCL mesh over every visible card,
+    one after the other.  Returns the gym kernels' launches summed over
+    the ranks' runs."""
+    from repro_torch.core import gym as G
+    from repro_torch.launch.mesh import spawn_reducers
+
+    cases = []
+    if "bench" in sizes:
+        cases += [(fam, "bench", e) for fam in ("S_8", "C_8", "TC_9") for e in MESH_ENGINES]
+    if "real" in sizes:
+        cases.append(("C_8", "real", "hash"))
+    real = {"C_8": families(seed, True)["C_8"]} if "real" in sizes else {}
+
+    def single(fam, size, engine, p):
+        """The single-process 'cuda' run a mesh case is held to: the gym or
+        wire phase's when it ran at this p, else run here."""
+        if p == MESH_P and size == "real" and gym_summary and f"{fam}/real" in gym_summary:
+            return gym_summary[f"{fam}/real"]["result"]
+        if p == MESH_P and size == "bench":
+            if engine == "hash" and gym_summary and f"{fam}/bench" in gym_summary:
+                return gym_summary[f"{fam}/bench"]["result"]
+            wkey = f"{fam}/bench/{'hash' if engine == 'packed' else engine}"
+            if wire_summary and wkey in wire_summary:
+                return wire_summary[wkey]["packed" if engine == "packed" else "dense"]
+        q, g, data = real[fam] if size == "real" else families(seed, False)[fam]
+        cfg = G.GymConfig(seed=23, local_backend="cuda", **MESH_ENGINES[engine])
+        return gym_result(*G.gym(q, data, ghd=g, p=p, config=cfg, device="cuda"))
+
+    totals = {k: 0 for k in GYM_KERNELS}
+    totals.update({"semijoin_probe/bitmap": 0, "semijoin_probe/hash": 0})
+    n_cards = torch.cuda.device_count()
+    meshes = (("gloo", MESH_P, cases),
+              ("nccl", n_cards, [c for c in cases if c[1] == "bench" and c[2] == "hash"]))
+    want = {(b, p): {c: single(*c, p) for c in pc} for b, p, pc in meshes}
+
+    tmp = tempfile.mkdtemp(prefix="mesh-phase-")
+    try:
+        real_files = {}
+        for fam, (q, g, data) in real.items():
+            real_files[fam] = (q, g, os.path.join(tmp, f"{fam}.npz"))
+            np.savez(real_files[fam][2], **data)
+        # one mesh at a time, so neither one's figures carry the other's load
+        runs = []
+        for backend, p, pcases in meshes:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if backend == "nccl" and p == 1:
+                res, w0 = nccl_here(seed, pcases)
+            else:
+                w0 = time.time()
+                res = spawn_reducers(mesh_rank, p, backend=backend, device_type="cuda",
+                                     args=(seed, pcases, real_files))
+            runs.append((res, time.perf_counter() - t0, max(r["ready"] for r in res) - w0))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    for (backend, p, pcases), (res, total, spawn_s) in zip(meshes, runs):
+        setup_s = run_s = 0.0
+        for c in pcases:
+            per = [r["cases"][c] for r in res]
+            name = f"mesh {backend} p={p} {' '.join(c)}"
+            for rank, got in enumerate(per):
+                check(same_result(got, want[(backend, p)][c]),
+                      f"{name}: rank {rank} differs from the single-process 'cuda' run")
+                check(all(got["launches"][k] > 0 for k in GYM_KERNELS),
+                      f"{name}: rank {rank} never launched a kernel {got['launches']}")
+                check(got["launches"]["semijoin_probe/hash"] == 0,
+                      f"{name}: rank {rank}: a semijoin_probe launch took the hash path")
+                for k, v in got["launches"].items():
+                    totals[k] += v
+            if backend == "nccl":  # held to the numpy join too, not only to the program
+                q, _, data = families(seed, False)[c[0]]
+                check(all(np.array_equal(x["rows"].astype(np.int64), np_answer(q, data)) for x in per),
+                      f"{name}: rows != numpy join")
+            wall = max(x["wall_s"] for x in per)
+            setup = max(x["setup_s"] for x in per)
+            setup_s += setup
+            run_s += wall - setup
+            share = [round(x["exchange_s"] / x["wall_s"], 4) for x in per]
+            gshare = [round(x["gather_s"] / x["wall_s"], 4) for x in per]
+            led_recs = per[0]["records"]
+            print(f"{name}: out={per[0]['out']} records={len(led_recs)} retries={per[0]['retries']} "
+                  f"wall_s={wall:.4f} setup_s={setup:.4f} exchange_share per rank={share} "
+                  f"gather_share per rank={gshare} launches per rank="
+                  f"{[[x['launches'][k] for k in GYM_KERNELS] for x in per]} "
+                  f"every rank == single-process 'cuda' (rows, schema, records, ledger): yes"
+                  + (" rows==numpy join: yes" if backend == "nccl" else ""),
+                  flush=True)
+        how = ("in this process, one rank" if backend == "nccl" and p == 1
+               else "spawned; the rest is collecting results and stopping the ranks")
+        print(f"mesh {backend} p={p}: {len(pcases)} queries, mesh_s={total:.2f} spawn_s={spawn_s:.2f} "
+              f"host_setup_s={setup_s:.2f} run_s={run_s:.2f} (slowest rank each query; {how}; "
+              f"alone on the card)", flush=True)
+    return totals
 
 
 def _visible(torch, sq, sk, causal, window, dev):
@@ -3800,7 +4063,7 @@ def whisper_phase(torch, seed: int, reps: int, profile_dir: str = ""):
 # the train phase: smollm-360m at full width and depth, bf16, AdamW with f32
 # moments, batch 8 x 2048 tokens (16384 a step; 2048 keys meet
 # CHUNKED_MIN_KV, so every layer's attention takes the chunked scan)
-TRAIN_ARCH, TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = "smollm-360m", 8, 2048, 8
+TRAIN_ARCH, TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = "smollm-360m", 8, 2048, 4
 # launch/train.py's steps with --ckpt (the script's time limit: 8 until
 # the ssm phase came)
 TRAIN_CLI_STEPS = 2
@@ -4084,28 +4347,43 @@ def train_phase(torch, seed: int, profile_dir: str = "", dev: str = "cuda"):
     del model, opt, step, pa, want, batch, m_a, m_b
     torch.cuda.empty_cache()
 
-    # accum=2 against accum=1 on one batch, f32 at full width
-    f32 = dataclasses.replace(cfg, dtype="float32")
-    batch = {k: torch.from_numpy(v).to(dev) for k, v in next(batches(
-        CorpusConfig(seed=seed + 1), batch=TRAIN_BATCH, seq=TRAIN_SEQ, vocab=cfg.vocab,
-        device=dev)).items()}
-    runs = []
-    for accum in (1, 2):
-        mdl = fresh(f32)
-        t = TrainConfig(opt=OptConfig(lr=TRAIN_ACCUM_LR, warmup=1), accum=accum)
-        st = init_train_state(mdl, t)
-        m = make_train_step(mdl, t)(st, batch)
-        runs.append((m["loss"].item(), {k: p.detach() for k, p in mdl.named_parameters()}))
-        del mdl, st, m
-    (l1, p1), (l2, p2) = runs
-    check(abs(l1 - l2) <= 1e-5 * abs(l1), f"accum: loss {l1} vs {l2}")
-    bad, total, worst = _mismatch(torch, p2, p1, dict(atol=2e-5, rtol=2e-4), 2 * TRAIN_ACCUM_LR + 2e-5)
-    check(bad <= TRAIN_FEW * total, f"accum: {bad} of {total} parameters outside the tolerance")
-    print(f"train accum=2 vs accum=1 (f32, lr {TRAIN_ACCUM_LR}): loss {l2:.7f} vs {l1:.7f}; "
-          f"parameters outside atol 2e-5 / rtol 2e-4: {bad} of {total} (max |d| {worst:.3g})",
-          flush=True)
-    del runs, p1, p2, batch
-    torch.cuda.empty_cache()
+    # a 'cuda'-backend loss refuses the kernel (a child process, which
+    # reaches the card while the accumulation check below runs: that
+    # check prints no time)
+    child = subprocess.Popen([sys.executable, "-c", CUDA_LOSS_CHILD.format(src=os.path.join(HERE, "src"))],
+                             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+    try:
+        # accum=2 against accum=1 on one batch, f32 at full width
+        f32 = dataclasses.replace(cfg, dtype="float32")
+        batch = {k: torch.from_numpy(v).to(dev) for k, v in next(batches(
+            CorpusConfig(seed=seed + 1), batch=TRAIN_BATCH, seq=TRAIN_SEQ, vocab=cfg.vocab,
+            device=dev)).items()}
+        runs = []
+        for accum in (1, 2):
+            mdl = fresh(f32)
+            t = TrainConfig(opt=OptConfig(lr=TRAIN_ACCUM_LR, warmup=1), accum=accum)
+            st = init_train_state(mdl, t)
+            m = make_train_step(mdl, t)(st, batch)
+            runs.append((m["loss"].item(), {k: p.detach() for k, p in mdl.named_parameters()}))
+            del mdl, st, m
+        (l1, p1), (l2, p2) = runs
+        check(abs(l1 - l2) <= 1e-5 * abs(l1), f"accum: loss {l1} vs {l2}")
+        bad, total, worst = _mismatch(torch, p2, p1, dict(atol=2e-5, rtol=2e-4), 2 * TRAIN_ACCUM_LR + 2e-5)
+        check(bad <= TRAIN_FEW * total, f"accum: {bad} of {total} parameters outside the tolerance")
+        print(f"train accum=2 vs accum=1 (f32, lr {TRAIN_ACCUM_LR}): loss {l2:.7f} vs {l1:.7f}; "
+              f"parameters outside atol 2e-5 / rtol 2e-4: {bad} of {total} (max |d| {worst:.3g})",
+              flush=True)
+        del runs, p1, p2, batch
+        torch.cuda.empty_cache()
+        c_out, c_err = child.communicate(timeout=300)
+    finally:
+        if child.poll() is None:
+            child.kill()
+            child.communicate()
+    check(child.returncode == 0 and "refused" in c_out,
+          f"child: a 'cuda'-backend loss did not refuse: {c_out} {c_err[-2000:]}")
+    print(f"train child process: a 'cuda'-backend loss {c_out.strip()}", flush=True)
 
     # the launch/train.py loop on the pipeline's batches, with --ckpt
     run_dir = os.path.join(tmp, "run")
@@ -4128,13 +4406,6 @@ def train_phase(torch, seed: int, profile_dir: str = "", dev: str = "cuda"):
     check(counts["flash_attention"] == 0, f"training launched the flash kernel {counts}")
     print(f"train launch/train.py: {TRAIN_CLI_STEPS} steps with --ckpt in {cli_s:.2f} s; flash "
           f"launches while training: {counts['flash_attention']}", flush=True)
-
-    # a 'cuda'-backend loss refuses the kernel (a child process)
-    child = subprocess.run([sys.executable, "-c", CUDA_LOSS_CHILD.format(src=os.path.join(HERE, "src"))],
-                           capture_output=True, text=True, timeout=300)
-    check(child.returncode == 0 and "refused" in child.stdout,
-          f"child: a 'cuda'-backend loss did not refuse: {child.stdout} {child.stderr[-2000:]}")
-    print(f"train child process: a 'cuda'-backend loss {child.stdout.strip()}", flush=True)
 
     # the trained checkpoint serves through launch/serve.py --ckpt
     K.reset_launch_counts()
@@ -4307,12 +4578,14 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--reps", type=int, default=30)
     ap.add_argument("--phases",
-                    default="gym,grid,skew,logdepth,wire,snapshot,joinserve,lm,moe,ssm,whisper,train,dryrun",
+                    default="gym,grid,skew,logdepth,wire,snapshot,joinserve,mesh,lm,moe,ssm,whisper,train,"
+                            "dryrun",
                     help="comma-separated main paths to drive: gym (the join path), "
                          "grid (the grid engine), skew (the hybrid engine beside hash "
                          "and grid on skewed data), logdepth (Log-GTA, Log-GTA', Shares), "
                          "wire (the packed wire and plan='auto'), snapshot (save/load "
-                         "mid-query), joinserve (the multi-tenant join server), lm "
+                         "mid-query), joinserve (the multi-tenant join server), mesh (the "
+                         "gym on a torch.distributed mesh, one process a reducer), lm "
                          "(gemma2-9b serving), moe (grok-1-314b serving on both MoE "
                          "routes, the MoE layer alone, reduced kimi-k2 training), ssm "
                          "(xlstm-125m and zamba2-7b serving, their long_500k decode), whisper "
@@ -4321,7 +4594,7 @@ def main(argv=None) -> int:
                          "dryrun (launch/dryrun.py held against the runs the earlier phases "
                          "measured)")
     ap.add_argument("--sizes", default="bench,real",
-                    help="comma-separated gym, grid, skew, wire, snapshot and joinserve "
+                    help="comma-separated gym, grid, skew, wire, snapshot, joinserve and mesh "
                          "sizes to drive: bench, real")
     ap.add_argument("--profile", default="",
                     help="comma-separated families (S_8,C_8,TC_9) to profile at real size, "
@@ -4432,6 +4705,7 @@ def main(argv=None) -> int:
         if fams:
             profile_queries(torch, args.seed, fams, args.profile_out)
     wire_recorded = None
+    wire_summary = None
     for path in ("grid", "skew", "logdepth", "wire", "snapshot", "joinserve"):
         if path not in phases:
             continue
@@ -4447,8 +4721,8 @@ def main(argv=None) -> int:
                 _, launches = skew_phase(torch, args.seed, audit, summary,
                                          tuple(args.sizes.split(",")))
             elif path == "wire":
-                _, launches, wire_recorded = wire_phase(torch, args.seed, audit, summary,
-                                                        tuple(args.sizes.split(",")))
+                wire_summary, launches, wire_recorded = wire_phase(
+                    torch, args.seed, audit, summary, tuple(args.sizes.split(",")))
             elif path == "snapshot":
                 _, launches = snapshot_phase(torch, args.seed, audit, summary,
                                              tuple(args.sizes.split(",")))
@@ -4464,6 +4738,14 @@ def main(argv=None) -> int:
         want = GYM_KERNELS + (WIRE_KERNELS if path == "wire" else ())
         check(all(launches[k] > 0 for k in want), f"{path}: a kernel never launched: {launches}")
         by_path[path] = launches
+    if "mesh" in phases:
+        t0 = time.perf_counter()
+        launches = mesh_phase(torch, args.seed, summary, wire_summary, tuple(args.sizes.split(",")))
+        print(f"mesh path launches (every rank's 'cuda' runs, both meshes): {launches}; phase "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        check(all(launches[k] > 0 for k in GYM_KERNELS), f"mesh: a kernel never launched: {launches}")
+        by_path["mesh"] = launches
+    del wire_summary
     if wire_recorded is not None:
         kernels += wire_timing(torch, wire_recorded, by_path["wire"], args.reps)
         del wire_recorded

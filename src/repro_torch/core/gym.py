@@ -19,6 +19,9 @@ dispatch (the join server, ``serve/join_server.py``).
 Entry point: ``gym(query, data, p=..., config=..., plan=..., device=...)``.
 It runs on the CUDA card unless the caller passes ``device="cpu"``; with
 no card and no device it raises instead of quietly running on the CPU.
+``gym(..., spmd=SPMD(p, mesh=mesh))`` runs it on a device mesh instead,
+one process per reducer (``launch/mesh.py``): every rank holds its block
+of each table and returns the whole answer and the same ledger.
 ``GymConfig(wire_format="packed")`` ships every exchange bit-packed to the
 base relations' value widths (``relational/wire.py``);
 ``GymConfig(plan="auto")`` lets the cost-based advisor
@@ -114,7 +117,8 @@ class GymConfig:
 
 
 class GymDriver:
-    """GYM execution: materialization + DYM on one SPMD simulation."""
+    """GYM execution: materialization + DYM on one ``SPMD`` (the
+    simulation, or this rank's share of a mesh)."""
 
     def __init__(
         self,
@@ -129,7 +133,6 @@ class GymDriver:
         self.query = query
         self.config = config or GymConfig()
         self.spmd = spmd
-        dev = spmd.device
         # a caller-owned CapsCache (the join server passes one cache to
         # every tenant, so equal group signatures warm each other); None
         # keeps the executor's own per-query cache
@@ -166,14 +169,15 @@ class GymDriver:
             for v in self.ghd.nodes()
         }
 
-        # load base relations (round-robin scatter = the 'networked FS')
+        # load base relations (round-robin scatter = the 'networked FS');
+        # on a mesh each rank keeps its own block
         p = spmd.p
         self.base: Dict[str, DTable] = {}
         for atom in query.atoms:
             rows = dedup_rows[atom.alias]
             cap = _pow2(max(1, -(-rows.shape[0] // p)))
-            self.base[atom.alias] = DTable.scatter_numpy(
-                rows, atom.attrs, p, cap=cap, device=dev
+            self.base[atom.alias] = spmd.device_put(
+                DTable.scatter_numpy(rows, atom.attrs, p, cap=cap)
             )
         self._base_counts = {a: int(r.shape[0]) for a, r in dedup_rows.items()}
 
@@ -410,7 +414,7 @@ class GymDriver:
         # canonical output column order
         want = [a for a in self.query.output_attrs if a in out.schema]
         self.result, _ = R.dist_project(self.spmd, out, want)
-        self.ledger.output_tuples = int(self.result.valid.sum().item())
+        self.ledger.output_tuples = int(self.spmd.to_host(self.result.valid).sum())
         self.done = True
 
     def run(self) -> DTable:
@@ -422,11 +426,17 @@ class GymDriver:
         return self.result
 
     # -- fault tolerance: snapshot / resume ----------------------------------
+    def _no_mesh(self, what: str) -> None:
+        if self.spmd.mesh is not None:
+            raise NotImplementedError(f"GymDriver.{what}: snapshots on a mesh are not ported")
+
     def save(self, path: str) -> None:
         """Atomic snapshot of the driver state between rounds, in the
         reference package's npz layout: a ``meta`` JSON string plus
         ``data_k`` / ``valid_k`` (node tables) and ``accdata_k`` /
-        ``accvalid_k`` (upward accumulators), int32 and bool."""
+        ``accvalid_k`` (upward accumulators), int32 and bool.  Not on a
+        mesh yet."""
+        self._no_mesh("save")
         meta = {
             "cursor": self.cursor,
             "done": self.done,
@@ -466,7 +476,9 @@ class GymDriver:
         """Restore a ``save`` snapshot onto this driver's device.  The
         snapshot's GHD and config win (``local_backend`` included, resolved
         against this device as the constructor does); a shared caps cache
-        merges the snapshot's entries instead of being replaced."""
+        merges the snapshot's entries instead of being replaced.  Not on a
+        mesh yet."""
+        self._no_mesh("load")
         with np.load(path, allow_pickle=False) as z:
             meta = json.loads(str(z["meta"]))
             arrays = {k: z[k] for k in z.files if k != "meta"}
@@ -531,7 +543,8 @@ def gym(
     data: Dict[str, np.ndarray],
     *,
     ghd: Optional[GHD] = None,
-    p: int = 4,
+    p: Optional[int] = None,
+    spmd: Optional[SPMD] = None,
     config: Optional[GymConfig] = None,
     plan=None,  # Optional[optimizer.Plan]
     device=None,
@@ -546,11 +559,20 @@ def gym(
     already chose, e.g. from ``optimizer.enumerate_plans``).
 
     ``device`` (else ``config.device``) picks where the query runs; None
-    means the CUDA card, and raises when there is none."""
+    means the CUDA card, and raises when there is none.  ``p`` reducers
+    (4 unless given).  ``spmd`` runs the query on that ``SPMD`` instead,
+    e.g. one rank of a mesh, ``SPMD(p, mesh=...)``, with its ``p``: every
+    rank returns the whole answer."""
     from .decompose import ghd_for
 
     g = ghd if ghd is not None else (plan.ghd if plan is not None else ghd_for(query))
-    dev = device if device is not None else (config.device if config else None)
-    drv = GymDriver(query, g, data, SPMD(p, device=resolve_device(dev)), config, plan=plan)
+    if spmd is None:
+        dev = device if device is not None else (config.device if config else None)
+        spmd = SPMD(4 if p is None else p, device=resolve_device(dev))
+    elif device is not None:
+        raise ValueError("gym: pass device= or spmd=, not both (the SPMD holds its device)")
+    elif p is not None and p != spmd.p:
+        raise ValueError(f"gym: p={p} but the SPMD has {spmd.p} reducers")
+    drv = GymDriver(query, g, data, spmd, config, plan=plan)
     out = drv.run()
-    return out.to_numpy(), out.schema, drv.ledger
+    return out.to_numpy(spmd), out.schema, drv.ledger

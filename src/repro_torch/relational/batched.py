@@ -64,13 +64,9 @@ from .shuffle import (
     ship_segments,
 )
 from .skew import DEFAULT_SKEW_THRESHOLD, bcast_dests, heavy_dest_flags_many, split_dests
-from .spmd import SPMD
+from .spmd import SPMD, all_to_all
 from .table import DTable, schema_join
 from .wire import WireFormat, count_wire_bytes, dense_wire_bytes, packed_wire_bytes
-
-
-def _host(x) -> np.ndarray:
-    return x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
 
 
 def _xbytes(p: int, c_out: int, arity: int, fmt: Optional[WireFormat]) -> int:
@@ -109,30 +105,32 @@ def _unstack(data, valid, schemas: Sequence[Tuple[str, ...]]) -> List[DTable]:
     return [DTable(data[:, i], valid[:, i], s) for i, s in enumerate(schemas)]
 
 
-def _key_array(keys: Sequence[Sequence[int]], p: int, device) -> torch.Tensor:
-    """Per-instance key column indices as a (p, k, n_keys) tensor."""
+def _key_array(keys: Sequence[Sequence[int]], spmd: SPMD) -> torch.Tensor:
+    """Per-instance key column indices as a (shards, k, n_keys) tensor
+    (``spmd.shards``: p in the simulation, the rank's block on a mesh)."""
     assert len({len(k) for k in keys}) == 1, "key-column count must be uniform"
     ks = np.asarray([list(k) for k in keys], np.int64).reshape(len(keys), -1)
-    return torch.from_numpy(ks).to(device).expand((p,) + ks.shape)
+    return torch.from_numpy(ks).to(spmd.device).expand((spmd.shards,) + ks.shape)
 
 
-def _seed_array(seeds: Sequence[int], p: int, device) -> torch.Tensor:
+def _seed_array(seeds: Sequence[int], spmd: SPMD) -> torch.Tensor:
     s = torch.tensor([int(x) & 0xFFFFFFFF for x in seeds], dtype=torch.int64)
-    return s.to(device).expand(p, len(seeds))
+    return s.to(spmd.device).expand(spmd.shards, len(seeds))
 
 
 def _per_op_stats(
-    sent, dropped, padded: int = 0, heavy=None, wire_bytes: int = 0,
+    spmd: SPMD, sent, dropped, padded: int = 0, heavy=None, wire_bytes: int = 0,
     ubytes=None,
 ) -> List[Dict[str, int]]:
-    """(p, k) shard stats -> one {'sent','dropped','padded',...} dict per
+    """(p, k) shard stats (read through ``spmd.to_host``, so gathered on a
+    mesh) -> one {'sent','dropped','padded',...} dict per
     instance; ``padded``/``wire_bytes`` (statics of the dispatch) are
     identical across the group's instances.  ``heavy`` (the hybrid ops'
     (p, k) tuple-sends routed through the heavy-hitter path) adds a
     ``'heavy'`` key only when given, so the hash and grid ops' stats stay
     as they are."""
-    s = _host(sent).sum(axis=0)
-    d = _host(dropped).sum(axis=0)
+    extra = [x for x in (heavy, ubytes) if x is not None]
+    s, d, *rest = [x.sum(axis=0) for x in spmd.to_host_many(sent, dropped, *extra)]
     out = [
         {
             "sent": int(a),
@@ -143,10 +141,10 @@ def _per_op_stats(
         for a, b in zip(s, d)
     ]
     if heavy is not None:
-        for st, h in zip(out, _host(heavy).sum(axis=0)):
+        for st, h in zip(out, rest.pop(0)):
             st["heavy"] = int(h)
     if ubytes is not None:
-        for st, u in zip(out, _host(ubytes).sum(axis=0)):
+        for st, u in zip(out, rest.pop(0)):
             st["ubytes"] = int(u)
     return out
 
@@ -164,10 +162,11 @@ class SideCaps:
     fmt: Optional[WireFormat] = None
 
     @staticmethod
-    def from_counts(out_counts, recv_tot) -> "SideCaps":
+    def from_counts(out_counts: np.ndarray, recv_tot: np.ndarray) -> "SideCaps":
+        """From host count arrays over the whole reducer axis."""
         return SideCaps(
-            pow2(max(1, int(_host(out_counts).max()))),
-            pow2(max(1, int(_host(recv_tot).max()))),
+            pow2(max(1, int(np.max(out_counts)))),
+            pow2(max(1, int(np.max(recv_tot)))),
         )
 
 
@@ -360,11 +359,12 @@ def _join_count_shard_b(ad, av, bd, bv, seed, ak, bk, *,
 
 
 # ------------------------------------------ hybrid-routing measure helpers
-def _heavy_array(heavy: np.ndarray, p: int, device) -> torch.Tensor:
-    """Per-instance heavy-destination flags as a (p, k, p) bool tensor on
-    the device: data, so one code path serves every flag pattern."""
-    h = torch.from_numpy(np.asarray(heavy, bool).reshape(len(heavy), p))
-    return h.to(device).expand((p,) + tuple(h.shape))
+def _heavy_array(heavy: np.ndarray, spmd: SPMD) -> torch.Tensor:
+    """Per-instance heavy-destination flags as a (shards, k, p) bool
+    tensor on the device: data, so one code path serves every flag
+    pattern."""
+    h = torch.from_numpy(np.asarray(heavy, bool).reshape(len(heavy), spmd.p))
+    return h.to(spmd.device).expand((spmd.shards,) + tuple(h.shape))
 
 
 def _hybrid_exchange(data, valid, dest, hw, *, p, c_out, cap_recv, spread,
@@ -416,16 +416,17 @@ def _hybrid_pair_counts(
     """ONE count-only dispatch re-measuring an op group's exchanges under
     hybrid routing (run only when the hash counts flagged heavy
     destinations)."""
-    p, dev = spmd.p, spmd.device
+    p = spmd.p
     ad, av = _stack(as_)
     bd, bv = _stack(bs)
     oa, ra, ob, rb = spmd.run(
         _hybrid_pair_counts_shard_b,
-        ad, av, bd, bv, _seed_array(seeds, p, dev),
-        _key_array(a_keys, p, dev), _key_array(b_keys, p, dev),
-        _heavy_array(heavy, p, dev),
+        ad, av, bd, bv, _seed_array(seeds, spmd),
+        _key_array(a_keys, spmd), _key_array(b_keys, spmd),
+        _heavy_array(heavy, spmd),
         p=p, dedup_b=dedup_b, swap=swap, backend=backend, measure=True,
     )
+    oa, ra, ob, rb = spmd.to_host_many(oa, ra, ob, rb)
     return SideCaps.from_counts(oa, ra), SideCaps.from_counts(ob, rb)
 
 
@@ -483,17 +484,17 @@ def _measure_pair_many(
     spmd: SPMD, as_, bs, a_keys, b_keys, seeds, *, dedup_b: bool,
     backend: str = "torch", skew_threshold: float = DEFAULT_SKEW_THRESHOLD,
 ) -> GroupMeasure:
-    p, dev = spmd.p, spmd.device
+    p = spmd.p
     ad, av = _stack(as_)
     bd, bv = _stack(bs)
     oa, ra, ob, rb = spmd.run(
         _measure_pair_shard_b,
-        ad, av, bd, bv, _seed_array(seeds, p, dev),
-        _key_array(a_keys, p, dev), _key_array(b_keys, p, dev),
+        ad, av, bd, bv, _seed_array(seeds, spmd),
+        _key_array(a_keys, spmd), _key_array(b_keys, spmd),
         p=p, dedup_b=dedup_b, backend=backend, measure=True,
     )
     return _finalize_pair_counts(
-        _host(oa), _host(ra), _host(ob), _host(rb), p=p,
+        *spmd.to_host_many(oa, ra, ob, rb), p=p,
         count_padded=2 * len(as_) * p * p,  # two (p,)-int count vectors each
         count_bytes=count_wire_bytes(p, 2 * len(as_)),
         skew_threshold=skew_threshold,
@@ -594,7 +595,7 @@ def measure_join_many(
     ``hybrid=True``: when the counts flag heavy destinations, the
     capacities are re-measured under hybrid routing and the keys-only
     output count runs at the HYBRID placement."""
-    p, dev = spmd.p, spmd.device
+    p = spmd.p
     a_keys, b_keys = _pair_keys(as_, bs)
     m = _measure_pair_many(
         spmd, as_, bs, a_keys, b_keys, seeds, dedup_b=False, backend=backend,
@@ -605,8 +606,8 @@ def measure_join_many(
     ad, av = _stack(as_)
     bd, bv = _stack(bs)
     arrays = (
-        ad, av, bd, bv, _seed_array(seeds, p, dev),
-        _key_array(a_keys, p, dev), _key_array(b_keys, p, dev),
+        ad, av, bd, bv, _seed_array(seeds, spmd),
+        _key_array(a_keys, spmd), _key_array(b_keys, spmd),
     )
     caps = dict(
         p=p, c_out_a=m.lhs.c_out, c_out_b=m.rhs.c_out,
@@ -616,12 +617,12 @@ def measure_join_many(
         cnt = spmd.run(_join_count_shard_b, *arrays, **caps, measure=True)
     else:
         cnt = spmd.run(
-            _hybrid_join_count_shard_b, *arrays, _heavy_array(m.heavy, p, dev),
+            _hybrid_join_count_shard_b, *arrays, _heavy_array(m.heavy, spmd),
             **caps, swap=m.swap_spread, measure=True,
         )
     return dataclasses.replace(
         m,
-        out_need=pow2(max(1, int(_host(cnt).max()))),
+        out_need=pow2(max(1, int(spmd.to_host(cnt).max()))),
         padded=m.padded
         + k * (padded_slots(p, m.lhs.c_out, nk) + padded_slots(p, m.rhs.c_out, nk)),
         wire_bytes=m.wire_bytes
@@ -650,14 +651,14 @@ def measure_dedup_many(
     spmd: SPMD, ts, *, seeds, backend: str = "torch"
 ) -> GroupMeasure:
     """Pre-pass of ``dist_dedup_many`` (full-row key, single exchange)."""
-    p, dev = spmd.p, spmd.device
+    p = spmd.p
     d, v = _stack(ts)
-    cols = _key_array([tuple(range(t.arity)) for t in ts], p, dev)
+    cols = _key_array([tuple(range(t.arity)) for t in ts], spmd)
     o, r = spmd.run(
-        _measure_one_shard_b, d, v, _seed_array(seeds, p, dev), cols,
+        _measure_one_shard_b, d, v, _seed_array(seeds, spmd), cols,
         p=p, backend=backend, measure=True,
     )
-    caps = SideCaps.from_counts(o, r)
+    caps = SideCaps.from_counts(*spmd.to_host_many(o, r))
     return GroupMeasure(
         lhs=caps, out_recv=caps.cap_recv, padded=len(ts) * p * p,
         wire_bytes=count_wire_bytes(p, len(ts)),
@@ -714,7 +715,9 @@ def _stack_valid(tables: Sequence[DTable]) -> torch.Tensor:
     return torch.stack([t.valid for t in tables], dim=1)
 
 
-def _grid_measure(oa, ra, ob, rb, k: int, p: int) -> GroupMeasure:
+def _grid_measure(spmd: SPMD, oa, ra, ob, rb, k: int) -> GroupMeasure:
+    p = spmd.p
+    oa, ra, ob, rb = spmd.to_host_many(oa, ra, ob, rb)
     return GroupMeasure(
         lhs=SideCaps.from_counts(oa, ra),
         rhs=SideCaps.from_counts(ob, rb),
@@ -728,29 +731,29 @@ def measure_grid_join_many(spmd: SPMD, as_, bs) -> GroupMeasure:
     the counts are exact for the payload send regardless of hashing."""
     p = spmd.p
     a0, b0 = as_[0], bs[0]
-    g = _grid_shares([a0.cap * a0.p, b0.cap * b0.p], p)
+    g = _grid_shares([a0.cap * p, b0.cap * p], p)
     oa, ra, ob, rb = spmd.run(
         _grid_measure_shard_b, _stack_valid(as_), _stack_valid(bs),
         plan=_grid_pair_plan(g[0], g[1], a0.cap, b0.cap), p=p, measure=True,
     )
-    return _grid_measure(oa, ra, ob, rb, len(as_), p)
+    return _grid_measure(spmd, oa, ra, ob, rb, len(as_))
 
 
 def measure_grid_semijoin_many(spmd: SPMD, ss, rs) -> GroupMeasure:
     """Pre-pass of ``grid_semijoin_many``'s mark stage (the trailing hash
     dedup keeps its managed capacity — its input is the mark output, which
     does not exist yet)."""
-    p, dev = spmd.p, spmd.device
+    p = spmd.p
     s0, r0 = ss[0], rs[0]
-    g_s, g_r = _grid_shares([s0.cap * s0.p, r0.cap * r0.p], p)
+    g_s, g_r = _grid_shares([s0.cap * p, r0.cap * p], p)
     shareds = [[x for x in s.schema if x in r.schema] for s, r in zip(ss, rs)]
     rd, rv = _stack(rs)  # R's key projection needs the data; S only its mask
-    rk = _key_array([r.cols(sh) for r, sh in zip(rs, shareds)], p, dev)
+    rk = _key_array([r.cols(sh) for r, sh in zip(rs, shareds)], spmd)
     oa, ra, ob, rb = spmd.run(
         _grid_measure_rkeys_shard_b, _stack_valid(ss), rd, rv, rk,
         plan=_grid_pair_plan(g_s, g_r, s0.cap, r0.cap), p=p, measure=True,
     )
-    return _grid_measure(oa, ra, ob, rb, len(ss), p)
+    return _grid_measure(spmd, oa, ra, ob, rb, len(ss))
 
 
 # ---------------------------------------- combined round-level measure pass
@@ -780,7 +783,7 @@ def pair_measure_spec(
     dedup_b: bool, skew_threshold: float = DEFAULT_SKEW_THRESHOLD,
 ) -> MeasureSpec:
     """Hash pair exchange counts (semijoin/join/intersect pre-pass)."""
-    p, dev = spmd.p, spmd.device
+    p = spmd.p
     ad, av = _stack(as_)
     bd, bv = _stack(bs)
     k = len(as_)
@@ -788,8 +791,8 @@ def pair_measure_spec(
         tag="pair",
         entry=("pair", k, bool(dedup_b)),
         arrays=(
-            ad, av, bd, bv, _seed_array(seeds, p, dev),
-            _key_array(a_keys, p, dev), _key_array(b_keys, p, dev),
+            ad, av, bd, bv, _seed_array(seeds, spmd),
+            _key_array(a_keys, spmd), _key_array(b_keys, spmd),
         ),
         k=k, rows=2 * k, count_padded=2 * k * p * p,
         count_bytes=count_wire_bytes(p, 2 * k),
@@ -815,7 +818,7 @@ def join_pair_measure_spec(
     projections bit-packed when they fit in fewer bits than a hashed
     column (an exact count), else a bit-packed ``JOIN_HASH_BITS``-bit key
     hash (``_measure_keys``)."""
-    p, dev = spmd.p, spmd.device
+    p = spmd.p
     ad, av = _stack(as_)
     bd, bv = _stack(bs)
     k = len(as_)
@@ -844,8 +847,8 @@ def join_pair_measure_spec(
         tag="join_pair",
         entry=("join_pair", k, g_a, g_b, fmt, keyed),
         arrays=(
-            ad, av, bd, bv, _seed_array(seeds, p, dev),
-            _key_array(a_keys, p, dev), _key_array(b_keys, p, dev),
+            ad, av, bd, bv, _seed_array(seeds, spmd),
+            _key_array(a_keys, spmd), _key_array(b_keys, spmd),
         ),
         k=k, rows=2 * k, count_padded=pad, count_bytes=byt,
         skew_threshold=skew_threshold, join_rows=k,
@@ -854,14 +857,14 @@ def join_pair_measure_spec(
 
 def single_measure_spec(spmd: SPMD, ts, seeds) -> MeasureSpec:
     """Full-row-key single exchange counts (dedup pre-pass)."""
-    p, dev = spmd.p, spmd.device
+    p = spmd.p
     d, v = _stack(ts)
-    cols = _key_array([tuple(range(t.arity)) for t in ts], p, dev)
+    cols = _key_array([tuple(range(t.arity)) for t in ts], spmd)
     k = len(ts)
     return MeasureSpec(
         tag="single",
         entry=("single", k),
-        arrays=(d, v, _seed_array(seeds, p, dev), cols),
+        arrays=(d, v, _seed_array(seeds, spmd), cols),
         k=k, rows=k, count_padded=k * p * p,
         count_bytes=count_wire_bytes(p, k),
     )
@@ -871,7 +874,7 @@ def grid_pair_measure_spec(spmd: SPMD, as_, bs) -> MeasureSpec:
     """Positional grid join send counts (seedless, exact)."""
     p = spmd.p
     a0, b0 = as_[0], bs[0]
-    g = _grid_shares([a0.cap * a0.p, b0.cap * b0.p], p)
+    g = _grid_shares([a0.cap * p, b0.cap * p], p)
     k = len(as_)
     return MeasureSpec(
         tag="grid_pair",
@@ -885,12 +888,12 @@ def grid_pair_measure_spec(spmd: SPMD, as_, bs) -> MeasureSpec:
 def grid_rkeys_measure_spec(spmd: SPMD, ss, rs) -> MeasureSpec:
     """Grid semijoin mark-stage counts: S positional, R the dedup'd key
     projection (masked rows recounted, exactly as the mark stage does)."""
-    p, dev = spmd.p, spmd.device
+    p = spmd.p
     s0, r0 = ss[0], rs[0]
-    g_s, g_r = _grid_shares([s0.cap * s0.p, r0.cap * r0.p], p)
+    g_s, g_r = _grid_shares([s0.cap * p, r0.cap * p], p)
     shareds = [[x for x in s.schema if x in r.schema] for s, r in zip(ss, rs)]
     rd, rv = _stack(rs)
-    rk = _key_array([r.cols(sh) for r, sh in zip(rs, shareds)], p, dev)
+    rk = _key_array([r.cols(sh) for r, sh in zip(rs, shareds)], spmd)
     k = len(ss)
     return MeasureSpec(
         tag="grid_rkeys",
@@ -967,11 +970,11 @@ def _measure_round_shard(*arrays, entries, p, backend):
             da, db = _grid_pair_dests(sv, _grid_rkeys_valid(rd, rv, rk), p=p, **dict(plan))
             blocks += [bucket_counts(da, p), bucket_counts(db, p)]
     cnts = torch.cat(blocks, dim=1)  # (p_src, m, p_dst)
-    recv = cnts.permute(2, 1, 0)  # all_to_all on the count-vector axis
+    recv = all_to_all(cnts, 2)  # (p_dst, m, p_src)
     if jblocks:
         jcnt = torch.cat(jblocks, dim=1)
     else:
-        jcnt = torch.zeros((p, 0), dtype=torch.int64, device=cnts.device)
+        jcnt = torch.zeros((cnts.shape[0], 0), dtype=torch.int64, device=cnts.device)
     return cnts, recv.sum(-1), jcnt
 
 
@@ -1049,7 +1052,7 @@ class RoundCounts:
 
     def fetch(self) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
         if self._host is None:
-            self._host = (_host(self._cnts), _host(self._recv), _host(self._jcnt))
+            self._host = tuple(self.spmd.to_host_many(self._cnts, self._recv, self._jcnt))
         return self._host
 
     def measures(self) -> List[GroupMeasure]:
@@ -1101,7 +1104,7 @@ def join_need_many(
     ``fmts`` (one shared-key ``WireFormat`` or None per item) packs the
     keys-only exchanges with the ``_measure_keys`` policy — the same wire
     the fused pre-count would have used."""
-    p, dev = spmd.p, spmd.device
+    p = spmd.p
     if fmts is None:
         fmts = [None] * len(items)
     arrays: List[torch.Tensor] = []
@@ -1114,15 +1117,15 @@ def join_need_many(
         bd, bv = _stack(bs)
         caps = (m.lhs.c_out, m.rhs.c_out, m.lhs.cap_recv, m.rhs.cap_recv)
         arrays.extend((
-            ad, av, bd, bv, _seed_array(seeds, p, dev),
-            _key_array(a_keys, p, dev), _key_array(b_keys, p, dev),
+            ad, av, bd, bv, _seed_array(seeds, spmd),
+            _key_array(a_keys, spmd), _key_array(b_keys, spmd),
         ))
         if m.hybrid_routed:
             entries.append(("hybrid", len(as_)) + caps + (m.swap_spread, fmt))
-            arrays.append(_heavy_array(m.heavy, p, dev))
+            arrays.append(_heavy_array(m.heavy, spmd))
         else:
             entries.append(("hash", len(as_)) + caps + (fmt,))
-    cnt = _host(spmd.run(
+    cnt = spmd.to_host(spmd.run(
         _join_need_round_shard, *arrays,
         entries=tuple(entries), p=p, backend=backend, measure=True,
     ))  # (p, sum_k)
@@ -1191,23 +1194,23 @@ def dist_semijoin_many(
     backend: str = "torch",
 ) -> Tuple[List[DTable], List[Dict]]:
     """k-fold S_i |>< R_i in ONE dispatch."""
-    p, dev = spmd.p, spmd.device
+    p = spmd.p
     shareds = [[x for x in s.schema if x in r.schema] for s, r in zip(ss, rs)]
     assert all(shareds), "semijoin with no shared attrs in batch"
     c_out = c_out or (ss[0].cap, rs[0].cap)
     sd, sv = _stack(ss)
     rd, rv = _stack(rs)
-    sk = _key_array([s.cols(sh) for s, sh in zip(ss, shareds)], p, dev)
-    rk = _key_array([r.cols(sh) for r, sh in zip(rs, shareds)], p, dev)
+    sk = _key_array([s.cols(sh) for s, sh in zip(ss, shareds)], spmd)
+    rk = _key_array([r.cols(sh) for r, sh in zip(rs, shareds)], spmd)
     fmt_s, fmt_r = fmts if fmts is not None else (None, None)
     od, ov, sent, dropped, ub = spmd.run(
         _semijoin_shard_b,
-        sd, sv, rd, rv, _seed_array(seeds, p, dev), sk, rk,
+        sd, sv, rd, rv, _seed_array(seeds, spmd), sk, rk,
         p=p, c_out_s=c_out[0], c_out_r=c_out[1],
         cap_s=cap_recv[0], cap_r=cap_recv[1], fmt_s=fmt_s, fmt_r=fmt_r, backend=backend,
     )
     return _unstack(od, ov, [s.schema for s in ss]), _per_op_stats(
-        sent, dropped,
+        spmd, sent, dropped,
         # S ships full rows; R ships its deduplicated key projection
         padded_slots(p, c_out[0], ss[0].arity)
         + padded_slots(p, c_out[1], len(shareds[0])),
@@ -1246,7 +1249,7 @@ def dist_join_many(
     backend: str = "torch",
 ) -> Tuple[List[DTable], List[Dict]]:
     """k-fold A_i |><| B_i in ONE dispatch."""
-    p, dev = spmd.p, spmd.device
+    p = spmd.p
     shareds = [[x for x in a.schema if x in b.schema] for a, b in zip(as_, bs)]
     # DYM rounds only join GHD-adjacent nodes, which share attributes; the
     # cross-join case is served by sequential dist_join's broadcast plan
@@ -1260,19 +1263,19 @@ def dist_join_many(
     cap_recv = cap_recv or (p * as_[0].cap, p * bs[0].cap)
     ad, av = _stack(as_)
     bd, bv = _stack(bs)
-    ak = _key_array([a.cols(sh) for a, sh in zip(as_, shareds)], p, dev)
-    bk = _key_array([b.cols(sh) for b, sh in zip(bs, shareds)], p, dev)
-    bkeep = _key_array(keeps, p, dev)
+    ak = _key_array([a.cols(sh) for a, sh in zip(as_, shareds)], spmd)
+    bk = _key_array([b.cols(sh) for b, sh in zip(bs, shareds)], spmd)
+    bkeep = _key_array(keeps, spmd)
     fmt_a, fmt_b = fmts if fmts is not None else (None, None)
     od, ov, sent, dropped, ub = spmd.run(
         _join_shard_b,
-        ad, av, bd, bv, _seed_array(seeds, p, dev), ak, bk, bkeep,
+        ad, av, bd, bv, _seed_array(seeds, spmd), ak, bk, bkeep,
         p=p, c_out_a=c_out[0], c_out_b=c_out[1],
         cap_a=cap_recv[0], cap_b=cap_recv[1], out_cap=out_cap,
         fmt_a=fmt_a, fmt_b=fmt_b, backend=backend,
     )
     return _unstack(od, ov, schemas), _per_op_stats(
-        sent, dropped,
+        spmd, sent, dropped,
         padded_slots(p, c_out[0], as_[0].arity)
         + padded_slots(p, c_out[1], bs[0].arity),
         wire_bytes=_xbytes(p, c_out[0], as_[0].arity, fmt_a)
@@ -1321,7 +1324,7 @@ def hybrid_semijoin_many(
     heavy keys (``heavy`` (k, p) per-instance flags) spread/broadcast.
     Same row sets as ``dist_semijoin_many``; stats carry the extra
     ``'heavy'`` count of tuple-sends routed through the heavy path."""
-    p, dev = spmd.p, spmd.device
+    p = spmd.p
     shareds = [[x for x in s.schema if x in r.schema] for s, r in zip(ss, rs)]
     assert all(shareds), "semijoin with no shared attrs in batch"
     # a row reaches each destination at most once, so the worst-case send
@@ -1329,17 +1332,17 @@ def hybrid_semijoin_many(
     c_out = c_out or (ss[0].cap, rs[0].cap)
     sd, sv = _stack(ss)
     rd, rv = _stack(rs)
-    sk, rk = (_key_array(ks, p, dev) for ks in _pair_keys(ss, rs))
+    sk, rk = (_key_array(ks, spmd) for ks in _pair_keys(ss, rs))
     fmt_s, fmt_r = fmts if fmts is not None else (None, None)
     od, ov, sent, dropped, hvy, ub = spmd.run(
         _hybrid_semijoin_shard_b,
-        sd, sv, rd, rv, _seed_array(seeds, p, dev), sk, rk,
-        _heavy_array(heavy, p, dev),
+        sd, sv, rd, rv, _seed_array(seeds, spmd), sk, rk,
+        _heavy_array(heavy, spmd),
         p=p, c_out_s=c_out[0], c_out_r=c_out[1],
         cap_s=cap_recv[0], cap_r=cap_recv[1], fmt_s=fmt_s, fmt_r=fmt_r, backend=backend,
     )
     return _unstack(od, ov, [s.schema for s in ss]), _per_op_stats(
-        sent, dropped,
+        spmd, sent, dropped,
         padded_slots(p, c_out[0], ss[0].arity)
         + padded_slots(p, c_out[1], len(shareds[0])),
         heavy=hvy,
@@ -1387,7 +1390,7 @@ def hybrid_join_many(
     """k-fold skew-resilient A_i |><| B_i in ONE dispatch; same row sets
     as ``dist_join_many`` with heavy keys routed spread/broadcast.
     ``swap`` (``GroupMeasure.swap_spread``) spreads B and broadcasts A."""
-    p, dev = spmd.p, spmd.device
+    p = spmd.p
     shareds = [[x for x in a.schema if x in b.schema] for a, b in zip(as_, bs)]
     assert all(shareds), "attribute-disjoint join in batch; use dist_join"
     keeps = [
@@ -1399,18 +1402,18 @@ def hybrid_join_many(
     cap_recv = cap_recv or (p * as_[0].cap, p * bs[0].cap)
     ad, av = _stack(as_)
     bd, bv = _stack(bs)
-    ak, bk = (_key_array(ks, p, dev) for ks in _pair_keys(as_, bs))
+    ak, bk = (_key_array(ks, spmd) for ks in _pair_keys(as_, bs))
     fmt_a, fmt_b = fmts if fmts is not None else (None, None)
     od, ov, sent, dropped, hvy, ub = spmd.run(
         _hybrid_join_shard_b,
-        ad, av, bd, bv, _seed_array(seeds, p, dev), ak, bk,
-        _key_array(keeps, p, dev), _heavy_array(heavy, p, dev),
+        ad, av, bd, bv, _seed_array(seeds, spmd), ak, bk,
+        _key_array(keeps, spmd), _heavy_array(heavy, spmd),
         p=p, c_out_a=c_out[0], c_out_b=c_out[1],
         cap_a=cap_recv[0], cap_b=cap_recv[1], out_cap=out_cap, swap=swap,
         fmt_a=fmt_a, fmt_b=fmt_b, backend=backend,
     )
     return _unstack(od, ov, schemas), _per_op_stats(
-        sent, dropped,
+        spmd, sent, dropped,
         padded_slots(p, c_out[0], as_[0].arity)
         + padded_slots(p, c_out[1], bs[0].arity),
         heavy=hvy,
@@ -1445,22 +1448,22 @@ def dist_intersect_many(
     backend: str = "torch",
 ) -> Tuple[List[DTable], List[Dict]]:
     """k-fold A_i ^ B_i (same attr sets) in ONE dispatch."""
-    p, dev = spmd.p, spmd.device
+    p = spmd.p
     for a, b in zip(as_, bs):
         assert set(a.schema) == set(b.schema), (a.schema, b.schema)
     c_out = c_out or (as_[0].cap, bs[0].cap)
     ad, av = _stack(as_)
     bd, bv = _stack(bs)
-    bcols = _key_array([b.cols(a.schema) for a, b in zip(as_, bs)], p, dev)
+    bcols = _key_array([b.cols(a.schema) for a, b in zip(as_, bs)], spmd)
     fmt_a, fmt_b = fmts if fmts is not None else (None, None)
     od, ov, sent, dropped, ub = spmd.run(
         _intersect_shard_b,
-        ad, av, bd, bv, _seed_array(seeds, p, dev), bcols,
+        ad, av, bd, bv, _seed_array(seeds, spmd), bcols,
         p=p, c_out_a=c_out[0], c_out_b=c_out[1],
         cap_a=cap_recv[0], cap_b=cap_recv[1], fmt_a=fmt_a, fmt_b=fmt_b, backend=backend,
     )
     return _unstack(od, ov, [a.schema for a in as_]), _per_op_stats(
-        sent, dropped,
+        spmd, sent, dropped,
         padded_slots(p, c_out[0], as_[0].arity)
         + padded_slots(p, c_out[1], bs[0].arity),
         wire_bytes=_xbytes(p, c_out[0], as_[0].arity, fmt_a)
@@ -1485,18 +1488,18 @@ def dist_dedup_many(
     c_out: Optional[int] = None, fmt: Optional[WireFormat] = None,
     backend: str = "torch",
 ) -> Tuple[List[DTable], List[Dict]]:
-    p, dev = spmd.p, spmd.device
+    p = spmd.p
     c_out = c_out or ts[0].cap
     d, v = _stack(ts)
     od, ov, sent, dropped = spmd.run(
-        _dedup_shard_b, d, v, _seed_array(seeds, p, dev),
+        _dedup_shard_b, d, v, _seed_array(seeds, spmd),
         p=p, c_out=c_out, cap_recv=cap_recv, fmt=fmt, backend=backend,
     )
     return _unstack(od, ov, [t.schema for t in ts]), _per_op_stats(
-        sent, dropped, padded_slots(p, c_out, ts[0].arity),
+        spmd, sent, dropped, padded_slots(p, c_out, ts[0].arity),
         wire_bytes=_xbytes(p, c_out, ts[0].arity, fmt),
-        # single exchange: useful bytes are 4 * arity * sent, host-side
-        ubytes=4 * ts[0].arity * _host(sent),
+        # single exchange: useful bytes are 4 * arity * sent
+        ubytes=4 * ts[0].arity * sent,
     )
 
 
@@ -1545,18 +1548,18 @@ def grid_semijoin_many(
     BSP rounds either way).  ``c_out``/``cap_recv`` (per (S, R-keys) side)
     override the worst-case mark-stage capacities with calibrated ones
     (``measure_grid_semijoin_many``)."""
-    p, dev = spmd.p, spmd.device
+    p = spmd.p
     s0, r0 = ss[0], rs[0]
     shareds = [[x for x in s.schema if x in r.schema] for s, r in zip(ss, rs)]
     assert all(shareds)
-    sz_s, sz_r = s0.cap * s0.p, r0.cap * r0.p
+    sz_s, sz_r = s0.cap * p, r0.cap * p
     g_s, g_r = _grid_shares([sz_s, sz_r], p)
     c_out = c_out or (s0.cap * g_r, r0.cap * g_s)
     cap_recv = cap_recv or (-(-sz_s // g_s), -(-sz_r // g_r))
     sd, sv = _stack(ss)
     rd, rv = _stack(rs)
-    sk = _key_array([s.cols(sh) for s, sh in zip(ss, shareds)], p, dev)
-    rk = _key_array([r.cols(sh) for r, sh in zip(rs, shareds)], p, dev)
+    sk = _key_array([s.cols(sh) for s, sh in zip(ss, shareds)], spmd)
+    rk = _key_array([r.cols(sh) for r, sh in zip(rs, shareds)], spmd)
     fmt_s, fmt_r = fmts if fmts is not None else (None, None)
     md, mv, sent, dropped, ub = spmd.run(
         _grid_semijoin_mark_b,
@@ -1567,7 +1570,7 @@ def grid_semijoin_many(
     )
     marked = _unstack(md, mv, [s.schema for s in ss])
     mark_stats = _per_op_stats(
-        sent, dropped,
+        spmd, sent, dropped,
         padded_slots(p, c_out[0], s0.arity)
         + padded_slots(p, c_out[1], len(shareds[0])),
         wire_bytes=_xbytes(p, c_out[0], s0.arity, fmt_s)
@@ -1611,9 +1614,9 @@ def grid_join_many(
     dispatches + one batched local-join dispatch — one claimed BSP round.
     ``c_out``/``cap_recv`` (per (A, B) relation) override the worst-case
     send capacities with calibrated ones (``measure_grid_join_many``)."""
-    p, dev = spmd.p, spmd.device
+    p = spmd.p
     a0, b0 = as_[0], bs[0]
-    g = _grid_shares([a0.cap * a0.p, b0.cap * b0.p], p)
+    g = _grid_shares([a0.cap * p, b0.cap * p], p)
     # mixed-radix grid: table 0 strides by g[1], table 1 strides by 1
     strides = [g[1], 1]
     plans = [
@@ -1627,7 +1630,7 @@ def grid_join_many(
         t0 = tables[0]
         d, v = _stack(tables)
         co = c_out[i] if c_out else t0.cap * (g[0] * g[1] // g_self)
-        cr = cap_recv[i] if cap_recv else -(-(t0.p * t0.cap) // g_self)
+        cr = cap_recv[i] if cap_recv else -(-(p * t0.cap) // g_self)
         fmt = fmts[i] if fmts is not None else None
         rd, rv, stats = spmd.run(
             _grid_send_one, d, v,
@@ -1636,7 +1639,7 @@ def grid_join_many(
         )
         parts.append((rd, rv))
         send_stats.append(_per_op_stats(
-            stats["sent"], stats["dropped"], padded_slots(p, co, t0.arity),
+            spmd, stats["sent"], stats["dropped"], padded_slots(p, co, t0.arity),
             wire_bytes=_xbytes(p, co, t0.arity, fmt), ubytes=stats["ubytes"],
         ))
     shareds = [[x for x in a.schema if x in b.schema] for a, b in zip(as_, bs)]
@@ -1645,15 +1648,15 @@ def grid_join_many(
         for a, b in zip(as_, bs)
     ]
     schemas = [schema_join(a.schema, b.schema) for a, b in zip(as_, bs)]
-    ak = _key_array([a.cols(sh) for a, sh in zip(as_, shareds)], p, dev)
-    bk = _key_array([b.cols(sh) for b, sh in zip(bs, shareds)], p, dev)
-    bkeep = _key_array(keeps, p, dev)
+    ak = _key_array([a.cols(sh) for a, sh in zip(as_, shareds)], spmd)
+    bk = _key_array([b.cols(sh) for b, sh in zip(bs, shareds)], spmd)
+    bkeep = _key_array(keeps, spmd)
     (ad, av), (bd, bv) = parts
     od, ov, sent_j, over = spmd.run(
         _local_join_shard_b, ad, av, bd, bv, ak, bk, bkeep,
         out_cap=out_cap, backend=backend,
     )
-    join_stats = _per_op_stats(sent_j, over)
+    join_stats = _per_op_stats(spmd, sent_j, over)
     return _unstack(od, ov, schemas), [
         _sum_stats(sa, sb, sj) for sa, sb, sj in zip(send_stats[0], send_stats[1], join_stats)
     ]

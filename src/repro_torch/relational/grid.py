@@ -9,9 +9,10 @@ the beyond-paper optimized path (comm ~ |R|+|S|, skew-sensitive with
 overflow-retry).
 
 Every per-shard body works over the explicit leading reducer axis (and
-any instance axes after it), so a shard's index is an ``arange`` over
-that axis.  The grid geometry is plain Python, so it is the reference's
-to the last integer.
+any instance axes after it), so a shard's index is ``spmd.axis_index``
+(an ``arange`` over that axis, the rank on a mesh).  The grid geometry is
+plain Python over the logical ``p``, so it is the reference's to the last
+integer.
 """
 from __future__ import annotations
 
@@ -24,16 +25,9 @@ from .hashing import hash_columns
 from .localops import local_dedup_mask, local_project, local_semijoin_mask
 from .ops import _stats, agg_stats, dist_dedup, local_multiway_join
 from .shuffle import exchange, exchange_counts, exchange_multi, padded_slots, pow2
-from .spmd import SPMD
+from .spmd import SPMD, axis_index
 from .table import DTable
 from .wire import count_wire_bytes, dense_wire_bytes, packed_wire_bytes
-
-
-def _shard_index(x: torch.Tensor) -> torch.Tensor:
-    """Each row's shard index, shaped to broadcast against ``x`` (whose
-    first axis is the reducer axis)."""
-    p = x.shape[0]
-    return torch.arange(p, device=x.device).view((p,) + (1,) * (x.dim() - 1))
 
 
 def _position_groups(valid: torch.Tensor, g: int, cap: int, p: int) -> torch.Tensor:
@@ -44,7 +38,7 @@ def _position_groups(valid: torch.Tensor, g: int, cap: int, p: int) -> torch.Ten
     group gets an equal slice of the global slot space — size bounds hold
     regardless of key values (the paper's 'disjoint groups of size M/w')."""
     n = valid.shape[-1]
-    pos = _shard_index(valid) * cap + torch.arange(n, device=valid.device)
+    pos = axis_index(p, valid) * cap + torch.arange(n, device=valid.device)
     per = -(-(p * cap) // g)  # ceil: slots per group (hard receive bound)
     grp = (pos // per).to(torch.int32)
     return torch.where(valid, grp, g)
@@ -146,7 +140,7 @@ def grid_multiway_count(
     valids = []
     slices: List[Tuple[int, int]] = []
     for tables in table_groups:
-        sizes = [t.cap * t.p for t in tables]
+        sizes = [t.cap * spmd.p for t in tables]
         g, strides, all_offs = _grid_geometry(sizes, spmd.p)
         start = len(entries)
         for i, t in enumerate(tables):
@@ -157,7 +151,7 @@ def grid_multiway_count(
         _grid_send_count_round, *valids, entries=tuple(entries), p=spmd.p,
         measure=True,
     )
-    oc, rt = oc.cpu().numpy(), rt.cpu().numpy()  # (p, n, p), (p, n)
+    oc, rt = spmd.to_host_many(oc, rt)  # (p, n, p), (p, n)
     cals = [[_caps_of(oc, rt, i) for i in range(a, b)] for a, b in slices]
     pads = [(b - a) * spmd.p * spmd.p for a, b in slices]
     byts = [count_wire_bytes(spmd.p, b - a) for a, b in slices]
@@ -201,7 +195,7 @@ def grid_multiway_join(
         return tables[0], {
             "sent": 0, "dropped": 0, "padded": 0, "wire_bytes": 0, "ubytes": 0,
         }
-    sizes = list(sizes) if sizes is not None else [t.cap * t.p for t in tables]
+    sizes = list(sizes) if sizes is not None else [t.cap * p for t in tables]
     g, strides, all_offs = _grid_geometry(sizes, p)
     acc = math.prod(g)
 
@@ -219,7 +213,7 @@ def grid_multiway_join(
             p=p,
             measure=True,
         )
-        oc, rt = oc.cpu().numpy(), rt.cpu().numpy()  # (p, w, p), (p, w)
+        oc, rt = spmd.to_host_many(oc, rt)  # (p, w, p), (p, w)
         cals = [_caps_of(oc, rt, i) for i in range(w)]
         count_pad = p * p  # one (p,)-int count vector per relation
         count_b = count_wire_bytes(p, 1)
@@ -232,7 +226,7 @@ def grid_multiway_join(
             co, cr = cals[i]
         else:
             co = c_out if c_out is not None else t.cap * n_other
-            cr = cap_recv if cap_recv is not None else -(-(t.p * t.cap) // g[i])
+            cr = cap_recv if cap_recv is not None else -(-(p * t.cap) // g[i])
         fmt = fmts[i] if fmts is not None else None
         rd, rv, stats = spmd.run(
             _grid_send_one, t.data, t.valid,
@@ -241,7 +235,9 @@ def grid_multiway_join(
         )
         parts.append(DTable(rd, rv, t.schema))
         xb = packed_wire_bytes(p, co, fmt) if fmt is not None else dense_wire_bytes(p, co, t.arity)
-        s = agg_stats(stats, padded_slots(p, co, t.arity) + count_pad, wire_bytes=xb + count_b)
+        s = agg_stats(
+            spmd, stats, padded_slots(p, co, t.arity) + count_pad, wire_bytes=xb + count_b
+        )
         for key in stats_total:
             stats_total[key] += s[key]
 
@@ -335,8 +331,8 @@ def grid_semijoin(
     shared = [x for x in s.schema if x in r.schema]
     assert shared
     p = spmd.p
-    sz_s = s.cap * s.p
-    sz_r = r.cap * r.p
+    sz_s = s.cap * p
+    sz_r = r.cap * p
     g_s, g_r = _grid_shares([sz_s, sz_r], p)
     md, mv, stats = spmd.run(
         _grid_semijoin_mark,
@@ -348,7 +344,7 @@ def grid_semijoin(
     )
     marked = DTable(md, mv, s.schema)
     st = agg_stats(
-        stats,
+        spmd, stats,
         padded_slots(p, s.cap * g_r, s.arity) + padded_slots(p, r.cap * g_s, len(shared)),
         wire_bytes=dense_wire_bytes(p, s.cap * g_r, s.arity)
         + dense_wire_bytes(p, r.cap * g_s, len(shared)),
@@ -364,7 +360,7 @@ def grid_semijoin(
 # ------------------------------------------------------------------ Lemma 9
 def _tree_dedup_shard(data, valid, seed, *, cols, block, p, c_out, cap_recv):
     h = hash_columns(data, cols, seed)
-    base = (_shard_index(valid) // block) * block
+    base = (axis_index(p, valid) // block) * block
     dest = (base + h % block).to(torch.int32)
     dest = torch.where(valid, dest, p)
     rd, rv, sent, ds, dr = exchange(data, valid, dest, p=p, c_out=c_out, cap_recv=cap_recv)
@@ -406,7 +402,7 @@ def tree_dedup(
         )
         cur = DTable(d, v, t.schema)
         s = agg_stats(
-            stats,
+            spmd, stats,
             padded_slots(p, co, t.arity),
             wire_bytes=dense_wire_bytes(p, co, t.arity),
         )

@@ -54,14 +54,10 @@ def _stats(sent, dropped, ubytes=None):
     return out
 
 
-def _to_int(v) -> int:
-    if isinstance(v, torch.Tensor):
-        return int(v.sum().item())
-    return int(np.asarray(v).sum())
-
-
-def agg_stats(stats, padded: int = 0, wire_bytes: int = 0) -> Dict[str, int]:
-    out = {k: _to_int(v) for k, v in stats.items()}
+def agg_stats(spmd: SPMD, stats, padded: int = 0, wire_bytes: int = 0) -> Dict[str, int]:
+    """Per-shard stats summed over the whole reducer axis (gathered on a
+    mesh) into host ints."""
+    out = {k: int(v.sum()) for k, v in zip(stats, spmd.to_host_many(*stats.values()))}
     out.setdefault("padded", int(padded))
     out.setdefault("wire_bytes", int(wire_bytes))
     out.setdefault("ubytes", 0)
@@ -90,7 +86,7 @@ def repartition(
         backend=backend,
     )
     return DTable(rd, rv, t.schema), agg_stats(
-        stats,
+        spmd, stats,
         padded_slots(spmd.p, c_out, t.arity),
         wire_bytes=dense_wire_bytes(spmd.p, c_out, t.arity),
     )
@@ -122,7 +118,7 @@ def measure_exchange(
         cols=t.cols(attrs), p=spmd.p, dedup=dedup, backend=backend,
         measure=True,
     )
-    return _caps_from_counts(out_counts.cpu(), recv_tot.cpu())
+    return _caps_from_counts(*spmd.to_host_many(out_counts, recv_tot))
 
 
 def _exchange_count_pair_shard(
@@ -158,8 +154,9 @@ def measure_exchange_pair(
         p=spmd.p, dedup_a=dedup[0], dedup_b=dedup[1],
         backend=backend, measure=True,
     )
-    ca, cra = _caps_from_counts(oa.cpu(), ra.cpu())
-    cb, crb = _caps_from_counts(ob.cpu(), rb.cpu())
+    oa, ra, ob, rb = spmd.to_host_many(oa, ra, ob, rb)
+    ca, cra = _caps_from_counts(oa, ra)
+    cb, crb = _caps_from_counts(ob, rb)
     return (ca, cb), (cra, crb)
 
 
@@ -196,8 +193,9 @@ def measure_exchange_pairs(spmd: SPMD, items, *, backend: str = "torch"):
     )
     out = []
     for (oa, ra), (ob, rb) in res:
-        ca, cra = _caps_from_counts(oa.cpu(), ra.cpu())
-        cb, crb = _caps_from_counts(ob.cpu(), rb.cpu())
+        oa, ra, ob, rb = spmd.to_host_many(oa, ra, ob, rb)
+        ca, cra = _caps_from_counts(oa, ra)
+        cb, crb = _caps_from_counts(ob, rb)
         out.append(((ca, cb), (cra, crb)))
     return out
 
@@ -224,7 +222,9 @@ def _cross_join_shard(
     """Attribute-disjoint join: A stays put, B broadcasts to every reducer
     (comm = p * |B|), then an empty-key local join expands A_shard x B."""
     n = b_data.shape[-2]
-    dests = torch.arange(p, dtype=torch.int32, device=b_data.device).expand(p, n, p)
+    dests = torch.arange(p, dtype=torch.int32, device=b_data.device).expand(
+        b_data.shape[0], n, p
+    )
     b2, b2v, sent_b, dsb, drb = exchange_multi(
         b_data, b_valid, dests, p=p, c_out=c_out_b, cap_recv=cap_b
     )
@@ -271,7 +271,7 @@ def dist_join(
             out_cap=out_cap, backend=backend,
         )
         return DTable(od, ov, out_schema), agg_stats(
-            stats,
+            spmd, stats,
             padded_slots(p, c_out[1], b.arity),
             wire_bytes=dense_wire_bytes(p, c_out[1], b.arity),
         )
@@ -284,7 +284,7 @@ def dist_join(
         out_cap=out_cap, backend=backend,
     )
     return DTable(od, ov, out_schema), agg_stats(
-        stats,
+        spmd, stats,
         padded_slots(p, c_out[0], a.arity)
         + padded_slots(p, c_out[1], b.arity)
         + count_pad,
@@ -415,7 +415,7 @@ def dist_semijoin(
         cap_s=cap_recv[0], cap_r=cap_recv[1], backend=backend,
     )
     return DTable(sd, sv, s.schema), agg_stats(
-        stats,
+        spmd, stats,
         # S ships full rows; R ships only its deduplicated key projection
         padded_slots(p, c_out[0], s.arity) + padded_slots(p, c_out[1], len(shared)),
         wire_bytes=dense_wire_bytes(p, c_out[0], s.arity)
@@ -457,7 +457,7 @@ def dist_intersect(
         cap_a=cap_recv[0], cap_b=cap_recv[1], backend=backend,
     )
     return DTable(ad, av, a.schema), agg_stats(
-        stats,
+        spmd, stats,
         padded_slots(p, c_out[0], a.arity) + padded_slots(p, c_out[1], b.arity),
         wire_bytes=dense_wire_bytes(p, c_out[0], a.arity)
         + dense_wire_bytes(p, c_out[1], b.arity),
@@ -487,7 +487,7 @@ def dist_dedup(
         cols=cols, p=p, c_out=c_out, cap_recv=cap_recv, backend=backend,
     )
     return DTable(d, v, t.schema), agg_stats(
-        stats,
+        spmd, stats,
         padded_slots(p, c_out, t.arity),
         wire_bytes=dense_wire_bytes(p, c_out, t.arity),
     )
@@ -550,7 +550,7 @@ def hypercube_partition(
         p=spmd.p, c_out=c_out, cap_recv=cap_recv,
     )
     return DTable(rd, rv, t.schema), agg_stats(
-        stats,
+        spmd, stats,
         padded_slots(spmd.p, c_out, t.arity),
         wire_bytes=dense_wire_bytes(spmd.p, c_out, t.arity),
     )
@@ -601,7 +601,7 @@ def local_multiway_join(
         _multijoin_shard, *args,
         plan=tuple(plan), out_caps=tuple(out_caps), backend=backend,
     )
-    return DTable(od, ov, schema), agg_stats(stats)
+    return DTable(od, ov, schema), agg_stats(spmd, stats)
 
 
 # ------------------------------------------------------ join output counting
@@ -637,7 +637,7 @@ def dist_join_count(
         c_out_a=a.cap, c_out_b=b.cap, cap_a=p * a.cap, cap_b=p * b.cap,
         backend=backend, measure=True,
     )
-    return counts.cpu().numpy()
+    return spmd.to_host(counts)
 
 
 # -------------------------------------------------------------------- project

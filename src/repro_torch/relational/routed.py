@@ -10,11 +10,12 @@ cross join, grid offsets, heavy broadcast), with in-row duplicate
 destinations deduplicated.
 
 Map stage: ``_bucketize`` scatters each shard's rows into ``(p, c_out)``
-destination buckets with one stable sort.  Network: the ``all_to_all`` is
-a swap of the (source, destination) axes — of the dense data and valid
-buckets, or of ONE bit-packed uint8 buffer when a ``wire.WireFormat`` is
-given (``fmt=``; the local backend's codec encodes and decodes it, the
-kernels on the card).  ``routed_start`` / ``ship_segments`` /
+destination buckets with one stable sort.  Network: ``spmd.all_to_all``
+over the (source, destination) axes (an axis swap in the simulation, a
+collective on a mesh) — of the dense data and valid buckets, or of ONE
+bit-packed uint8 buffer when a ``wire.WireFormat`` is given (``fmt=``;
+the local backend's codec encodes and decodes it, the kernels on the
+card).  ``routed_start`` / ``ship_segments`` /
 ``routed_finish`` split a packed exchange around its collective, so a
 fused group ships every op's and side's bytes in one segmented buffer.
 Reduce stage: ``compact``.
@@ -30,6 +31,7 @@ import torch
 
 from .localops import _seg, compact, default_backend, get_local_backend
 from .skew import DEFAULT_SKEW_THRESHOLD, heavy_dest_flags, heavy_dest_flags_many, split_dests
+from .spmd import all_to_all
 from .wire import WireFormat, WirePolicy, get_codec, pack_segments, split_segments
 
 
@@ -43,7 +45,8 @@ def pow2(x: int) -> int:
 def padded_slots(p: int, c_out: int, arity: int = 1) -> int:
     """int32 cells a fleet-wide exchange ships for one ``all_to_all``:
     each of the ``p`` shards sends the dense ``(p, c_out, arity)`` bucket
-    buffer whether the buckets are full or empty."""
+    buffer whether the buckets are full or empty.  ``p`` is the logical
+    reducer count, on a mesh too (never a block's length)."""
     return p * p * c_out * max(1, arity)
 
 
@@ -131,7 +134,7 @@ def route_counts(dest: torch.Tensor, p: int) -> Tuple[torch.Tensor, torch.Tensor
     first is the tight send capacity ``c_out``, the max of the second the
     tight receive capacity ``cap_recv``."""
     out = bucket_counts(dest, p)
-    recv = out.transpose(0, -1)  # all_to_all: (dst, *K, src)
+    recv = all_to_all(out, -1)  # (dst, *K, src)
     return out, recv.sum(-1)
 
 
@@ -154,7 +157,7 @@ def _wire_ship(
     wire = be.wire_encode(buf, buf_valid, fmt)  # (p, *K, p, nbytes)
     enc, dec = get_codec(fmt.codec)
     payload, aux = enc(wire)
-    rpayload = payload.transpose(0, payload.dim() - 2)  # all_to_all
+    rpayload = all_to_all(payload, payload.dim() - 2)
     return be.wire_decode(dec(rpayload, aux), fmt, c_out)
 
 
@@ -166,7 +169,7 @@ def _ship(
     buckets: the dense data + valid pair (an axis swap each) or one packed
     uint8 buffer.  Shard s's bucket d becomes shard d's segment s."""
     if fmt is None:
-        return buf.transpose(0, buf.dim() - 3), buf_valid.transpose(0, buf_valid.dim() - 2)
+        return all_to_all(buf, buf.dim() - 3), all_to_all(buf_valid, buf_valid.dim() - 2)
     return _wire_ship(buf, buf_valid, fmt, c_out, backend)
 
 
@@ -187,7 +190,7 @@ def _map_stage(data, valid, dests, *, p: int, c_out: int, heavy=None):
     c_out, ar), buf_valid, sent, dropped_send, heavy_sent), stats (p, *K)."""
     lead = tuple(data.shape[:-2])
     ar = data.shape[-1]
-    assert lead[0] == p, (lead, p)
+    assert lead[0] in (p, 1), (lead, p)  # the reducer axis, or a mesh rank's block
     heavy_sent = None
     if dests.dim() == data.dim():  # (p, *K, n, g): replicated send
         assert heavy is None, "heavy spreading applies to single-dest routes"
@@ -283,7 +286,7 @@ def ship_segments(wires: Sequence[torch.Tensor]) -> List[torch.Tensor]:
     (p, *K, p, nbytes_i) segment, swap the (source, destination) axes,
     split back."""
     seg = pack_segments(wires)
-    rseg = seg.transpose(0, seg.dim() - 2)
+    rseg = all_to_all(seg, seg.dim() - 2)
     return split_segments(rseg, [w.shape[-1] for w in wires])
 
 

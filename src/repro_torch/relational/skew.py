@@ -21,7 +21,9 @@ data, so an all-light pattern routes exactly as the plain hash exchange.
 
 The routing functions work over the port's explicit axes: ``dest`` is
 ``(p, *K, n)`` (reducer axis first, then any instance axes) and ``heavy``
-``(p, *K, p)``, one flag vector per shard and instance.
+``(p, *K, p)``, one flag vector per shard and instance (on a mesh the
+rank's block, leading axis 1).  The detection functions read count
+matrices the host gathered over the whole reducer axis.
 """
 from __future__ import annotations
 
@@ -29,6 +31,8 @@ from typing import Tuple
 
 import numpy as np
 import torch
+
+from .spmd import axis_index
 
 #: Default heavy-hitter sensitivity: a destination is heavy when its
 #: arrival exceeds this multiple of the perfectly balanced share
@@ -98,7 +102,7 @@ def split_dests(
     position is a per-shard, per-instance ``cumsum`` over the row axis.
     Returns (dest', is_heavy)."""
     is_heavy = _is_heavy(dest, heavy, p)
-    shard = torch.arange(p, device=dest.device).view((p,) + (1,) * (dest.dim() - 1))
+    shard = axis_index(p, dest)
     hidx = torch.cumsum(is_heavy.to(torch.int32), dim=-1).to(torch.int32) - 1
     spread = ((hidx + shard) % p).to(torch.int32)
     return torch.where(is_heavy, spread, dest.to(torch.int32)), is_heavy

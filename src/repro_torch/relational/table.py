@@ -2,7 +2,10 @@
 
 ``Table``  — one shard: data (cap, arity) int32 + valid (cap,) bool.
 ``DTable`` — p shards: data (p, cap, arity) + valid (p, cap); axis 0 is the
-reducer axis (an explicit leading tensor axis of the SPMD simulation).
+reducer axis (an explicit leading tensor axis of the SPMD simulation).  On
+a mesh a process holds its rank's block, axis 0 at length 1: ``p`` is then
+1, the logical reducer count is ``SPMD.p``, and ``to_numpy(spmd)`` gathers
+every rank's rows.
 
 Schemas are python tuples of attribute names, so column arithmetic stays
 in Python.
@@ -83,6 +86,7 @@ class DTable:
 
     @property
     def p(self) -> int:
+        """Shards held here (the rank's block on a mesh: 1)."""
         return self.data.shape[0]
 
     @property
@@ -128,10 +132,14 @@ class DTable:
             tuple(schema),
         )
 
-    def to_numpy(self) -> np.ndarray:
-        d = self.data.cpu().numpy().reshape(-1, self.arity)
-        v = self.valid.cpu().numpy().reshape(-1)
-        return _canon(d[v], self.arity)
+    def to_numpy(self, spmd=None) -> np.ndarray:
+        """Valid rows of every shard, sorted; with a mesh ``spmd`` the rows
+        of every rank's block, gathered, so each rank returns them all."""
+        if spmd is None:
+            d, v = self.data.cpu().numpy(), self.valid.cpu().numpy()
+        else:
+            d, v = spmd.to_host_many(self.data, self.valid)
+        return _canon(d.reshape(-1, self.arity)[v.reshape(-1)], self.arity)
 
     def to_set(self) -> set:
         return {tuple(int(x) for x in r) for r in self.to_numpy()}

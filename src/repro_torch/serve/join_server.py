@@ -102,6 +102,8 @@ class JoinServer:
         aging: float = 1.0,
         caps_cache: Optional[CapsCache] = None,
     ):
+        if spmd.mesh is not None:
+            raise NotImplementedError("JoinServer: the join server on a mesh is not ported")
         self.spmd = spmd
         self.max_in_flight = int(max_in_flight)
         if self.max_in_flight < 1:

@@ -48,6 +48,7 @@ def test_port_modules_exist():
         "models/whisper.py", "examples/quickstart.py", "examples/gym_fault_tolerance.py",
         "examples/serve_joins.py", "examples/moe_routing.py", "examples/serve_decode.py",
         "examples/train_lm.py", "launch/dryrun.py", "launch/roofline.py",
+        "launch/mesh.py",
     ):
         assert mod in names, mod
     assert (PKG / "csrc" / "gym_kernels.cu").exists()
@@ -150,7 +151,9 @@ def test_later_slices_raise(tmp_path):
         p=2, device="cpu", config=GymConfig(strategy="hybrid", calibrate_shuffle=False),
     )
     assert rows.tolist() == [[0, 1, 2]] and led.measure_dispatches > 0
-    with pytest.raises(NotImplementedError):
+    # a mesh is ported too (tests/test_torch_mesh.py); what is not a
+    # DeviceMesh is refused
+    with pytest.raises(TypeError):
         SPMD(4, mesh=object(), device="cpu")
 
 
