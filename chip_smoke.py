@@ -101,9 +101,11 @@ an H100) and the CUDA toolkit.  In order it:
    (``device="cpu"``, the ``'torch'`` backend) to the same rows and
    records — or be refused there when it pins ``'cuda'``.  At real size
    the gym phase's C_8 is snapshotted after materialization and half its
-   DYM rounds and resumed in a fresh driver on a fresh ``SPMD``: rows ==
+   DYM rounds, finished (rows and records == the gym phase's run), then
+   the snapshot is resumed by a fresh driver and finished again: rows ==
    numpy join, comm, rounds and retries == the gym phase's run; it prints
-   the snapshot's bytes, the save and load seconds and the launches;
+   the snapshot's bytes, the save seconds, the time to resume (the fresh
+   driver's set-up and the load) and the launches;
 10. (phase ``joinserve``) drives the multi-tenant join server
    (``serve.JoinServer``, cross-request fused dispatch) on
    ``benchmarks/bench_serve.py``'s mix — ``zipf_mix`` of S_8, C_8 and TC_9,
@@ -133,15 +135,31 @@ an H100) and the CUDA toolkit.  In order it:
    ``hash``; then, once those ranks have stopped, an NCCL mesh over every
    visible card (p = the card count; with one card, one rank in this
    process through ``make_reducer_mesh``) on the bench families under
-   ``hash``.  Every rank's rows, schema, records, retries and output must
-   equal the single-process ``'cuda'`` run at the same p and seed (the gym
-   and wire phases' runs, reused; run here when those phases did not
-   run), the NCCL ranks' rows the numpy join too, and every rank must
-   launch every gym kernel, each semijoin probe on its bitmap path.  It
-   prints each query's slowest wall and set-up seconds, each rank's
-   share of the wall inside the exchanges and inside the host reads'
-   gathers, each rank's launches, and the phase's seconds split into
-   spawn, host set-up and run;
+   ``hash``.  C_8 under ``hash`` is driven through a snapshot: ``save`` on
+   the mesh at its middle round, finished, then resumed (at bench size in
+   a fresh mesh driver and by the single-process ``'cuda'`` driver, the
+   real 273.7 MB one reloaded into the same driver).  Both meshes also
+   run the other entry points on them: ``shares_join`` on the logdepth
+   phase's S_5, ``gym_loggta`` on its TC_15 and on the bench C_8,
+   ``acq_mr`` on the bench C_8, a ``JoinServer`` drain of the joinserve
+   phase's bench mix, and one ``int8_allreduce`` of a 2^26-element f32
+   shard a rank.  Every rank's rows, schema, records, retries and output
+   must equal the single-process ``'cuda'`` run at the same p and seed
+   (the gym, wire, logdepth, snapshot and joinserve phases' runs, reused;
+   run here when those phases did not run), each resumed finish the single
+   process' resume, each mesh snapshot file the single-process snapshot at
+   the same cursor array for array, each served ticket and the
+   ``ServerLedger``'s counts the single-process server's, the all-reduce
+   the leading-axis form bit for bit, the NCCL ranks' rows the numpy join
+   too, and every rank must launch every gym kernel its entry point uses,
+   each semijoin probe on its bitmap path.  The gloo ranks start up beside
+   the script's single-process reference runs and drive nothing before
+   those end.  It prints each query's slowest wall and set-up seconds,
+   each rank's share of the wall inside the exchanges and inside the host
+   reads' gathers, each rank's launches, the snapshots' save and load
+   seconds and bytes, the drain's seconds and queries/s, the all-reduce's
+   ms and bytes, and the phase's seconds split into spawn, host set-up
+   and run;
 12. (phase ``lm``) drives the port's LM serving path — ``generate`` over
    ``DecoderLM.prefill`` and ``decode_step`` — on gemma2-9b at full width
    and depth in bf16 with random weights from ``--seed``: a batch of two
@@ -288,6 +306,7 @@ import argparse
 import contextlib
 import dataclasses
 import functools
+import hashlib
 import json
 import os
 import random
@@ -436,18 +455,27 @@ def real_tc(n_tri: int, *, ident: int, extra: int, domain: int, seed: int):
 
 def row_key(a) -> np.ndarray:
     """One int64 per row of the 2-D integer array ``a`` whose order is the
-    rows' lexicographic order (equal rows, equal keys): each column's dense
-    codes (a 1-D ``np.unique``), folded column by column and re-densified
-    before the product could pass 2^62.  ``np.unique(axis=0)`` sorts rows
-    as structured records, several times slower at these sizes."""
+    rows' lexicographic order (equal rows, equal keys): each column's
+    offsets from its minimum (or, where their span would not fit, its
+    dense codes from a 1-D ``np.unique``), folded column by column and
+    re-densified before the product could pass 2^62.  ``np.unique(axis=0)``
+    sorts rows as structured records, several times slower at these sizes."""
     key, size = np.zeros(len(a), np.int64), 1
     for col in np.asarray(a).T:
-        vals, codes = np.unique(col, return_inverse=True)
-        if size * len(vals) >= 2**62:
+        if len(col) == 0:
+            continue
+        lo = int(col.min())
+        span = int(col.max()) - lo + 1
+        if span < 2**31:  # offsets keep the column's order: no sort needed
+            codes = col.astype(np.int64) - lo
+        else:
+            vals, codes = np.unique(col, return_inverse=True)
+            span = len(vals)
+        if size * span >= 2**62:
             dense, key = np.unique(key, return_inverse=True)
             size = len(dense)
-        key = key * len(vals) + codes.reshape(-1)
-        size *= len(vals)
+        key = key * span + codes.reshape(-1)
+        size *= span
     return key
 
 
@@ -457,8 +485,10 @@ def unique_rows(a) -> np.ndarray:
     a = np.asarray(a)
     if len(a) == 0:
         return a
-    _, first = np.unique(row_key(a), return_index=True)
-    return a[first]
+    key = row_key(a)
+    order = np.argsort(key)  # equal keys are equal rows: any one of them will do
+    key = key[order]
+    return a[order[np.concatenate([[True], key[1:] != key[:-1]])]]
 
 
 def np_join(a, a_schema, b, b_schema):
@@ -471,15 +501,20 @@ def np_join(a, a_schema, b, b_schema):
     bk = b[:, [b_schema.index(x) for x in shared]].astype(np.int64)
     codes = row_key(np.concatenate([ak, bk]))
     ca, cb = codes[: len(a)], codes[len(a):]
-    order = np.argsort(cb, kind="stable")
+    order = np.argsort(cb)  # rows come out in any order: callers sort them
     cbs = cb[order]
-    lo = np.searchsorted(cbs, ca, "left")
-    hi = np.searchsorted(cbs, ca, "right")
+    # sorted needles: each search starts where the last one ended
+    oa = np.argsort(ca)
+    lo, hi = np.empty(len(ca), np.int64), np.empty(len(ca), np.int64)
+    lo[oa] = np.searchsorted(cbs, ca[oa], "left")
+    hi[oa] = np.searchsorted(cbs, ca[oa], "right")
     cnt = hi - lo
     ai = np.repeat(np.arange(len(a)), cnt)
     start = np.repeat(lo - np.concatenate([[0], np.cumsum(cnt)[:-1]]), cnt)
     bj = order[start + np.arange(len(ai))]
-    out = np.concatenate([a[ai], b[bj][:, b_keep]], axis=1)
+    out = np.empty((len(ai), a.shape[1] + len(b_keep)), np.result_type(a, b))
+    out[:, :a.shape[1]] = a[ai]
+    out[:, a.shape[1]:] = b[:, b_keep][bj]
     return out, out_schema
 
 
@@ -1325,7 +1360,7 @@ def logdepth_phase(torch, seed: int, audit):
                 "cuda==torch rows+ledger: yes rows==numpy join: yes", flush=True,
             )
             summary[name] = dict(rounds=led.rounds, comm=led.comm_tuples, bag=bag[0], peak=peak,
-                                 cold_s=cold, launches=per_run)
+                                 cold_s=cold, launches=per_run, result=gym_result(rows, schema, led))
     finally:
         bags.restore()
     # the Table-2 query under the one-round Shares baseline
@@ -1346,7 +1381,8 @@ def logdepth_phase(torch, seed: int, audit):
           f"comm={led.comm_tuples} retries={led.retries} cold_s={cold:.4f} "
           f"launches_per_run={per_run} cuda==torch rows+ledger: yes rows==numpy join: yes",
           flush=True)
-    summary["S_5 Shares"] = dict(rounds=led.rounds, comm=led.comm_tuples, launches=per_run)
+    summary["S_5 Shares"] = dict(rounds=led.rounds, comm=led.comm_tuples, launches=per_run,
+                                 result=gym_result(rows, schema, led))
     return summary, totals
 
 
@@ -1975,59 +2011,59 @@ def snapshot_phase(torch, seed: int, audit, gym_summary=None, sizes=("bench", "r
             want = real_answer(seed, "C_8")
             gs = (gym_summary or {}).get("C_8/real")
             if gs is None:  # the gym phase did not run: its query runs here
-                rows, _, led, _ = run_gym(torch, G, q, g, data, "cuda")
-                gs = dict(comm=led.comm_tuples, rounds=led.rounds, retries=led.retries)
+                gs = dict(result=gym_result(*run_gym(torch, G, q, g, data, "cuda")[:3]))
             K.reset_launch_counts()
             audit.reset()
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            drv = G.GymDriver(q, g, data, SPMD(8, device="cuda"), G.GymConfig(seed=23))
-            setup_s = time.perf_counter() - t0
-            n_steps = 1 + len(drv.schedule) // 2  # materialization + half the DYM rounds
-            for _ in range(n_steps):
-                drv.step()
             snap = os.path.join(tmp, "C_8-real.npz")
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            drv.save(snap)
-            save_s = time.perf_counter() - t0
+            # snapshotted at its middle round, finished, and resumed by a fresh
+            # driver: a restart after a fault pays its set-up and the load
+            res = drive_snapshot(SPMD(8, device="cuda"), q, g, data, G.GymConfig(seed=23), snap,
+                                 fresh=True)
             nbytes = os.path.getsize(snap)
-            del drv
-            t0 = time.perf_counter()
-            drv2 = G.GymDriver(q, g, data, SPMD(8, device="cuda"), G.GymConfig(seed=23))
-            setup2_s = time.perf_counter() - t0
-            t0 = time.perf_counter()
-            drv2.load(snap)
-            torch.cuda.synchronize()
-            load_s = time.perf_counter() - t0
-            t0 = time.perf_counter()
-            rows = drv2.run().to_numpy()
-            torch.cuda.synchronize()
-            finish_s = time.perf_counter() - t0
-            led = drv2.ledger
+            digest = snapshot_digest(snap)
             per = {k: K.launch_counts()[k] for k in GYM_KERNELS}
             per.update({f"semijoin_probe/{k}": v for k, v in K.semijoin_probe_path_counts().items()})
             tally()
             audit.check("snapshot C_8 real")
             check(all(per[k] > 0 for k in GYM_KERNELS), f"snapshot C_8 real: a kernel never "
                   f"launched {per}")
-            check(np.array_equal(rows.astype(np.int64), want) and len(want) > 0,
+            first, again, whole = res, res["resumed"], gs["result"]
+            check(same_result(first, whole), "snapshot C_8 real: the snapshotted run's first "
+                  "finish != the gym phase's run")
+            check(np.array_equal(again["rows"].astype(np.int64), want) and len(want) > 0,
                   "snapshot C_8 real: resumed rows != numpy join")
-            check((led.comm_tuples, led.rounds, led.retries) == (gs["comm"], gs["rounds"],
-                                                                  gs["retries"]),
-                  f"snapshot C_8 real: comm/rounds/retries {(led.comm_tuples, led.rounds, led.retries)}"
-                  f" != the uninterrupted run's {(gs['comm'], gs['rounds'], gs['retries'])}")
+            check((again["comm"], again["rounds"], again["retries"])
+                  == (whole["comm"], whole["rounds"], whole["retries"]),
+                  f"snapshot C_8 real: comm/rounds/retries {(again['comm'], again['rounds'])}, "
+                  f"{again['retries']} != the uninterrupted run's")
             print(f"snapshot C_8 real: inputs={sum(len(v) for v in data.values())} "
-                  f"out={led.output_tuples} snapshot after {n_steps} of {len(drv2.schedule) + 1} "
-                  f"steps, bytes={nbytes} save_s={save_s:.4f} load_s={load_s:.4f} "
-                  f"setup_s={setup_s:.4f} / {setup2_s:.4f} (driver, resumed driver) "
-                  f"finish_s={finish_s:.4f} comm={led.comm_tuples} rounds={led.rounds} "
-                  f"retries={led.retries} dispatches={led.measured_dispatches} (uninterrupted: "
-                  f"comm={gs['comm']} rounds={gs['rounds']} retries={gs['retries']}) "
-                  f"launches={per} rows==numpy join: yes", flush=True)
-            summary["C_8/real"] = dict(bytes=nbytes, save_s=save_s, load_s=load_s, launches=per)
-            del drv2
+                  f"out={again['out']} snapshot after {res['steps']} of {len(again['records'])} steps, "
+                  f"bytes={nbytes} save_s={res['save_s']:.4f} resume_s="
+                  f"{res['resume_setup_s'] + res['load_s']:.4f} (a fresh driver's set-up "
+                  f"{res['resume_setup_s']:.4f} + load {res['load_s']:.4f}) wall_s={res['wall_s']:.4f} "
+                  f"(the driver's construction to its first finish, without the save) resumed "
+                  f"finish_s={res['finish_s']:.4f} comm={again['comm']} rounds={again['rounds']} "
+                  f"retries={again['retries']} (uninterrupted: comm={whole['comm']} rounds="
+                  f"{whole['rounds']} retries={whole['retries']}); the first finish == the gym "
+                  f"phase's run (rows, records); launches={per} resumed rows==numpy join: yes",
+                  flush=True)
+            summary["C_8/real"] = dict(bytes=nbytes, save_s=res["save_s"], load_s=res["load_s"],
+                                       resume_setup_s=res["resume_setup_s"],
+                                       launches=per, steps=res["steps"], digest=digest,
+                                       resumed=again)
     return summary, totals
+
+
+def snapshot_digest(path: str):
+    """What two driver snapshots at one cursor must share: the ``meta``
+    less its config (one run may pin the backend that another leaves to
+    the device), and each array's shape, dtype and sha256."""
+    with np.load(path, allow_pickle=False) as z:
+        meta = json.loads(str(z["meta"]))
+        meta.pop("config", None)
+        arrays = {k: (z[k].shape, str(z[k].dtype), hashlib.sha256(z[k].tobytes()).hexdigest())
+                  for k in z.files if k != "meta"}
+    return meta, arrays
 
 
 # ------------------------------------------------------ joinserve phase
@@ -2045,7 +2081,7 @@ def zipf_mix(names, n, *, s: float = 1.5, seed: int = 0):
     return [names[i] for i in rng.choice(len(names), size=n, p=w / w.sum())]
 
 
-def solo_profile(torch, q, g, data):
+def solo_profile(torch, q, g, data, rows_back: bool = True):
     """One standalone real-size 'cuda' run driven through ``step_gen`` with
     a synchronize around every payload dispatch: its comm, dispatches and
     seconds, the most device bytes it holds between steps (``live``), and
@@ -2053,7 +2089,8 @@ def solo_profile(torch, q, g, data):
     materialization (``mat``), a DYM round's payload dispatches
     (``payload``, the only work the join server merges across queries)
     and the rest of a round (``other``: measure pre-passes, caps, the
-    final projection)."""
+    final projection).  ``rows_back`` reads the answer back to the host,
+    as ``gym()`` does, for seconds that stand in for the gym phase's."""
     from repro_torch.core import gym as G
     from repro_torch.core.physical import dispatch_work
     from repro_torch.relational.spmd import SPMD
@@ -2086,23 +2123,26 @@ def solo_profile(torch, q, g, data):
             more = stop.value
         grew(part, before)
         live = max(live, torch.cuda.memory_allocated() - base)
-    drv.result.to_numpy()
+    if rows_back:
+        drv.result.to_numpy()
     secs = time.perf_counter() - t0
     led = drv.ledger
     return dict(comm=led.comm_tuples, dispatches=led.measured_dispatches, warm_s=secs,
                 live=live, **grown)
 
 
-def serve(torch, fams, mix, backend, max_in_flight):
+def serve(torch, fams, mix, backend, max_in_flight, spmd=None):
     """Submit the whole mix at tick 0 to a fresh server (shared caps cache)
-    on the card and drain it.  Returns (server, tickets, wall seconds,
-    seconds at the end of each tick)."""
+    on ``spmd`` (default: 8 reducers simulated on the card; a mesh rank's
+    serves collectively) and drain it.  Returns (server, tickets, wall
+    seconds, seconds at the end of each tick)."""
     from repro_torch.core.caps_cache import CapsCache
     from repro_torch.core.gym import GymConfig
     from repro_torch.relational.spmd import SPMD
     from repro_torch.serve import JoinServer
 
-    srv = JoinServer(SPMD(8, device="cuda"), max_in_flight=max_in_flight, caps_cache=CapsCache())
+    srv = JoinServer(spmd or SPMD(8, device="cuda"), max_in_flight=max_in_flight,
+                     caps_cache=CapsCache())
     tickets = [srv.submit(f"tenant-{i}:{name}", *fams[name],
                           GymConfig(strategy="hash", seed=23, local_backend=backend))
                for i, name in enumerate(mix)]
@@ -2115,6 +2155,27 @@ def serve(torch, fams, mix, backend, max_in_flight):
         done_at[srv.tick] = time.perf_counter() - t0
     torch.cuda.synchronize()
     return srv, tickets, time.perf_counter() - t0, done_at
+
+
+def ticket_state(t):
+    """What a served ticket must reproduce: rows, schema, records, retries,
+    admit and finish ticks."""
+    return (t.rows(), tuple(t.result.schema), [dataclasses.asdict(r) for r in t.ledger.records],
+            t.ledger.retries, t.admit_tick, t.finish_tick)
+
+
+def server_state(srv, tickets) -> dict:
+    """A drained server's state: every ticket's, and the ``ServerLedger``'s
+    counts and the server's ticks (the same on every rank of a mesh)."""
+    return dict(tickets=[ticket_state(t) for t in tickets], ledger=srv.ledger.summary(),
+                ticks=srv.tick)
+
+
+def same_server(a: dict, b: dict) -> bool:
+    return (len(a["tickets"]) == len(b["tickets"])
+            and all(np.array_equal(x[0], y[0]) and x[1:] == y[1:]
+                    for x, y in zip(a["tickets"], b["tickets"]))
+            and (a["ledger"], a["ticks"]) == (b["ledger"], b["ticks"]))
 
 
 def joinserve_phase(torch, seed: int, audit, gym_summary=None, sizes=("bench", "real")):
@@ -2137,11 +2198,6 @@ def joinserve_phase(torch, seed: int, audit, gym_summary=None, sizes=("bench", "
         for k, v in per.items():
             totals[k] += v
         return res, per
-
-    def ticket_state(t):
-        return (t.rows(), tuple(t.result.schema),
-                [dataclasses.asdict(r) for r in t.ledger.records], t.ledger.retries,
-                t.admit_tick, t.finish_tick)
 
     def pct(xs, p):
         return float(np.percentile(np.asarray(xs, np.float64), p))
@@ -2183,13 +2239,16 @@ def joinserve_phase(torch, seed: int, audit, gym_summary=None, sizes=("bench", "
               f"comm={led.comm_tuples} launches={per} cuda server == torch server per ticket "
               f"(rows, schema, records, ticks) and ServerLedger: yes; every ticket == its "
               f"standalone gym() (rows, comm): yes", flush=True)
-        summary["bench"] = dict(saved=led.dispatches_saved, launches=per)
+        summary["bench"] = dict(saved=led.dispatches_saved, launches=per,
+                                state=server_state(srv, tickets))
         del srv, tickets, tsrv, ttickets
     if "real" in sizes:
         fams = families(seed, True)
         # one solo run a family, stepped by hand, gives the memory terms
-        prof = {f: solo_profile(torch, *fams[f]) for f in sorted(set(mix))}
-        stats = {f: (gym_summary or {}).get(f"{f}/real") or prof[f] for f in prof}
+        gs = {f: (gym_summary or {}).get(f"{f}/real") for f in sorted(set(mix))}
+        # the gym phase's runs, when it ran, give the seconds; the profiles the memory terms
+        prof = {f: solo_profile(torch, *fams[f], rows_back=gs[f] is None) for f in gs}
+        stats = {f: gs[f] or prof[f] for f in prof}
         total = torch.cuda.get_device_properties(0).total_memory
         base = peak_reset(torch)
         counts = {f: mix.count(f) for f in prof}
@@ -2261,18 +2320,36 @@ MESH_P = 8
 # hash run (and the gym phase's, at real size)
 MESH_ENGINES = {"hash": {}, "grid": dict(strategy="grid"), "hybrid": dict(strategy="hybrid"),
                 "packed": dict(wire_format="packed")}
+# the other entry points the mesh phase drives, at the sizes of the phases
+# whose single-process runs each rank is held to (logdepth, joinserve)
+MESH_ENTRIES = ("S_5 shares_join", "TC_15 gym_loggta", "C_8 gym_loggta", "C_8 acq_mr",
+                "joinserve bench", "int8_allreduce")
+# the gym kernels an entry launches: Shares has no semijoin, the
+# all-reduce no gym kernel
+ENTRY_KERNELS = {"S_5 shares_join": ("hash_partition", "sorted_probe_ranges"),
+                 "int8_allreduce": ()}
+# the elements of each rank's shard of the int8 all-reduce (f32)
+MESH_ALLREDUCE_N = 2**26
 
 
 def gym_result(rows, schema, led) -> dict:
     """What a mesh rank must reproduce of a run: rows (in order), schema,
     every ``RoundRecord``, retries and the output count."""
     return dict(rows=rows, schema=tuple(schema), records=[dataclasses.asdict(r) for r in led.records],
-                retries=led.retries, out=led.output_tuples)
+                retries=led.retries, out=led.output_tuples, comm=led.comm_tuples, rounds=led.rounds)
 
 
 def same_result(a: dict, b: dict) -> bool:
     return (np.array_equal(a["rows"], b["rows"]) and a["schema"] == b["schema"]
             and a["records"] == b["records"] and (a["retries"], a["out"]) == (b["retries"], b["out"]))
+
+
+def same_entry(name: str, a: dict, b: dict) -> bool:
+    if name == "joinserve bench":
+        return same_server(a, b)
+    if name == "int8_allreduce":
+        return a["digest"] == b["digest"] and a["finite"] and b["finite"]
+    return same_result(a, b)
 
 
 @contextlib.contextmanager
@@ -2307,84 +2384,218 @@ def mesh_timers(spent: dict):
             setattr(cls, attr, fn)
 
 
-def mesh_rank(mesh, seed: int, cases, real):
+def drive_snapshot(spmd, q, g, data, cfg, snap: str, fresh: bool) -> dict:
+    """Drive a query with ``step()`` through materialization and half its
+    DYM rounds, ``save`` it to ``snap`` (collective on a mesh), finish it,
+    then resume the snapshot and finish again: in a fresh driver when
+    ``fresh``, else in the same one (which spares a real query's host
+    dedup).  Returns the first finish's ``gym_result``, the resumed
+    finish's (``resumed``: its rows equal the first's, its padding figures
+    may not, since a resumed run measures again what the first one had
+    prefetched), and the seconds: to the first finish without the save
+    (``wall_s``), of the save, of the fresh driver's construction
+    (``resume_setup_s``, 0 without one), of the load and of the resumed
+    finish."""
+    import torch
+    from repro_torch.core import gym as G
+
+    def finish(drv):
+        out = drv.run()
+        return gym_result(out.to_numpy(spmd), out.schema, drv.ledger)
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    drv = G.GymDriver(q, g, data, spmd, cfg)
+    steps = 1 + len(drv.schedule) // 2
+    for _ in range(steps):
+        drv.step()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    drv.save(snap)
+    t2 = time.perf_counter()
+    first = finish(drv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0 - (t2 - t1)
+    t3 = time.perf_counter()
+    if fresh:
+        drv = G.GymDriver(q, g, data, spmd, cfg)
+    torch.cuda.synchronize()
+    resume_setup = time.perf_counter() - t3
+    t3 = time.perf_counter()
+    drv.load(snap)
+    torch.cuda.synchronize()
+    t4 = time.perf_counter()
+    again = finish(drv)
+    torch.cuda.synchronize()
+    return dict(first, resumed=again, steps=steps, wall_s=wall, save_s=t2 - t1,
+                resume_setup_s=resume_setup, load_s=t4 - t3, finish_s=time.perf_counter() - t4)
+
+
+def mesh_entry(name: str, spmd, seed: int) -> dict:
+    """One entry point of ``MESH_ENTRIES`` on ``spmd``: a mesh rank's
+    ``SPMD(p, mesh=...)``, or the single-process ``SPMD(p, device="cuda")``
+    each rank is held to.  The log-depth runs are the logdepth phase's
+    (p = 8, seed 23; Shares seed 2), C_8 the bench family, the server the
+    joinserve phase's bench mix; the all-reduce adds a ``MESH_ALLREDUCE_N``
+    f32 shard a rank (seeded by the rank; the single-process form stacks
+    them all) and returns its result's digest."""
+    import torch
+    from repro_torch.core import acq_mr as A
+    from repro_torch.core import gym as G
+    from repro_torch.core import queries as Q
+    from repro_torch.core import shares as S
+    from repro_torch.data import synthetic as D
+
+    if name == "S_5 shares_join":
+        return gym_result(*S.shares_join(Q.star_query(5), D.star_data_sparse(5, seed=1), seed=2,
+                                         spmd=spmd))
+    if name == "TC_15 gym_loggta":
+        data = D.tc_data_sparse(5, domain=128, ident=32, extra=96, seed=22)
+        cfg = G.GymConfig(seed=23, local_backend="cuda", max_cap_tuples=LOGDEPTH_MAX_CAP)
+        return gym_result(*A.gym_loggta(Q.triangle_chain_query(5), data,
+                                        ghd=Q.triangle_chain_ghd(5), spmd=spmd, config=cfg))
+    if name in ("C_8 gym_loggta", "C_8 acq_mr"):
+        q, g, data = families(seed, False)["C_8"]
+        fn = A.gym_loggta if name == "C_8 gym_loggta" else A.acq_mr
+        return gym_result(*fn(q, data, ghd=g, spmd=spmd,
+                              config=G.GymConfig(seed=23, local_backend="cuda")))
+    if name == "joinserve bench":
+        srv, tickets, secs, _ = serve(torch, families(seed, False), zipf_mix(["S_8", "C_8", "TC_9"], 8),
+                                      "cuda", SERVE_MAX_IN_FLIGHT, spmd=spmd)
+        return dict(server_state(srv, tickets), drain_s=secs)
+    assert name == "int8_allreduce", name
+    from repro_torch.train.compression import int8_allreduce
+
+    def shard(r):
+        gen = torch.Generator(device=spmd.device).manual_seed(1000 * seed + r)
+        return torch.randn(MESH_ALLREDUCE_N, generator=gen, device=spmd.device)
+
+    x = shard(spmd.rank) if spmd.mesh is not None else torch.stack([shard(r) for r in range(spmd.p)])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    y = int8_allreduce(x, group=spmd.mesh) if spmd.mesh is not None else int8_allreduce(x)[0]
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0)
+    return dict(digest=hashlib.sha256(y.cpu().numpy().tobytes()).hexdigest(),
+                finite=bool(torch.isfinite(y).all()), ms=ms,
+                wire_bytes=y.numel() * 4 + 4)  # the int32 sum's buffer and the scale
+
+
+def mesh_rank(mesh, seed: int, cases, real, entries=(), snaps=None, go=None):
     """One reducer of the mesh phase: ``gym(..., spmd=SPMD(p,
     mesh=mesh))`` with the 'cuda' backend on each case (fam, size,
-    engine), ``real`` holding each real-size family's query, GHD and the
-    ``.npz`` its data was saved to (a spawned process' arguments cross a
-    pipe the parent blocks on while the child imports).  Returns when the
-    rank was ready (wall clock) and per case the run's result, its wall
-    seconds, the seconds of ``GymDriver``'s host set-up, of the exchanges
-    and of the host reads (``mesh_timers``), and the gym kernels'
-    launches."""
+    engine), a case in ``snaps`` driven by ``drive_snapshot`` to the file
+    it names (the bench size resumed in a fresh driver, the real one in the
+    same driver), then each of ``entries`` (``mesh_entry``).  ``real``
+    holds each real-size family's query, GHD and the ``.npz`` its data was
+    saved to (a spawned process' arguments cross a pipe the parent blocks
+    on while the child imports).  Returns when the rank was ready (wall
+    clock) and per case the run's result, its wall seconds, the seconds of
+    ``GymDriver``'s host set-up, of the exchanges and of the host reads
+    (``mesh_timers``) over all of the case's work, and the gym kernels'
+    launches.  With ``go``, the rank first waits for that file: it drives
+    the cases if the file says "run", and nothing otherwise."""
     import torch
     from repro_torch.core import gym as G
     from repro_torch.kernels import ops as K
+    from repro_torch.launch.mesh import COLLECTIVE_TIMEOUT_S
     from repro_torch.relational import spmd as S
 
     ready = time.time()
+    if go is not None:  # waited for as long as a collective
+        deadline = time.monotonic() + COLLECTIVE_TIMEOUT_S
+        while not os.path.exists(go):  # published by an atomic rename
+            check(time.monotonic() < deadline, f"mesh rank: no {go} after {COLLECTIVE_TIMEOUT_S} s")
+            time.sleep(0.01)
+        with open(go) as f:
+            if f.read() != "run":
+                return dict(ready=ready, cases={})
     p = mesh.size(0)
+    snaps = snaps or {}
     spent = {}
     out = {}
     with mesh_timers(spent):
-        for fam, size, engine in cases:
-            if size == "real":
-                q, g, path = real[fam]
-                with np.load(path) as z:
-                    data = {k: z[k] for k in z.files}
-            else:
-                q, g, data = families(seed, False)[fam]
-            cfg = G.GymConfig(seed=23, local_backend="cuda", **MESH_ENGINES[engine])
+        for case in list(cases) + list(entries):
             spent.update(exchange_s=0.0, gather_s=0.0, setup_s=0.0)
             K.reset_launch_counts()
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            rows, schema, led = G.gym(q, data, ghd=g, spmd=S.SPMD(p, mesh=mesh), config=cfg)
+            spmd = S.SPMD(p, mesh=mesh)
+            if isinstance(case, str):
+                res = mesh_entry(case, spmd, seed)
+            else:
+                fam, size, engine = case
+                if size == "real":
+                    q, g, path = real[fam]
+                    with np.load(path) as z:
+                        data = {k: z[k] for k in z.files}
+                else:
+                    q, g, data = families(seed, False)[fam]
+                cfg = G.GymConfig(seed=23, local_backend="cuda", **MESH_ENGINES[engine])
+                if case in snaps:
+                    res = drive_snapshot(spmd, q, g, data, cfg, snaps[case], fresh=size == "bench")
+                else:
+                    res = gym_result(*G.gym(q, data, ghd=g, spmd=spmd, config=cfg))
+                check(sum(K.launch_counts()[k] for k in WIRE_KERNELS) == 0 or engine == "packed",
+                      "a dense mesh run launched the codec")
             torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
+            elapsed = time.perf_counter() - t0
             launches = {k: K.launch_counts()[k] for k in GYM_KERNELS}
             launches.update({f"semijoin_probe/{k}": v for k, v in K.semijoin_probe_path_counts().items()})
-            check(sum(K.launch_counts()[k] for k in WIRE_KERNELS) == 0 or engine == "packed",
-                  "a dense mesh run launched the codec")
-            out[(fam, size, engine)] = dict(gym_result(rows, schema, led), wall_s=wall,
-                                            launches=launches, **spent)
+            out[case] = dict(res, launches=launches, elapsed_s=elapsed, **spent)
+            out[case].setdefault("wall_s", elapsed)
     return dict(ready=ready, cases=out)
 
 
-def nccl_here(seed: int, cases):
+def nccl_here(seed: int, cases, entries, snaps):
     """The NCCL mesh of a one-card machine, p = 1, in this process: a
     real NCCL communicator through ``make_reducer_mesh`` over a group of
     one rank (a store in a temporary directory), without the seconds a
     new process takes to reach the card."""
+    import datetime
+
     import torch.distributed as dist
-    from repro_torch.launch.mesh import make_reducer_mesh
+    from repro_torch.launch.mesh import COLLECTIVE_TIMEOUT_S, make_reducer_mesh
 
     tmp = tempfile.mkdtemp(prefix="nccl-mesh-")
     w0 = time.time()
-    dist.init_process_group("nccl", store=dist.FileStore(os.path.join(tmp, "store"), 1),
-                            rank=0, world_size=1)
+    dist.init_process_group("nccl", store=dist.FileStore(os.path.join(tmp, "store"), 1), rank=0,
+                            world_size=1, timeout=datetime.timedelta(seconds=COLLECTIVE_TIMEOUT_S))
     try:
-        res = mesh_rank(make_reducer_mesh(1, "cuda"), seed, cases, {})
+        res = mesh_rank(make_reducer_mesh(1, "cuda"), seed, cases, {}, entries, snaps)
     finally:
         dist.destroy_process_group()
         shutil.rmtree(tmp, ignore_errors=True)
     return [res], w0
 
 
-def mesh_phase(torch, seed: int, gym_summary=None, wire_summary=None, sizes=("bench", "real")):
+def mesh_phase(torch, seed: int, gym_summary=None, wire_summary=None, sizes=("bench", "real"),
+               logdepth_summary=None, snapshot_summary=None, joinserve_summary=None):
     """The gym's production runtime (see the module doc): ``MESH_P`` gloo
     ranks sharing the card, then an NCCL mesh over every visible card,
-    one after the other.  Returns the gym kernels' launches summed over
-    the ranks' runs."""
+    one after the other.  The gloo ranks are spawned first and start up
+    beside this process' single-process reference runs; they drive nothing
+    before those have finished.  Returns the gym kernels' launches summed
+    over the ranks' runs."""
+    import threading
+
     from repro_torch.core import gym as G
     from repro_torch.launch.mesh import spawn_reducers
+    from repro_torch.relational.spmd import SPMD
 
     cases = []
     if "bench" in sizes:
         cases += [(fam, "bench", e) for fam in ("S_8", "C_8", "TC_9") for e in MESH_ENGINES]
     if "real" in sizes:
         cases.append(("C_8", "real", "hash"))
+    entries = MESH_ENTRIES if "bench" in sizes else ()
     real = {"C_8": families(seed, True)["C_8"]} if "real" in sizes else {}
+
+    def fam_data(fam, size):
+        return real[fam] if size == "real" else families(seed, False)[fam]
+
+    def config(engine):
+        return G.GymConfig(seed=23, local_backend="cuda", **MESH_ENGINES[engine])
 
     def single(fam, size, engine, p):
         """The single-process 'cuda' run a mesh case is held to: the gym or
@@ -2397,52 +2608,128 @@ def mesh_phase(torch, seed: int, gym_summary=None, wire_summary=None, sizes=("be
             wkey = f"{fam}/bench/{'hash' if engine == 'packed' else engine}"
             if wire_summary and wkey in wire_summary:
                 return wire_summary[wkey]["packed" if engine == "packed" else "dense"]
-        q, g, data = real[fam] if size == "real" else families(seed, False)[fam]
-        cfg = G.GymConfig(seed=23, local_backend="cuda", **MESH_ENGINES[engine])
-        return gym_result(*G.gym(q, data, ghd=g, p=p, config=cfg, device="cuda"))
+        q, g, data = fam_data(fam, size)
+        return gym_result(*G.gym(q, data, ghd=g, p=p, config=config(engine), device="cuda"))
+
+    def single_entry(name, p):
+        """The single-process 'cuda' run an entry is held to: the logdepth
+        or joinserve phase's when it ran at this p, else run here."""
+        reused = {"S_5 shares_join": (logdepth_summary, "S_5 Shares", "result"),
+                  "TC_15 gym_loggta": (logdepth_summary, "TC_15 Log-GTA (gym_loggta)", "result"),
+                  "joinserve bench": (joinserve_summary, "bench", "state")}.get(name)
+        if p == MESH_P and reused and reused[0] and reused[1] in reused[0]:
+            return reused[0][reused[1]][reused[2]]
+        return mesh_entry(name, SPMD(p, device="cuda"), seed)
+
+    def single_snapshot(backend, p, c, path):
+        """The single-process snapshot at a snapshot-driven case's cursor
+        (its digest) and the single process' resume of it: the snapshot
+        phase's for the real C_8 when it ran, else ``drive_snapshot`` here."""
+        fam, size, engine = c
+        ss = (snapshot_summary or {}).get("C_8/real")
+        if size == "real" and p == MESH_P and ss:
+            return ss["digest"], ss["resumed"], "the snapshot phase's"
+        q, g, data = fam_data(fam, size)
+        one = drive_snapshot(SPMD(p, device="cuda"), q, g, data, config(engine), path + ".single.npz",
+                             fresh=size == "bench")
+        check(same_result(one, want[(backend, p)][c]),
+              f"mesh {backend} p={p} {' '.join(c)}: the single process' snapshot-driven run != "
+              "its gym() run")
+        return snapshot_digest(path + ".single.npz"), one["resumed"], "one made here"
 
     totals = {k: 0 for k in GYM_KERNELS}
     totals.update({"semijoin_probe/bitmap": 0, "semijoin_probe/hash": 0})
     n_cards = torch.cuda.device_count()
     meshes = (("gloo", MESH_P, cases),
               ("nccl", n_cards, [c for c in cases if c[1] == "bench" and c[2] == "hash"]))
-    want = {(b, p): {c: single(*c, p) for c in pc} for b, p, pc in meshes}
-
     tmp = tempfile.mkdtemp(prefix="mesh-phase-")
+    go = os.path.join(tmp, "go")
+    real_files = {fam: (q, g, os.path.join(tmp, f"{fam}.npz")) for fam, (q, g, _) in real.items()}
+    # C_8 under hash is driven through a snapshot at its middle round
+    snaps = {(b, p): {c: os.path.join(tmp, f"{b}-{'-'.join(c)}.npz") for c in pc
+                      if c[0] == "C_8" and c[2] == "hash"} for b, p, pc in meshes}
+    runs = []
     try:
-        real_files = {}
-        for fam, (q, g, data) in real.items():
-            real_files[fam] = (q, g, os.path.join(tmp, f"{fam}.npz"))
-            np.savez(real_files[fam][2], **data)
+        # the ranks share the card: hand back what this process' allocator
+        # keeps cached from the earlier phases (the join server's ~70 GB)
+        torch.cuda.empty_cache()
+        box = {}
+
+        def launch():
+            try:
+                box["res"] = spawn_reducers(
+                    mesh_rank, MESH_P, backend="gloo", device_type="cuda",
+                    args=(seed, cases, real_files, entries, snaps[("gloo", MESH_P)], go))
+            except Exception as e:  # raised below, in this thread
+                box["error"] = e
+
+        w0 = time.time()
+        t_spawn = time.perf_counter()
+        spawner = threading.Thread(target=launch)
+        spawner.start()
+        signal = "stop"
+        try:
+            for fam, (q, g, data) in real.items():
+                np.savez(real_files[fam][2], **data)
+            want = {(b, p): {c: single(*c, p) for c in pc} for b, p, pc in meshes}
+            want.update({(b, p, "entries"): {e: single_entry(e, p) for e in entries}
+                         for b, p, _ in meshes})
+            refs = {(b, p, c): single_snapshot(b, p, c, path)
+                    for b, p, _ in meshes for c, path in snaps[(b, p)].items()}
+            torch.cuda.synchronize()
+            signal = "run"
+        finally:  # a rank drives nothing until it reads "run"
+            with open(go + ".tmp", "w") as f:
+                f.write(signal)
+            os.replace(go + ".tmp", go)
+            t_go = time.perf_counter()
+            spawner.join()
+        if "error" in box:
+            raise box["error"]
+        res = box["res"]
+        runs.append((res, time.perf_counter() - t_go, max(r["ready"] for r in res) - w0,
+                     t_go - t_spawn))
         # one mesh at a time, so neither one's figures carry the other's load
-        runs = []
-        for backend, p, pcases in meshes:
+        for backend, p, pcases in meshes[1:]:
+            torch.cuda.empty_cache()
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            if backend == "nccl" and p == 1:
-                res, w0 = nccl_here(seed, pcases)
+            if p == 1:
+                res, w1 = nccl_here(seed, pcases, entries, snaps[(backend, p)])
             else:
-                w0 = time.time()
+                w1 = time.time()
                 res = spawn_reducers(mesh_rank, p, backend=backend, device_type="cuda",
-                                     args=(seed, pcases, real_files))
-            runs.append((res, time.perf_counter() - t0, max(r["ready"] for r in res) - w0))
+                                     args=(seed, pcases, real_files, entries, snaps[(backend, p)]))
+            runs.append((res, time.perf_counter() - t0, max(r["ready"] for r in res) - w1, 0.0))
+        resumed, snap_notes = mesh_snapshot_checks(meshes, snaps, refs, fam_data, config)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    for (backend, p, pcases), (res, total, spawn_s) in zip(meshes, runs):
+    for (backend, p, pcases), (res, total, spawn_s, prep_s) in zip(meshes, runs):
         setup_s = run_s = 0.0
-        for c in pcases:
+        for c in list(pcases) + list(entries):
             per = [r["cases"][c] for r in res]
-            name = f"mesh {backend} p={p} {' '.join(c)}"
+            label = c if isinstance(c, str) else " ".join(c)
+            name = f"mesh {backend} p={p} {label}"
+            kernels = ENTRY_KERNELS.get(c, GYM_KERNELS) if isinstance(c, str) else GYM_KERNELS
             for rank, got in enumerate(per):
-                check(same_result(got, want[(backend, p)][c]),
-                      f"{name}: rank {rank} differs from the single-process 'cuda' run")
-                check(all(got["launches"][k] > 0 for k in GYM_KERNELS),
-                      f"{name}: rank {rank} never launched a kernel {got['launches']}")
+                if isinstance(c, str):
+                    check(same_entry(c, got, want[(backend, p, "entries")][c]),
+                          f"{name}: rank {rank} differs from the single-process 'cuda' run")
+                else:
+                    check(same_result(got, want[(backend, p)][c]),
+                          f"{name}: rank {rank} differs from the single-process 'cuda' run")
+                    if "resumed" in got:
+                        check(same_result(got["resumed"], resumed[(backend, p, c)]),
+                              f"{name}: rank {rank}'s resumed finish differs from the single "
+                              "process' resume of its snapshot")
+                check(all(got["launches"][k] > 0 for k in kernels)
+                      and (kernels or sum(got["launches"][k] for k in GYM_KERNELS) == 0),
+                      f"{name}: rank {rank} launches {got['launches']}, want every one of {kernels}")
                 check(got["launches"]["semijoin_probe/hash"] == 0,
                       f"{name}: rank {rank}: a semijoin_probe launch took the hash path")
                 for k, v in got["launches"].items():
                     totals[k] += v
-            if backend == "nccl":  # held to the numpy join too, not only to the program
+            if backend == "nccl" and not isinstance(c, str):  # held to the numpy join too
                 q, _, data = families(seed, False)[c[0]]
                 check(all(np.array_equal(x["rows"].astype(np.int64), np_answer(q, data)) for x in per),
                       f"{name}: rows != numpy join")
@@ -2450,22 +2737,78 @@ def mesh_phase(torch, seed: int, gym_summary=None, wire_summary=None, sizes=("be
             setup = max(x["setup_s"] for x in per)
             setup_s += setup
             run_s += wall - setup
-            share = [round(x["exchange_s"] / x["wall_s"], 4) for x in per]
-            gshare = [round(x["gather_s"] / x["wall_s"], 4) for x in per]
-            led_recs = per[0]["records"]
-            print(f"{name}: out={per[0]['out']} records={len(led_recs)} retries={per[0]['retries']} "
-                  f"wall_s={wall:.4f} setup_s={setup:.4f} exchange_share per rank={share} "
+            share = [round(x["exchange_s"] / x["elapsed_s"], 4) for x in per]
+            gshare = [round(x["gather_s"] / x["elapsed_s"], 4) for x in per]
+            x0 = per[0]
+            if c == "joinserve bench":
+                drain = max(x["drain_s"] for x in per)
+                what = (f"tickets={len(x0['tickets'])} ticks={x0['ticks']} drain_s (slowest rank)="
+                        f"{drain:.4f} queries_per_s={len(x0['tickets']) / drain:.4f} "
+                        f"dispatches_saved={x0['ledger']['dispatches_saved']} fused_dispatches="
+                        f"{x0['ledger']['fused_dispatches']}; every ticket and the ServerLedger's "
+                        f"counts equal on every rank and the single-process 'cuda' server's: yes")
+            elif c == "int8_allreduce":
+                what = (f"elements a rank={MESH_ALLREDUCE_N} ms per rank="
+                        f"{[round(x['ms'], 3) for x in per]} bytes a rank hands the two all_reduces="
+                        f"{x0['wire_bytes']}; every rank's result == the leading-axis form's, bit "
+                        f"for bit (sha256): yes")
+            else:
+                what = f"out={x0['out']} records={len(x0['records'])} retries={x0['retries']}"
+                if "steps" in x0:
+                    what += (f" snapshot after {x0['steps']} steps: save_s="
+                             f"{max(x['save_s'] for x in per):.4f} load_s="
+                             f"{max(x['load_s'] for x in per):.4f} resumed finish_s="
+                             f"{max(x['finish_s'] for x in per):.4f} "
+                             f"({'a fresh driver' if c[1] == 'bench' else 'the same driver'}); "
+                             f"{snap_notes[(backend, p, c)]}")
+                what += "; every rank == single-process 'cuda' (rows, schema, records, ledger): yes"
+                if backend == "nccl" and not isinstance(c, str):
+                    what += " rows==numpy join: yes"
+            print(f"{name}: wall_s={wall:.4f} setup_s={setup:.4f} exchange_share per rank={share} "
                   f"gather_share per rank={gshare} launches per rank="
-                  f"{[[x['launches'][k] for k in GYM_KERNELS] for x in per]} "
-                  f"every rank == single-process 'cuda' (rows, schema, records, ledger): yes"
-                  + (" rows==numpy join: yes" if backend == "nccl" else ""),
-                  flush=True)
+                  f"{[[x['launches'][k] for k in GYM_KERNELS] for x in per]} {what}", flush=True)
         how = ("in this process, one rank" if backend == "nccl" and p == 1
                else "spawned; the rest is collecting results and stopping the ranks")
-        print(f"mesh {backend} p={p}: {len(pcases)} queries, mesh_s={total:.2f} spawn_s={spawn_s:.2f} "
-              f"host_setup_s={setup_s:.2f} run_s={run_s:.2f} (slowest rank each query; {how}; "
-              f"alone on the card)", flush=True)
+        print(f"mesh {backend} p={p}: {len(pcases)} queries and {len(entries)} other entry points, "
+              f"mesh_s={total:.2f} spawn_s={spawn_s:.2f} (beside {prep_s:.2f} s of this process' "
+              f"reference runs) host_setup_s={setup_s:.2f} run_s={run_s:.2f} (slowest rank each; "
+              f"{how}; alone on the card)", flush=True)
     return totals
+
+
+def mesh_snapshot_checks(meshes, snaps, refs, fam_data, config):
+    """Each mesh snapshot against the single process (``refs``: its
+    snapshot's digest and resumed result a case): the file equal, array for
+    array and in ``meta`` less the config, to the single-process snapshot
+    at the same cursor, and at bench size resumed by the single-process
+    'cuda' driver as the single process resumes its own.  Returns the
+    single process' resumed result and a note a case."""
+    from repro_torch.core import gym as G
+    from repro_torch.relational.spmd import SPMD
+
+    resumed, notes = {}, {}
+    for backend, p, _ in meshes:
+        for c, path in snaps[(backend, p)].items():
+            fam, size, engine = c
+            name = f"mesh {backend} p={p} {' '.join(c)}"
+            digest, mine, whose = refs[(backend, p, c)]
+            check(snapshot_digest(path) == digest,
+                  f"{name}: the mesh snapshot != {whose} single-process snapshot")
+            resumed[(backend, p, c)] = mine
+            notes[(backend, p, c)] = (
+                f"bytes={os.path.getsize(path)}, == {whose} single-process snapshot at the same "
+                "cursor array for array and in meta; every rank's resumed finish == the single "
+                "process' resume")
+            if size == "bench":
+                q, g, data = fam_data(fam, size)
+                drv = G.GymDriver(q, g, data, SPMD(p, device="cuda"), config(engine))
+                drv.load(path)
+                out = drv.run()
+                check(same_result(gym_result(out.to_numpy(), out.schema, drv.ledger), mine),
+                      f"{name}: the mesh snapshot resumed in one process != the single process' "
+                      "resume of its own")
+                notes[(backend, p, c)] += ", and so is the mesh snapshot's in one process"
+    return resumed, notes
 
 
 def _visible(torch, sq, sk, causal, window, dev):
@@ -4706,6 +5049,7 @@ def main(argv=None) -> int:
             profile_queries(torch, args.seed, fams, args.profile_out)
     wire_recorded = None
     wire_summary = None
+    path_summary = {}  # the logdepth, snapshot and joinserve phases' runs, for the mesh phase
     for path in ("grid", "skew", "logdepth", "wire", "snapshot", "joinserve"):
         if path not in phases:
             continue
@@ -4724,13 +5068,13 @@ def main(argv=None) -> int:
                 wire_summary, launches, wire_recorded = wire_phase(
                     torch, args.seed, audit, summary, tuple(args.sizes.split(",")))
             elif path == "snapshot":
-                _, launches = snapshot_phase(torch, args.seed, audit, summary,
-                                             tuple(args.sizes.split(",")))
+                path_summary[path], launches = snapshot_phase(torch, args.seed, audit, summary,
+                                                              tuple(args.sizes.split(",")))
             elif path == "joinserve":
-                _, launches = joinserve_phase(torch, args.seed, audit, summary,
-                                              tuple(args.sizes.split(",")))
+                path_summary[path], launches = joinserve_phase(torch, args.seed, audit, summary,
+                                                               tuple(args.sizes.split(",")))
             else:
-                _, launches = logdepth_phase(torch, args.seed, audit)
+                path_summary[path], launches = logdepth_phase(torch, args.seed, audit)
         finally:
             audit.restore()
         print(f"{path} path launches (cuda runs): {launches}; phase {time.perf_counter() - t0:.1f} s",
@@ -4740,12 +5084,14 @@ def main(argv=None) -> int:
         by_path[path] = launches
     if "mesh" in phases:
         t0 = time.perf_counter()
-        launches = mesh_phase(torch, args.seed, summary, wire_summary, tuple(args.sizes.split(",")))
+        launches = mesh_phase(torch, args.seed, summary, wire_summary, tuple(args.sizes.split(",")),
+                              path_summary.get("logdepth"), path_summary.get("snapshot"),
+                              path_summary.get("joinserve"))
         print(f"mesh path launches (every rank's 'cuda' runs, both meshes): {launches}; phase "
               f"{time.perf_counter() - t0:.1f} s", flush=True)
         check(all(launches[k] > 0 for k in GYM_KERNELS), f"mesh: a kernel never launched: {launches}")
         by_path["mesh"] = launches
-    del wire_summary
+    del wire_summary, path_summary
     if wire_recorded is not None:
         kernels += wire_timing(torch, wire_recorded, by_path["wire"], args.reps)
         del wire_recorded

@@ -7,7 +7,9 @@ O(n B(IN^{3w} + OUT, M)) communication — always matched, and sometimes
 beaten, by GYM(Log-GTA) whose new vertices only need max(w, 3iw) relations.
 
 Both entry points run on the CUDA card unless the caller passes
-``device="cpu"``, as ``gym()`` does.
+``device="cpu"``, as ``gym()`` does, or on a device mesh with
+``spmd=SPMD(p, mesh=...)``, one process a reducer (every rank calls with
+the same arguments and returns the whole answer).
 """
 from __future__ import annotations
 
@@ -16,6 +18,7 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 
 from ..relational.ledger import Ledger
+from ..relational.spmd import SPMD
 from .decompose import ghd_for
 from .ghd import GHD
 from .gym import GymConfig, gym
@@ -29,14 +32,15 @@ def acq_mr(
     data: Dict[str, np.ndarray],
     *,
     ghd: Optional[GHD] = None,
-    p: int = 4,
+    p: Optional[int] = None,
+    spmd: Optional[SPMD] = None,
     config: Optional[GymConfig] = None,
     device=None,
 ) -> Tuple[np.ndarray, Tuple[str, ...], Ledger]:
     """Evaluate Q via GYM on Log-GTA'(D): the ACQ-MR baseline."""
     g = ghd if ghd is not None else ghd_for(query)
     g3 = log_gta_prime(g.make_complete(query), query)
-    return gym(query, data, ghd=g3, p=p, config=config, device=device)
+    return gym(query, data, ghd=g3, p=p, spmd=spmd, config=config, device=device)
 
 
 def gym_loggta(
@@ -44,11 +48,12 @@ def gym_loggta(
     data: Dict[str, np.ndarray],
     *,
     ghd: Optional[GHD] = None,
-    p: int = 4,
+    p: Optional[int] = None,
+    spmd: Optional[SPMD] = None,
     config: Optional[GymConfig] = None,
     device=None,
 ) -> Tuple[np.ndarray, Tuple[str, ...], Ledger]:
     """GYM(Log-GTA(D)): log-round GYM with width <= max(w, 3iw)."""
     g = ghd if ghd is not None else ghd_for(query)
     g2 = log_gta(g.make_complete(query), query)
-    return gym(query, data, ghd=g2, p=p, config=config, device=device)
+    return gym(query, data, ghd=g2, p=p, spmd=spmd, config=config, device=device)

@@ -21,7 +21,9 @@ It runs on the CUDA card unless the caller passes ``device="cpu"``; with
 no card and no device it raises instead of quietly running on the CPU.
 ``gym(..., spmd=SPMD(p, mesh=mesh))`` runs it on a device mesh instead,
 one process per reducer (``launch/mesh.py``): every rank holds its block
-of each table and returns the whole answer and the same ledger.
+of each table and returns the whole answer and the same ledger; there
+``save`` and ``load`` are collective (every rank calls them with the same
+path) and write and read the simulation's snapshot file.
 ``GymConfig(wire_format="packed")`` ships every exchange bit-packed to the
 base relations' value widths (``relational/wire.py``);
 ``GymConfig(plan="auto")`` lets the cost-based advisor
@@ -43,8 +45,8 @@ import torch
 from ..relational import ops as R
 from ..relational.ledger import Ledger, RoundRecord
 from ..relational.localops import LOCAL_BACKENDS, default_backend
-from ..relational.spmd import SPMD, resolve_device
-from ..relational.table import DTable
+from ..relational.spmd import SPMD, spmd_for
+from ..relational.table import DTable, unique_rows
 from ..relational.wire import WirePolicy, wire_gain
 from .ghd import GHD
 from .hypergraph import Query
@@ -143,7 +145,7 @@ class GymDriver:
         for atom in query.atoms:
             rows = np.asarray(data[atom.rel], dtype=np.int32).reshape(-1, len(atom.attrs))
             if rows.shape[0]:
-                rows = np.unique(rows, axis=0)
+                rows = unique_rows(rows)
             dedup_rows[atom.alias] = rows
         # sound per-attribute bit widths from the base relations' value
         # ranges (joins never create values, so they cover every
@@ -426,17 +428,20 @@ class GymDriver:
         return self.result
 
     # -- fault tolerance: snapshot / resume ----------------------------------
-    def _no_mesh(self, what: str) -> None:
-        if self.spmd.mesh is not None:
-            raise NotImplementedError(f"GymDriver.{what}: snapshots on a mesh are not ported")
-
     def save(self, path: str) -> None:
         """Atomic snapshot of the driver state between rounds, in the
         reference package's npz layout: a ``meta`` JSON string plus
         ``data_k`` / ``valid_k`` (node tables) and ``accdata_k`` /
-        ``accvalid_k`` (upward accumulators), int32 and bool.  Not on a
-        mesh yet."""
-        self._no_mesh("save")
+        ``accvalid_k`` (upward accumulators), int32 and bool, each over the
+        whole reducer axis.
+
+        On a mesh ``save`` is collective: every rank calls it with the same
+        ``path`` at the same cursor, and ``load`` needs that path to be one
+        that every rank can read (a filesystem they share).  The ranks'
+        ``meta`` must agree (else every rank raises), the blocks are
+        gathered to rank 0 in one gather, rank 0 writes the same file the
+        simulation writes, and no rank returns before the file is
+        published; if rank 0 fails on the way, every rank raises."""
         meta = {
             "cursor": self.cursor,
             "done": self.done,
@@ -456,32 +461,46 @@ class GymDriver:
         if self.executor.caps_cache is not None:
             # keep the amortization warm across resume
             meta["caps_cache"] = self.executor.caps_cache.to_json()
-        arrays = {}
+        text = json.dumps(meta)
+        if not self.spmd.same_on_every_rank(text):
+            raise RuntimeError(f"GymDriver.save({path!r}): the ranks' driver states differ")
+        names, blocks = [], []
         for prefix, store in (("", self.tables), ("acc", self.acc)):
             for k, t in store.items():
-                arrays[f"{prefix}data_{k}"] = t.data.cpu().numpy()
-                arrays[f"{prefix}valid_{k}"] = t.valid.cpu().numpy()
-        d = os.path.dirname(os.path.abspath(path))
-        os.makedirs(d, exist_ok=True)
-        fd, tmp = tempfile.mkstemp(dir=d, suffix=".tmp")
+                names += [f"{prefix}data_{k}", f"{prefix}valid_{k}"]
+                blocks += [t.data, t.valid]
+        ok = True
         try:
-            with os.fdopen(fd, "wb") as f:
-                np.savez(f, meta=json.dumps(meta), **arrays)
-            os.replace(tmp, path)  # atomic publish
+            arrays = self.spmd.to_host_at(*blocks)  # None on every rank but the writer
+            if arrays is not None:
+                _write_npz(path, meta=text, **dict(zip(names, arrays)))
         except BaseException:
-            os.unlink(tmp)
+            ok = False
             raise
+        finally:
+            # every rank waits here for the writer, and learns if it failed
+            published = self.spmd.barrier(ok)
+        if not published:
+            raise RuntimeError(f"GymDriver.save({path!r}): the writing rank failed")
 
     def load(self, path: str) -> None:
         """Restore a ``save`` snapshot onto this driver's device.  The
         snapshot's GHD and config win (``local_backend`` included, resolved
         against this device as the constructor does); a shared caps cache
-        merges the snapshot's entries instead of being replaced.  Not on a
-        mesh yet."""
-        self._no_mesh("load")
+        merges the snapshot's entries instead of being replaced.
+
+        On a mesh every rank calls ``load`` with the same ``path`` and keeps
+        its own block of each table.  A snapshot taken at another ``p``
+        raises: a gym snapshot resumes only at its own reducer count."""
         with np.load(path, allow_pickle=False) as z:
             meta = json.loads(str(z["meta"]))
             arrays = {k: z[k] for k in z.files if k != "meta"}
+        for k, a in arrays.items():
+            if a.shape[0] != self.spmd.p:
+                raise ValueError(
+                    f"GymDriver.load({path!r}): {k} holds {a.shape[0]} reducers' shards, this "
+                    f"driver runs {self.spmd.p}; a snapshot resumes only at its own p"
+                )
         self.cursor = meta["cursor"]
         self.done = meta["done"]
         if "ghd" in meta:
@@ -515,14 +534,14 @@ class GymDriver:
         led.output_tuples = meta["ledger"]["output_tuples"]
         led.retries = meta["ledger"]["retries"]
         self.ledger = led
-        dev = self.spmd.device
 
         def table(prefix: str, k: str, schema) -> DTable:
-            return DTable(
-                torch.from_numpy(np.asarray(arrays[f"{prefix}data_{k}"], np.int32)).to(dev),
-                torch.from_numpy(np.asarray(arrays[f"{prefix}valid_{k}"], bool)).to(dev),
+            # the whole table on the host, this process' share on the device
+            return self.spmd.device_put(DTable(
+                torch.from_numpy(np.asarray(arrays[f"{prefix}data_{k}"], np.int32)),
+                torch.from_numpy(np.asarray(arrays[f"{prefix}valid_{k}"], bool)),
                 tuple(schema),
-            )
+            ))
 
         self.tables = {int(k): table("", k, s) for k, s in meta["schemas"].items()}
         self.acc = {
@@ -533,6 +552,21 @@ class GymDriver:
         self.result = None
         if self.done:
             self._finish()
+
+
+def _write_npz(path: str, **arrays) -> None:
+    """``np.savez`` to ``path`` through a temporary file in its directory,
+    published by one atomic rename."""
+    d = os.path.dirname(os.path.abspath(path))
+    os.makedirs(d, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(dir=d, suffix=".tmp")
+    try:
+        with os.fdopen(fd, "wb") as f:
+            np.savez(f, **arrays)
+        os.replace(tmp, path)  # atomic publish
+    except BaseException:
+        os.unlink(tmp)
+        raise
 
 
 # --------------------------------------------------------------------------
@@ -566,13 +600,9 @@ def gym(
     from .decompose import ghd_for
 
     g = ghd if ghd is not None else (plan.ghd if plan is not None else ghd_for(query))
-    if spmd is None:
-        dev = device if device is not None else (config.device if config else None)
-        spmd = SPMD(4 if p is None else p, device=resolve_device(dev))
-    elif device is not None:
-        raise ValueError("gym: pass device= or spmd=, not both (the SPMD holds its device)")
-    elif p is not None and p != spmd.p:
-        raise ValueError(f"gym: p={p} but the SPMD has {spmd.p} reducers")
+    if spmd is None and device is None and config is not None:
+        device = config.device
+    spmd = spmd_for("gym", p, spmd, device)
     drv = GymDriver(query, g, data, spmd, config, plan=plan)
     out = drv.run()
     return out.to_numpy(spmd), out.schema, drv.ledger

@@ -54,6 +54,7 @@ from typing import Dict, List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 
+from ..relational.table import unique_rows
 from .cgta import cgta
 from .costs import (
     OP_STAGES,
@@ -123,7 +124,7 @@ def skew_from_data(
             -1, len(atom.attrs)
         )
         if rows.shape[0]:
-            rows = np.unique(rows, axis=0)
+            rows = unique_rows(rows)
         out[atom.rel] = skew_share(rows)
     return out
 
@@ -141,7 +142,7 @@ def stats_from_data(query: Query, data: Mapping[str, np.ndarray]) -> Dict[str, i
             -1, len(atom.attrs)
         )
         sizes[atom.rel] = (
-            int(np.unique(rows, axis=0).shape[0]) if rows.shape[0] else 0
+            int(unique_rows(rows).shape[0]) if rows.shape[0] else 0
         )
     return sizes
 

@@ -13,7 +13,8 @@ replication cost — matching the known optima for our benchmark families
 (e.g. for C_n only every other attribute gets a share > 1).
 
 ``shares_join`` runs on the CUDA card unless the caller passes
-``device="cpu"``, as ``gym()`` does.
+``device="cpu"``, as ``gym()`` does, or on a device mesh with
+``spmd=SPMD(p, mesh=...)``, one process a reducer.
 """
 from __future__ import annotations
 
@@ -25,8 +26,8 @@ import numpy as np
 from ..relational import ops as R
 from ..relational.ledger import Ledger
 from ..relational.localops import default_backend
-from ..relational.spmd import SPMD, resolve_device
-from ..relational.table import DTable
+from ..relational.spmd import SPMD, spmd_for
+from ..relational.table import DTable, unique_rows
 from .hypergraph import Query
 
 def replication_cost(
@@ -94,7 +95,8 @@ def shares_join(
     query: Query,
     data: Dict[str, np.ndarray],
     *,
-    p: int = 4,
+    p: Optional[int] = None,
+    spmd: Optional[SPMD] = None,
     shares: Optional[Dict[str, int]] = None,
     out_cap: Optional[int] = None,
     seed: int = 0,
@@ -108,8 +110,13 @@ def shares_join(
     ``optimize_shares``); ``max_retries`` bounds the re-runs with doubled
     capacities before a dropped row becomes an error.  ``local_backend``
     None means ``'cuda'`` on a CUDA device and ``'torch'`` on the CPU, as
-    ``GymConfig.local_backend``."""
-    s = SPMD(p, device=resolve_device(device))
+    ``GymConfig.local_backend``.
+
+    ``p`` reducers (4 unless given) simulated on ``device``, as ``gym``;
+    or ``spmd``, e.g. one rank of a mesh, ``SPMD(p, mesh=...)``: every rank
+    calls with the same arguments and returns the whole answer."""
+    s = spmd_for("shares_join", p, spmd, device)
+    p = s.p
     backend = local_backend or default_backend(s.device)
     ledger = Ledger()
 
@@ -118,8 +125,8 @@ def shares_join(
     for atom in query.atoms:
         rows = np.asarray(data[atom.rel], np.int32).reshape(-1, len(atom.attrs))
         if rows.shape[0]:
-            rows = np.unique(rows, axis=0)  # relations are sets
-        tables[atom.alias] = DTable.scatter_numpy(rows, atom.attrs, p, device=s.device)
+            rows = unique_rows(rows)  # relations are sets
+        tables[atom.alias] = s.device_put(DTable.scatter_numpy(rows, atom.attrs, p))
         sizes[atom.alias] = rows.shape[0]
 
     shares = shares or optimize_shares(query, sizes, p)
@@ -165,7 +172,7 @@ def shares_join(
         backend=backend,
     )
     ledger.add_round("shares", [f"hypercube {shares}"], comm, n_rounds=1)
-    ledger.output_tuples = int(deduped.valid.sum().item())
+    ledger.output_tuples = int(s.to_host(deduped.valid).sum())
     want = [a for a in query.output_attrs if a in deduped.schema]
     out, _ = R.dist_project(s, deduped, want)
-    return out.to_numpy(), out.schema, ledger
+    return out.to_numpy(s), out.schema, ledger

@@ -25,6 +25,7 @@ figures are part of parity.
 from __future__ import annotations
 
 import contextvars
+import hashlib
 import os
 from typing import Callable, Optional
 
@@ -54,6 +55,21 @@ def resolve_device(device=None) -> torch.device:
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"device {device!r} requested but CUDA is not available")
     return dev
+
+
+def spmd_for(what: str, p: Optional[int] = None, spmd: Optional["SPMD"] = None,
+             device=None) -> "SPMD":
+    """The ``SPMD`` an entry point ``what`` runs on: ``spmd`` when the
+    caller gives one (a rank of a mesh, say), whose ``p`` wins, else a
+    simulation of ``p`` reducers (4 unless given) on ``device``.  A ``p``
+    that is not the given ``SPMD``'s, or a ``device`` beside it, raises."""
+    if spmd is None:
+        return SPMD(4 if p is None else p, device=resolve_device(device))
+    if device is not None:
+        raise ValueError(f"{what}: pass device= or spmd=, not both (the SPMD holds its device)")
+    if p is not None and p != spmd.p:
+        raise ValueError(f"{what}: p={p} but the SPMD has {spmd.p} reducers")
+    return spmd
 
 
 def _mesh_device(mesh, device) -> torch.device:
@@ -210,6 +226,55 @@ class SPMD:
         parts = [torch.empty_like(y) for _ in range(self.p)]
         dist.all_gather(parts, y, group=self.group)
         return torch.cat(parts, dim=0).cpu().numpy()
+
+    def to_host_at(self, *xs):
+        """The whole reducer axis of each per-shard value in ``xs``, on one
+        rank only: a list of numpy arrays on rank 0 of ``"r"`` and None on
+        every other rank (the simulation reads each as ``to_host`` does).
+        On a mesh it is one ``gather`` to rank 0: the blocks ride as their
+        bytes in one buffer, so no value is widened on the wire."""
+        if self.mesh is None:
+            return [self.to_host(x) for x in xs]
+        import torch.distributed as dist
+
+        parts = []
+        for x in xs:
+            assert x.shape[:1] == (1,), f"to_host_at of a non-block tensor {tuple(x.shape)}"
+            parts.append(x.detach().contiguous().view(torch.uint8).reshape(-1))
+        flat = torch.cat(parts) if parts else torch.empty(0, dtype=torch.uint8, device=self.device)
+        flat = flat.cpu() if self._staged else flat
+        if self.rank != 0:
+            dist.gather(flat, None, group_dst=0, group=self.group)
+            return None
+        bufs = [torch.empty_like(flat) for _ in range(self.p)]
+        dist.gather(flat, bufs, group_dst=0, group=self.group)
+        whole = torch.stack(bufs).cpu()
+        out, off = [], 0
+        for x, b in zip(xs, parts):
+            n = b.numel()
+            out.append(whole[:, off: off + n].contiguous().view(x.dtype)
+                       .reshape((self.p,) + tuple(x.shape[1:])).numpy())
+            off += n
+        return out
+
+    def barrier(self, ok: bool = True) -> bool:
+        """Wait until every rank of the mesh has come here, and return
+        whether every rank came with ``ok``: a rank that failed before a
+        collective step tells the others instead of leaving them waiting.
+        The simulation has no one to wait for and returns ``ok``."""
+        if self.mesh is None:
+            return ok
+        flag = torch.tensor([[int(ok)]], dtype=torch.int64, device=self.device)
+        return bool(self.to_host(flag).all())
+
+    def same_on_every_rank(self, text: str) -> bool:
+        """Whether every rank of the mesh holds the same ``text`` (one
+        gather of an 8-byte digest); always True in the simulation."""
+        if self.mesh is None:
+            return True
+        digest = int.from_bytes(hashlib.sha256(text.encode()).digest()[:8], "little", signed=True)
+        got = self.to_host(torch.tensor([[digest]], dtype=torch.int64, device=self.device))
+        return bool((got == digest).all())
 
     def to_host_many(self, *xs) -> list:
         """``to_host`` of several per-shard values with one gather on a

@@ -19,6 +19,31 @@ import numpy as np
 import torch
 
 
+def unique_rows(rows: np.ndarray) -> np.ndarray:
+    """``np.unique(rows, axis=0)`` of a 2-D integer array: the distinct
+    rows in lexicographic order, in ``rows``' dtype.  Where every column's
+    span fits, the rows are folded into one int64 key a row (each column's
+    offset from its minimum, in mixed radix), whose order is the rows',
+    and one 1-D ``np.unique`` of the keys does the work: several times
+    faster than the record sort of ``axis=0``."""
+    rows = np.asarray(rows)
+    if rows.shape[0] == 0 or rows.shape[1] == 0:
+        return np.unique(rows, axis=0)
+    lo = rows.min(axis=0).astype(np.int64)
+    span = rows.max(axis=0).astype(np.int64) - lo + 1
+    if float(np.prod(span.astype(np.float64))) >= 2.0**62:
+        return np.unique(rows, axis=0)
+    key = np.zeros(rows.shape[0], np.int64)
+    for j in range(rows.shape[1]):
+        key = key * span[j] + (rows[:, j].astype(np.int64) - lo[j])
+    key = np.unique(key)
+    out = np.empty((key.shape[0], rows.shape[1]), rows.dtype)
+    for j in range(rows.shape[1] - 1, -1, -1):
+        key, r = np.divmod(key, span[j])
+        out[:, j] = r + lo[j]
+    return out
+
+
 def _canon(rows: np.ndarray, arity: int) -> np.ndarray:
     """Valid rows, lexicographically sorted (canonical for comparisons)."""
     if rows.size == 0:

@@ -25,6 +25,17 @@ waiting queue is FIFO-with-aging — effective priority is
 ``priority - aging * wait_ticks``, so an urgent arrival can jump the queue
 but a long-waiting ticket eventually outranks any newcomer.  Scheduling is
 tick-based and deterministic (no wall clock).
+
+On a device mesh (``SPMD(p, mesh=...)``, one process a reducer) the server
+is collective: every rank builds the same server, submits the same tickets
+in the same order and steps (or drains) it alike.  Each rank then takes
+the same decisions, because they read only ticks, arrival order and merge
+keys of ints, strings and caps that every rank gathered, and buckets are
+dispatched in one sorted order; a rank that strayed would wait in a
+collective the others never reach.  Every ticket's rows and ``Ledger`` and
+the ``ServerLedger``'s counts (queries, fused dispatches and riders,
+dispatches saved, ticks) are the same on every rank; wall seconds and
+memory peaks measured around a drain are each rank's own.
 """
 from __future__ import annotations
 
@@ -67,7 +78,7 @@ class JoinTicket:
 
     def rows(self) -> np.ndarray:
         assert self.done and self.driver is not None
-        return self.driver.result.to_numpy()
+        return self.driver.result.to_numpy(self.driver.spmd)
 
     @property
     def ledger(self) -> Optional[Ledger]:
@@ -88,7 +99,8 @@ class JoinTicket:
 class JoinServer:
     """Admit, schedule, and fuse many concurrent ``gym`` queries on one
     ``SPMD``, whose device every query runs on (``SPMD(p)`` with no device
-    is the CUDA card, and raises without one).
+    is the CUDA card, and raises without one), or on one rank of a mesh
+    (collective: see the module doc).
 
     Drive with ``step()`` (one tick: admit -> bucket -> dispatch ->
     deliver) until it returns False, or call ``drain()``.  Submissions
@@ -102,8 +114,6 @@ class JoinServer:
         aging: float = 1.0,
         caps_cache: Optional[CapsCache] = None,
     ):
-        if spmd.mesh is not None:
-            raise NotImplementedError("JoinServer: the join server on a mesh is not ported")
         self.spmd = spmd
         self.max_in_flight = int(max_in_flight)
         if self.max_in_flight < 1:

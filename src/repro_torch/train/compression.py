@@ -2,12 +2,15 @@
 stochastic rounding, and an int8 all-reduce (counterpart of
 ``repro/train/compression.py``).
 
-``int8_allreduce`` takes the data-parallel shards on an explicit leading
-axis, as ``relational/spmd.py`` does for ``all_to_all``, where the
-reference reduces over a named axis with ``pmax``/``psum``: one scale (the
-largest magnitude over every shard), int8 payloads, an int32 sum and the
-dequantized mean.  Stochastic rounding draws from an explicit
-``torch.Generator`` on the tensors' device.
+``int8_allreduce`` reduces where the reference reduces over a named axis
+with ``pmax``/``psum``: one scale (the largest magnitude over every
+shard), int8 payloads, an int32 sum and the dequantized mean.  It takes
+the data-parallel shards either on an explicit leading axis, as
+``relational/spmd.py`` does for ``all_to_all``, or one shard a process
+with ``group=`` a process group or a one-dimension ``DeviceMesh``, over
+which it runs ``all_reduce``; without a generator the two forms agree
+bit for bit.  Stochastic rounding draws from an explicit
+``torch.Generator`` on the tensors' device (each process its own).
 """
 from __future__ import annotations
 
@@ -56,13 +59,36 @@ def codec_roundtrip(tensors: Dict[str, torch.Tensor], generator: Optional[torch.
     return out
 
 
-def int8_allreduce(x: torch.Tensor, generator: Optional[torch.Generator] = None) -> torch.Tensor:
-    """Mean over the leading data-parallel axis of ``x`` with an int8
-    payload, broadcast back to every shard: ``x.shape``, ``x.dtype``.
-    Wire cost: 1 byte an element and one f32 scale."""
-    scale = _scale(x)
-    q = _int8(x, scale, generator)
-    total = q.to(torch.int32).sum(dim=0)
-    n = x.shape[0]
-    mean = total.float() * scale / float(n)
-    return mean.to(x.dtype).expand(x.shape).clone()
+def int8_allreduce(x: torch.Tensor, generator: Optional[torch.Generator] = None,
+                   *, group=None) -> torch.Tensor:
+    """Mean over the data-parallel shards with an int8 payload: ``x.shape``,
+    ``x.dtype``.  Without ``group``, ``x`` holds every shard on its leading
+    axis and the mean comes back broadcast to each.  With ``group`` (a
+    process group, or a one-dimension ``DeviceMesh``) ``x`` is this
+    process' shard: an ``all_reduce`` MAX of its magnitude gives the scale,
+    an ``all_reduce`` SUM adds the int8 values as int32, and every process
+    gets the mean.  The values are int8 (1 byte an element of information)
+    but the sum carries them as int32, 4 bytes an element, beside one f32
+    scale, as the reference's ``psum`` does."""
+    if group is None:
+        scale = _scale(x)
+        q = _int8(x, scale, generator)
+        total = q.to(torch.int32).sum(dim=0)
+        mean = total.float() * scale / float(x.shape[0])
+        return mean.to(x.dtype).expand(x.shape).clone()
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+
+    if isinstance(group, DeviceMesh):
+        group = group.get_group()
+    # gloo moves host tensors only: a card's shard crosses through the host
+    staged = dist.get_backend(group) == "gloo" and x.device.type == "cuda"
+    amax = x.float().abs().max().reshape(1)
+    amax = amax.cpu() if staged else amax
+    dist.all_reduce(amax, op=dist.ReduceOp.MAX, group=group)
+    scale = torch.clamp(amax.to(x.device)[0], min=1e-12) / 127.0
+    total = _int8(x, scale, generator).to(torch.int32)
+    total = total.cpu() if staged else total
+    dist.all_reduce(total, op=dist.ReduceOp.SUM, group=group)
+    mean = total.to(x.device).float() * scale / float(dist.get_world_size(group))
+    return mean.to(x.dtype)

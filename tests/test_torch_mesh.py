@@ -15,8 +15,8 @@
   their simulation forms; a mesh of the wrong size, an NCCL mesh with more
   ranks than cards, a default-device ``SPMD`` without a card and
   ``spawn_reducers`` without a card and without ``device_type="cpu"``
-  raise, and so do ``gym`` given a ``p`` that is not its ``SPMD``'s,
-  snapshots and the join server on a mesh (not ported there).
+  raise, and so does ``gym`` given a ``p`` that is not its ``SPMD``'s.
+  The other entry points on a mesh are ``test_torch_mesh_entrypoints.py``'s.
 """
 from __future__ import annotations
 
@@ -87,6 +87,7 @@ line = json.dumps(dict(rank=mesh.get_local_rank("r"), rows=sorted(map(list, rows
                       schema=list(schema), comm=led.comm_tuples, rounds=led.rounds))
 sys.stdout.write(line + "\n")  # one write a rank: the two ranks share the pipe
 sys.stdout.flush()
+dist.barrier()  # no rank tears its connections down while a peer still uses them
 dist.destroy_process_group()
 """
 
@@ -131,20 +132,6 @@ def _rank(mesh):
         y, idx = spmd.run(_a2a_body, spmd.device_put(torch.from_numpy(x)), dst_dim=dst)
         unit.append((spmd.to_host(y), spmd.to_host(idx)))
     out["unit"] = unit
-    # what is not ported to a mesh refuses one instead of answering for a block
-    from repro_torch.core.gym import GymDriver
-    from repro_torch.serve import JoinServer
-
-    q, d, _ = _case("C_4 hash")
-    drv = GymDriver(q, TQ.chain_ghd(4), d, TS.SPMD(P, mesh=mesh))
-    refused = []
-    for what in (lambda: drv.save("unused.npz"), lambda: drv.load("unused.npz"),
-                 lambda: JoinServer(TS.SPMD(P, mesh=mesh))):
-        try:
-            what()
-        except NotImplementedError:
-            refused.append(True)
-    out["refused"] = refused
     # the "r" dimension of a (2, 2) mesh holds 2 ranks, not 4
     half = init_device_mesh("cpu", (2, 2), mesh_dim_names=("x", "r"))["r"]
     try:
@@ -262,10 +249,6 @@ def test_all_to_all_and_axis_index_equal_the_simulation(ranks, i):
         y, idx = got["unit"][i]
         np.testing.assert_array_equal(y, want_y.numpy(), err_msg=f"rank {r}")
         np.testing.assert_array_equal(idx, want_idx.numpy(), err_msg=f"rank {r}")
-
-
-def test_snapshots_and_the_join_server_refuse_a_mesh(ranks):
-    assert all(got["refused"] == [True, True, True] for got in ranks)
 
 
 def test_mesh_of_the_wrong_size_raises(ranks):
