@@ -1,17 +1,31 @@
-"""One-card dry run: trace every (architecture x input shape) cell's step
-on ``meta`` tensors and record whether it fits one H100, its flops and
-bytes, its roofline bound and the share of it that is model flops
-(counterpart of ``repro/launch/dryrun.py``, one card, no mesh):
+"""Dry run: trace every (architecture x input shape) cell's step on
+``meta`` tensors and record whether it fits one H100, its flops and
+bytes, its roofline bound and the share of it that is model flops, or,
+on the reference's production meshes, each device's share of the step's
+arguments (counterpart of ``repro/launch/dryrun.py``):
 
     PYTHONPATH=src python -m repro_torch.launch.dryrun --cells all
     PYTHONPATH=src python -m repro_torch.launch.dryrun --arch gemma2-9b --shape prefill_32k
+    PYTHONPATH=src python -m repro_torch.launch.dryrun --mesh both --cells all
 
 It runs on the CPU and needs no card: a model built on ``meta`` holds
 shapes and dtypes only, and the step runs its real code path eagerly on
 them, the ``'cuda'`` backend included, whose flash attention reaches the
 operator's fake (``kernels/flash_attention.py``).  Results accumulate,
 crash-safe, in ``dryrun_results_torch.json`` at the repo root (``--out``),
-keyed ``arch|shape``; an ``ok`` cell is skipped unless ``--force``.
+keyed ``arch|shape`` (``arch|shape|single`` on a mesh); an ``ok`` cell is
+skipped unless ``--force``.
+
+``--mesh``: ``one`` (the default) is the one-card run below; ``single``
+and ``multi`` (``both``: the two) give each cell's **per-device**
+argument bytes on the ``(16, 16)`` or ``(2, 16, 16)`` production mesh
+: parameters, optimizer state, batch and caches, each leaf
+its shard under ``launch/shardings.py``'s placements (a prefill or decode
+cell's parameters TP-only when the model fits 8 GiB a ``"model"`` shard,
+as in the reference), and ``fits``, those bytes at most ``FIT_SHARE`` of
+``HBM_BYTES`` (``mesh_cells``).  That is arithmetic on shapes and the device-free mesh
+shape: no rank and no trace.  The per-device peak and the collective
+bytes of a sharded step are not reckoned.
 
 What a cell runs (``run_cell``): train, ``make_train_step`` under
 ``TrainConfig(opt=_opt_for(arch), remat=True)`` on ``input_specs``'
@@ -41,7 +55,6 @@ What it records, and where it comes from (``StepTracker``, a
   up to the cell's own that fits: from the peak's line through batch 1
   and the cell's batch, confirmed by a run at that batch.
 
-The reference's ``--mesh`` and its sharding rules have no counterpart.
 """
 from __future__ import annotations
 
@@ -52,7 +65,7 @@ import os
 import time
 import traceback
 from collections import Counter
-from typing import Dict, Iterable, Optional
+from typing import Any, Dict, Iterable, Optional, Sequence
 
 import torch
 from torch.multiprocessing.reductions import StorageWeakRef
@@ -64,6 +77,8 @@ from ..configs import SHAPES, cells, get_config, get_model, input_specs
 from ..kernels import flash_attention as _fa
 from ..train import OptConfig, TrainConfig, init_train_state, make_train_step
 from . import roofline as rf
+from . import shardings as sh
+from .mesh import production_mesh_shape
 
 RESULTS = os.path.join(os.path.dirname(__file__), "..", "..", "..", "dryrun_results_torch.json")
 #: the share of the card a cell's peak may take (the chip phases' rule,
@@ -270,6 +285,79 @@ def _max_batch(arch, shape, cfg, b, s, s_cache, tcfg, peak_b, limit) -> int:
     return 1
 
 
+# ------------------------------------------------------- on a mesh
+#: ``--mesh`` kinds: the reference's production meshes
+MESHES = {"single": production_mesh_shape(), "multi": production_mesh_shape(multi_pod=True)}
+#: a serving model whose ``"model"`` shard fits this takes TP-only weights
+SERVE_TP_ONLY_BYTES = 8 << 30
+
+
+def shard_bytes(tree, specs, mesh) -> int:
+    """One device's bytes of ``tree``'s tensors under ``specs`` (the same
+    structure) on ``mesh``: each distinct storage once."""
+    seen: Dict[int, int] = {}
+
+    def one(t, spec):
+        if isinstance(t, torch.Tensor):
+            n = 1
+            for d in sh.shard_shape(t.shape, spec, mesh):
+                n *= d
+            seen.setdefault(StorageWeakRef(t.untyped_storage()).cdata, n * t.element_size())
+
+    sh._map(one, tree, specs)
+    return sum(seen.values())
+
+
+def mesh_cells(arch: str, shape: str, mesh_kinds: Sequence,
+               overrides: Optional[Dict] = None) -> Dict[Any, Dict]:
+    """The per-device record of one cell on each of ``mesh_kinds`` (see
+    the module doc), keyed by it: a kind of ``MESHES`` or any
+    ``MeshShape``, all from one meta model; ``overrides`` as
+    ``run_cell``'s.  The reference's decode cache length is an int32 on
+    every device: 4 bytes beside the caches."""
+    ov = dict(overrides or {})
+    cfg = ov.pop("cfg", None) or get_config(arch)
+    s, b, kind = SHAPES[shape]
+    b, s = int(ov.pop("batch", b)), int(ov.pop("seq", s))
+    tcfg = ov.pop("tcfg", None) or TrainConfig(opt=_opt_for(arch), remat=True)
+    if ov:
+        raise ValueError(f"mesh_cells: unknown overrides {sorted(ov)}")
+    model = get_model(cfg, "meta")
+    params = dict(model.named_parameters())
+    specs = input_specs(cfg, shape, batch=b, seq=s)
+    opt = init_train_state(model, tcfg) if kind == "train" else None
+    out = {}
+    for mesh_kind in mesh_kinds:
+        ms = MESHES[mesh_kind] if isinstance(mesh_kind, str) else mesh_kind
+        tp_only = None
+        if kind == "train":
+            parts = {"params": (params, sh.param_specs(cfg, params, ms)),
+                     "opt_state": (opt, sh.opt_state_specs(cfg, opt, ms)),
+                     "batch": (specs["batch"], sh.batch_specs(specs["batch"], ms))}
+        else:
+            tp_only = storage_bytes(params.values()) // ms.shape["model"] <= SERVE_TP_ONLY_BYTES
+            parts = {"params": (params, sh.param_specs(cfg, params, ms, serve_tp_only=tp_only))}
+            if kind == "prefill":
+                parts["batch"] = (specs["batch"], sh.batch_specs(specs["batch"], ms))
+            else:
+                tok = {"t": specs["tokens"]}
+                parts["caches"] = (specs["caches"], sh.cache_specs(cfg, specs["caches"], ms))
+                parts["batch"] = (tok, sh.batch_specs(tok, ms))
+        per = {k: shard_bytes(tree, sp, ms) for k, (tree, sp) in parts.items()}
+        if "caches" in per:
+            per["caches"] += 4
+        total = sum(per.values())
+        out[mesh_kind] = {
+            "arch": arch, "shape": shape, "chips": ms.size,
+            "mesh": mesh_kind if isinstance(mesh_kind, str) else "x".join(map(str, ms.sizes)),
+            "axes": dict(ms.shape), "status": "ok", "batch": b, "seq": s, "kind": kind,
+            "n_params": rf.param_count(params), "serve_tp_only": tp_only,
+            "memory": {"argument_bytes_per_device": per, "argument_size_in_bytes": total},
+            "fits": total <= FIT_SHARE * rf.HBM_BYTES,
+        }
+    return out
+
+
 # --------------------------------------------------------------------- CLI
 def _load(path: str) -> Dict:
     if os.path.exists(path):
@@ -290,6 +378,8 @@ def main(argv=None) -> Dict:
     ap.add_argument("--arch", default=None)
     ap.add_argument("--shape", default=None)
     ap.add_argument("--cells", default=None, help="'all' = every enabled cell")
+    ap.add_argument("--mesh", default="one", choices=["one", "single", "multi", "both"],
+                    help="one card (default), or per device on a production mesh")
     ap.add_argument("--out", default=RESULTS)
     ap.add_argument("--force", action="store_true")
     args = ap.parse_args(argv)
@@ -299,29 +389,35 @@ def main(argv=None) -> Dict:
         todo = [(args.arch, args.shape)]
     else:
         ap.error("give --cells all, or --arch and --shape")
+    meshes = ["single", "multi"] if args.mesh == "both" else [args.mesh]
     path = os.path.abspath(args.out)
     db = _load(path)
     for arch, shape in todo:
-        key = f"{arch}|{shape}"
-        if db.get(key, {}).get("status") == "ok" and not args.force:
-            print(f"[skip] {key}", flush=True)
-            continue
-        print(f"[run ] {key}", flush=True)
-        try:
-            res = run_cell(arch, shape)
-        except Exception as e:  # noqa: BLE001 - the record keeps the error
-            res = {"arch": arch, "shape": shape, "chips": 1, "status": "error",
-                   "error": f"{type(e).__name__}: {e}", "trace": traceback.format_exc()[-2000:]}
-        db = _load(path)  # re-merge (parallel runners)
-        db[key] = res
-        _save(db, path)
-        if res["status"] == "ok":
-            r = res["roofline"]
-            print(f"[done] {key} trace={res['trace_s']}s peak={res['memory']['peak_bytes']} "
-                  f"fits={res['fits']} max_batch={res['max_batch']} dominant={r['dominant']} "
-                  f"bound={r['bound_s']:.4g}s", flush=True)
-        else:
-            print(f"[FAIL] {key}: {res['error']}", flush=True)
+        for m in meshes:
+            key = f"{arch}|{shape}" if m == "one" else f"{arch}|{shape}|{m}"
+            if db.get(key, {}).get("status") == "ok" and not args.force:
+                print(f"[skip] {key}", flush=True)
+                continue
+            print(f"[run ] {key}", flush=True)
+            try:
+                res = run_cell(arch, shape) if m == "one" else mesh_cells(arch, shape, [m])[m]
+            except Exception as e:  # noqa: BLE001 - the record keeps the error
+                res = {"arch": arch, "shape": shape, "mesh": m,
+                       "chips": 1 if m == "one" else MESHES[m].size, "status": "error",
+                       "error": f"{type(e).__name__}: {e}", "trace": traceback.format_exc()[-2000:]}
+            db = _load(path)  # re-merge (parallel runners)
+            db[key] = res
+            _save(db, path)
+            if res["status"] != "ok":
+                print(f"[FAIL] {key}: {res['error']}", flush=True)
+            elif m == "one":
+                r = res["roofline"]
+                print(f"[done] {key} trace={res['trace_s']}s peak={res['memory']['peak_bytes']} "
+                      f"fits={res['fits']} max_batch={res['max_batch']} dominant={r['dominant']} "
+                      f"bound={r['bound_s']:.4g}s", flush=True)
+            else:
+                print(f"[done] {key} chips={res['chips']} argument_bytes_per_device="
+                      f"{res['memory']['argument_size_in_bytes']} fits={res['fits']}", flush=True)
     return db
 
 

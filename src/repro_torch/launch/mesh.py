@@ -1,13 +1,14 @@
-"""The reducer mesh: one process per reducer over ``torch.distributed``.
+"""The port's device meshes over ``torch.distributed``: the gym's reducer
+mesh, one process per reducer, and the LM meshes of the reference's
+``launch/mesh.py``, whose placements ``launch/shardings.py`` gives.
 
-The counterpart of ``jax.make_mesh((p,), ("r",))`` for the gym's reducer
-axis (the reference's LM meshes and their sharding rules are still to be
-ported).  A rank passes the mesh to ``SPMD(p, mesh=mesh)`` and makes the
-same call as every other rank; each holds its block of the reducer axis
-and gets the whole answer back.  Every gym entry point takes such an
-``SPMD``: ``gym``, ``shares_join``, ``gym_loggta`` and ``acq_mr``
-(``spmd=``), ``GymDriver`` (its ``step``/``step_gen``/``run`` and the
-collective ``save``/``load``) and ``JoinServer``; so does
+The reducer mesh is the counterpart of ``jax.make_mesh((p,), ("r",))``
+for the gym's reducer axis.  A rank passes the mesh to ``SPMD(p,
+mesh=mesh)`` and makes the same call as every other rank; each holds its
+block of the reducer axis and gets the whole answer back.  Every gym entry
+point takes such an ``SPMD``: ``gym``, ``shares_join``, ``gym_loggta`` and
+``acq_mr`` (``spmd=``), ``GymDriver`` (its ``step``/``step_gen``/``run``
+and the collective ``save``/``load``) and ``JoinServer``; so does
 ``train/compression.py::int8_allreduce`` (``group=mesh``).
 
 - ``make_reducer_mesh(p)``: in a process that ``torchrun --nproc-per-node
@@ -17,6 +18,17 @@ collective ``save``/``load``) and ``JoinServer``; so does
   (``torch.multiprocessing`` spawn, a ``FileStore`` in a temporary
   directory, so no network is needed) and returns ``fn``'s value on every
   rank.
+
+The LM meshes are one more ``init_device_mesh`` over the same world:
+
+- ``make_production_mesh(multi_pod=)``: ``(16, 16)`` ``("data", "model")``
+  over 256 ranks, or ``(2, 16, 16)`` ``("pod", "data", "model")`` over 512;
+- ``make_debug_mesh(data, model)``: ``("data", "model")`` over
+  ``data * model`` ranks;
+- ``MeshShape`` and ``production_mesh_shape``: the same names and sizes
+  without devices, which the sharding rules and the dry run read (the
+  reference's rules read only ``mesh.shape[axis]`` and ``axis_names``);
+- ``dp_axes(mesh)``: the data-parallel (FSDP) axes of either.
 
 An NCCL mesh takes one card a rank and refuses more ranks than there are
 cards; ``gloo`` runs any number of ranks, on the CPU or sharing one card.
@@ -28,7 +40,7 @@ import os
 import pickle
 import shutil
 import tempfile
-from typing import Any, Callable, List, Optional, Sequence
+from typing import Any, Callable, Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -44,30 +56,97 @@ def _timeout() -> datetime.timedelta:
     return datetime.timedelta(seconds=COLLECTIVE_TIMEOUT_S)
 
 
-def make_reducer_mesh(p: int, device_type: str = "cuda", backend=None):
-    """The one-dimension ``"r"`` mesh of size ``p`` over the default
-    process group, which is initialized from ``torchrun``'s environment
-    (``RANK``, ``WORLD_SIZE``, ``MASTER_ADDR``, ...) when none exists:
-    NCCL on ``'cuda'``, gloo on ``'cpu'`` unless ``backend`` says, each
-    collective bounded by ``COLLECTIVE_TIMEOUT_S``."""
+def _world(what: str, size: int, device_type: str, backend=None) -> None:
+    """Check that the default process group has ``size`` ranks for
+    ``what``; the group is initialized from ``torchrun``'s environment (``RANK``,
+    ``WORLD_SIZE``, ``MASTER_ADDR``, ...) when none exists: NCCL on
+    ``'cuda'``, gloo on ``'cpu'`` unless ``backend`` says, each collective
+    bounded by ``COLLECTIVE_TIMEOUT_S``."""
     import torch.distributed as dist
-    from torch.distributed.device_mesh import init_device_mesh
 
     backend = backend or (
         dist.get_backend() if dist.is_initialized()
         else ("nccl" if device_type == "cuda" else "gloo")
     )
-    ranks_here = int(os.environ.get("LOCAL_WORLD_SIZE", p))
+    ranks_here = int(os.environ.get("LOCAL_WORLD_SIZE", size))
     check_cards(backend, device_type, ranks_here)
     if device_type == "cuda":
         # before the group exists, so NCCL binds the rank's own card
         torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", 0)) % torch.cuda.device_count())
     if not dist.is_initialized():
         dist.init_process_group(backend, timeout=_timeout())
-    if dist.get_world_size() != p:
-        raise ValueError(f"a reducer mesh of {p} needs {p} ranks, the group has "
-                         f"{dist.get_world_size()}")
+    if dist.get_world_size() != size:
+        raise ValueError(f"{what} needs {size} ranks, the group has {dist.get_world_size()}")
+
+
+def make_reducer_mesh(p: int, device_type: str = "cuda", backend=None):
+    """The one-dimension ``"r"`` mesh of size ``p`` over the default
+    process group (``_world``)."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    _world(f"a reducer mesh of {p}", p, device_type, backend)
     return init_device_mesh(device_type, (p,), mesh_dim_names=(AXIS,))
+
+
+# ------------------------------------------------------------- LM meshes
+class MeshShape(NamedTuple):
+    """A mesh's axis names and sizes, without devices: what the sharding
+    rules read of a mesh, at any size on one process."""
+
+    axis_names: Tuple[str, ...]
+    sizes: Tuple[int, ...]
+
+    @property
+    def shape(self) -> Dict[str, int]:
+        return dict(zip(self.axis_names, self.sizes))
+
+    @property
+    def size(self) -> int:
+        n = 1
+        for s in self.sizes:
+            n *= s
+        return n
+
+
+def production_mesh_shape(*, multi_pod: bool = False) -> MeshShape:
+    """Single pod: ``(16, 16)`` ``("data", "model")``, 256 devices.
+    Multi-pod: ``(2, 16, 16)`` ``("pod", "data", "model")``, 512."""
+    if multi_pod:
+        return MeshShape(("pod", "data", "model"), (2, 16, 16))
+    return MeshShape(("data", "model"), (16, 16))
+
+
+def mesh_shape(mesh) -> MeshShape:
+    """The ``MeshShape`` of a ``DeviceMesh`` (a ``MeshShape`` is its own)."""
+    if isinstance(mesh, MeshShape):
+        return mesh
+    return MeshShape(tuple(mesh.mesh_dim_names or ()), tuple(int(s) for s in mesh.shape))
+
+
+def _lm_mesh(ms: MeshShape, device_type: str):
+    from torch.distributed.device_mesh import init_device_mesh
+
+    _world(f"the mesh {dict(ms.shape)}", ms.size, device_type)
+    return init_device_mesh(device_type, ms.sizes, mesh_dim_names=ms.axis_names)
+
+
+def make_production_mesh(*, multi_pod: bool = False, device_type: str = "cuda"):
+    """The production ``DeviceMesh`` (``production_mesh_shape``) over the
+    default process group (``_world``); raises unless the group has 256
+    ranks (512 with ``multi_pod``)."""
+    return _lm_mesh(production_mesh_shape(multi_pod=multi_pod), device_type)
+
+
+def make_debug_mesh(data: int = 1, model: int = 1, device_type: str = "cuda"):
+    """A ``(data, model)`` ``("data", "model")`` ``DeviceMesh`` over the
+    default process group of ``data * model`` ranks (``_world``)."""
+    return _lm_mesh(MeshShape(("data", "model"), (int(data), int(model))), device_type)
+
+
+def dp_axes(mesh) -> tuple:
+    """The data-parallel (FSDP) axes of a mesh: ``("pod", "data")`` or
+    ``("data",)``."""
+    return tuple(a for a in mesh_shape(mesh).axis_names if a in ("pod", "data"))
 
 
 def _rank_main(rank: int, fn, p: int, backend: str, device_type: str, store: str,

@@ -6,15 +6,24 @@ of ``repro/launch/train.py``).
         --reduced --device cpu --steps 5 --batch 4 --seq 32 --ckpt /tmp/run1
 
 Without ``--device`` it runs on the CUDA card, and raises without one; the
-corpus join runs there too.  One device: the reference's mesh and
-shardings are not part of the port.  The weights are random, from a
+corpus join runs there too.  The weights are random, from a
 ``torch.Generator`` seeded with 0 (the reference's ``PRNGKey(0)``).  Each
 step prints ``step``, ``loss``, ``gnorm`` and its milliseconds (flagged
 ``STRAGGLER`` past 3x the running median), then ``[done]``.
+
+On a mesh, as the reference runs on its devices: under ``torchrun
+--nproc-per-node N`` (or in a process of an initialized group of N
+ranks) the parameters and optimizer state are placed on
+``make_debug_mesh(N, 1)`` below 256 ranks and on the production mesh at
+256 (512: the multi-pod one), each rank takes its slice of every batch
+(``train/step.py::make_mesh_train_step``), rank 0 alone prints, and
+``--resume`` restores each leaf onto its placement.  Without a group it
+runs on one device.
 """
 from __future__ import annotations
 
 import argparse
+import os
 from typing import Dict, List, Optional
 
 import torch
@@ -25,12 +34,33 @@ from ..relational.spmd import resolve_device
 from ..train import OptConfig, TrainConfig, init_train_state, make_train_step
 from ..train import checkpoint as ckpt
 from ..train.elastic import HeartbeatMonitor
-from ..train.step import load_state_tree, state_tree
+from ..train.step import load_state_tree, make_mesh_train_step, place_train_state, state_tree
+from .mesh import make_debug_mesh, make_production_mesh
+
+
+def lm_mesh(device_type: str):
+    """The mesh this process trains on: None without a group of ranks
+    (neither ``torchrun``'s ``WORLD_SIZE`` above 1 nor an initialized
+    default group), else ``make_debug_mesh(N, 1)`` below 256 ranks and the
+    production mesh at 256 or 512."""
+    import torch.distributed as dist
+
+    if dist.is_initialized():
+        n = dist.get_world_size()
+    else:
+        n = int(os.environ.get("WORLD_SIZE", "1"))
+        if n <= 1:
+            return None
+    if n < 256:
+        return make_debug_mesh(n, 1, device_type)
+    return make_production_mesh(multi_pod=n == 512, device_type=device_type)
 
 
 def main(argv: Optional[List[str]] = None) -> Dict:
     """Returns ``{"start", "losses", "grad_norms", "step_s", "model",
-    "opt_state"}`` for callers that drive it in-process."""
+    "opt_state"}`` for callers that drive it in-process (on a mesh
+    ``"opt_state"`` is the placed ``{"params", "opt"}`` state, and the
+    model's own parameters are empty)."""
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--arch", default="smollm-360m")
     ap.add_argument("--steps", type=int, default=50)
@@ -50,6 +80,11 @@ def main(argv: Optional[List[str]] = None) -> Dict:
     if args.reduced:
         cfg = reduced_config(cfg)
     dev = resolve_device(args.device)
+    mesh = lm_mesh(dev.type)
+    if mesh is not None and dev.type == "cuda":
+        dev = torch.device("cuda", torch.cuda.current_device())
+    lead = mesh is None or mesh.get_rank() == 0
+    say = print if lead else (lambda *a, **k: None)
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
     model = get_model(cfg, dev, generator=gen)
@@ -59,15 +94,24 @@ def main(argv: Optional[List[str]] = None) -> Dict:
         compress_grads=args.compress_grads,
     )
     opt_state = init_train_state(model, tcfg)
+    if mesh is not None:
+        opt_state = place_train_state(model, opt_state, mesh)
+
+    def tree():
+        return opt_state if mesh is not None else state_tree(model, opt_state)
 
     start = 0
     if args.resume and args.ckpt and ckpt.latest_step(args.ckpt) is not None:
-        restored, extra = ckpt.restore(args.ckpt, state_tree(model, opt_state))
-        load_state_tree(model, opt_state, restored)
+        # a placed leaf is restored onto its own placement
+        restored, extra = ckpt.restore(args.ckpt, tree())
+        if mesh is not None:
+            opt_state = restored
+        else:
+            load_state_tree(model, opt_state, restored)
         start = int(extra.get("next_step", 0))
-        print(f"[resume] from step {start}")
+        say(f"[resume] from step {start}")
 
-    step_fn = make_train_step(model, tcfg)
+    step_fn = make_train_step(model, tcfg) if mesh is None else make_mesh_train_step(model, tcfg, mesh)
     data = batches(
         CorpusConfig(seed=17), batch=args.batch, seq=args.seq, vocab=cfg.vocab, device=dev
     )
@@ -81,7 +125,7 @@ def main(argv: Optional[List[str]] = None) -> Dict:
         loss = float(m["loss"])
         dt, straggling = hb.stop()
         gnorm = float(m["grad_norm"])
-        print(
+        say(
             f"step {step:5d} loss {loss:.4f} gnorm {gnorm:.3f} "
             f"{dt*1e3:.0f}ms{' STRAGGLER' if straggling else ''}",
             flush=True,
@@ -93,17 +137,13 @@ def main(argv: Optional[List[str]] = None) -> Dict:
             if pending is not None:
                 pending.join()
             pending = ckpt.save_async(
-                args.ckpt, step + 1, state_tree(model, opt_state),
-                extra={"next_step": step + 1},
+                args.ckpt, step + 1, tree(), extra={"next_step": step + 1},
             )
     if pending is not None:
         pending.join()
     if args.ckpt:
-        ckpt.save(
-            args.ckpt, args.steps, state_tree(model, opt_state),
-            extra={"next_step": args.steps},
-        )
-    print("[done]")
+        ckpt.save(args.ckpt, args.steps, tree(), extra={"next_step": args.steps})
+    say("[done]")
     out.update(model=model, opt_state=opt_state)
     return out
 

@@ -11,7 +11,16 @@ The MoE dispatch has two routes, selected by ``cfg.moe_route``:
   engines run on, with measured per-expert capacities and exact drop
   accounting.
 
-The reference's sharding hints for its TPU mesh have no counterpart here.
+The dense dispatch keeps the reference's four sharding hints
+(``_HINTS``, ``launch.shardings.constrain``, gated on expert parallelism
+as the reference gates them: ``moe_hints``).  They bind only on DTensor
+activations, and no path gives the dispatch those yet: the mesh train
+step runs the forward on plain tensors, so the hints wait for
+compute-side tensor parallelism.  When a mesh train step splits the
+batch over data ranks (``launch.shardings.batch_split``) each rank's
+capacity and arrival order are the whole batch's, as under the
+reference's ``jit``, so a rank keeps and drops exactly the pairs the
+single process does.
 """
 from __future__ import annotations
 
@@ -21,8 +30,38 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..launch.shardings import constrain, current_split, is_placed
+from ..launch.mesh import mesh_shape
 from .common import ArchConfig, gen_device, init_norm, rms_norm, scaled_init
 from .moe_routing import calibrated_dispatch, dense_capacity, router_pairs
+
+
+FSDP = ("pod", "data")
+# the dense dispatch's hints, a spec a site: the gathered pairs (t*k, d)
+# and the combined output (t, d) over FSDP x 'model', the dispatch buffer
+# (e, cap, d) experts on 'model' with d FSDP-aligned with the expert
+# weights' contraction dim, the experts' output (e, cap, d) feature-sharded
+_HINTS = {"src": (FSDP, "model"), "disp": ("model", None, FSDP),
+          "out": (None, None, "model"), "combined": (FSDP, "model")}
+
+
+def moe_hints(xf, e: int):
+    """``C(arr, site)``: ``arr`` under ``_HINTS[site]`` (``constrain``), or
+    as it is when experts are expert-parallel, as the reference gates its
+    hints: when ``e`` experts cannot spread over ``xf``'s mesh's ``'model'``
+    axis (grok-1: 8 against 16) the dispatch buffers' feature dim goes to
+    ``'model'``, so the scatter stays local to a shard; when EP engages
+    (``e % model == 0``, kimi-k2's 384) the layout is left alone.  A no-op
+    for a plain ``xf``."""
+    ep = False
+    if is_placed(xf):
+        ms = mesh_shape(xf.device_mesh)
+        ep = "model" in ms.axis_names and e % ms.shape["model"] == 0
+
+    def C(arr, site: str):
+        return arr if ep else constrain(arr, *_HINTS[site])
+
+    return C
 
 
 def init_mlp(gen: torch.Generator, cfg: ArchConfig, d_ff: int = 0) -> nn.ParameterDict:
@@ -80,24 +119,32 @@ def _dense_dispatch(p, xf: torch.Tensor, cfg: ArchConfig) -> Tuple[torch.Tensor,
     order, in the model's dtype, on any device."""
     t, d = xf.shape
     e, k = cfg.n_experts, cfg.topk
-    cap = dense_capacity(cfg, t)
 
     flat_e, flat_w, flat_tok = router_pairs(p, xf, cfg)
     onehot = F.one_hot(flat_e, e)  # (t*k, e)
     pos_in_e = torch.cumsum(onehot, dim=0) - onehot  # rank per expert
     my_pos = pos_in_e.gather(1, flat_e[:, None])[:, 0]
-    keep = my_pos < cap
+    split = current_split()
+    if split is None:
+        cap = dense_capacity(cfg, t)
+        keep = my_pos < cap
+    else:  # this rank's tokens follow the earlier slices' in arrival order
+        before, t_all = split.arrivals(onehot.sum(0), t)
+        cap = dense_capacity(cfg, t_all)
+        keep = my_pos + before[flat_e] < cap
+
+    C = moe_hints(xf, e)
 
     slot = torch.where(keep, flat_e * cap + my_pos, e * cap)  # overflow -> trash
-    src = xf[flat_tok]
+    src = C(xf[flat_tok], "src")
     disp = torch.zeros((e * cap + 1, d), dtype=xf.dtype, device=xf.device).index_copy(0, slot, src)
-    disp = disp[:-1].reshape(e, cap, d)
+    disp = C(disp[:-1].reshape(e, cap, d), "disp")
 
     # expert computation: one batched product per weight
     gi = torch.bmm(disp, p["wg"])
     hi = torch.bmm(disp, p["wi"])
     act = F.silu(gi.float()).to(hi.dtype) * hi
-    out_e = torch.bmm(act, p["wo"])  # (e, cap, d)
+    out_e = C(torch.bmm(act, p["wo"]), "out")  # (e, cap, d)
 
     gathered = torch.cat([out_e.reshape(e * cap, d), out_e.new_zeros((1, d))], dim=0)
     per_pair = (gathered[slot] * flat_w[:, None].to(gathered.dtype)).to(xf.dtype)
@@ -105,6 +152,7 @@ def _dense_dispatch(p, xf: torch.Tensor, cfg: ArchConfig) -> Tuple[torch.Tensor,
     combined = torch.zeros((t, d), dtype=xf.dtype, device=xf.device)
     for c in range(k):
         combined = combined + per_tok[:, c]
+    combined = C(combined, "combined")
     stats = {
         "routed": keep.sum().to(torch.int32),
         "dropped": (~keep).sum().to(torch.int32),
@@ -122,6 +170,9 @@ def moe_forward_stats(p, x: torch.Tensor, cfg: ArchConfig) -> Tuple[torch.Tensor
     xin = rms_norm(x, p["ln"], cfg.norm_eps)
     xf = xin.reshape(t, d)
     if cfg.moe_route == "calibrated":
+        if current_split() is not None:
+            raise NotImplementedError("the calibrated MoE route has no split-batch train step: "
+                                      "its measured capacities are a rank's own")
         combined, stats = calibrated_dispatch(p, xf, cfg)
     elif cfg.moe_route == "dense":
         combined, stats = _dense_dispatch(p, xf, cfg)

@@ -14,7 +14,7 @@ bit for bit.  Stochastic rounding draws from an explicit
 """
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Callable, Dict, Optional
 
 import torch
 
@@ -47,13 +47,22 @@ def dequantize_int8(q: torch.Tensor, scale: torch.Tensor, dtype=torch.float32) -
 
 
 def codec_roundtrip(tensors: Dict[str, torch.Tensor], generator: Optional[torch.Generator] = None,
-                    leaves: Optional[Leaves] = None) -> Dict[str, torch.Tensor]:
+                    leaves: Optional[Leaves] = None,
+                    amax_over: Optional[Callable[[torch.Tensor], torch.Tensor]] = None
+                    ) -> Dict[str, torch.Tensor]:
     """Quantize and dequantize every tensor, one scale per leaf (``leaves``
     as in ``train/optim.py``: a stacked leaf shares the reference's one
-    scale over its layers)."""
+    scale over its layers).  ``amax_over`` maps the vector of the leaves'
+    largest magnitudes here to the whole tensors' (a maximum over the ranks
+    when ``tensors`` are a rank's shards)."""
+    groups = leaves_of(tensors, leaves)
+    amax = torch.stack([torch.stack([tensors[k].float().abs().max() for k in names]).max()
+                        for names, _ in groups])
+    if amax_over is not None:
+        amax = amax_over(amax)
     out = {}
-    for names, _ in leaves_of(tensors, leaves):
-        scale = _scale(*(tensors[k] for k in names))
+    for (names, _), m in zip(groups, amax):
+        scale = torch.clamp(m, min=1e-12) / 127.0
         for k in names:
             out[k] = dequantize_int8(_int8(tensors[k], scale, generator), scale, tensors[k].dtype)
     return out

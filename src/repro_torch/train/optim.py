@@ -24,7 +24,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -67,8 +67,12 @@ def global_norm(tensors: Tensors) -> torch.Tensor:
     return torch.sqrt(sum(torch.sum(torch.square(t.float())) for t in tensors.values()))
 
 
-def clip_by_global_norm(grads: Tensors, max_norm: float) -> Tuple[Tensors, torch.Tensor]:
-    g = global_norm(grads)
+def clip_by_global_norm(grads: Tensors, max_norm: float,
+                        norm_of: Callable[[Tensors], torch.Tensor] = global_norm
+                        ) -> Tuple[Tensors, torch.Tensor]:
+    """``grads`` scaled to at most ``max_norm`` and their norm (``norm_of``:
+    on a mesh, the norm of the whole tensors a rank's shards belong to)."""
+    g = norm_of(grads)
     scale = torch.clamp(max_norm / (g + 1e-9), max=1.0)
     return {k: (t.float() * scale).to(t.dtype) for k, t in grads.items()}, g
 

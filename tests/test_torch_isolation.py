@@ -48,7 +48,7 @@ def test_port_modules_exist():
         "models/whisper.py", "examples/quickstart.py", "examples/gym_fault_tolerance.py",
         "examples/serve_joins.py", "examples/moe_routing.py", "examples/serve_decode.py",
         "examples/train_lm.py", "launch/dryrun.py", "launch/roofline.py",
-        "launch/mesh.py",
+        "launch/mesh.py", "launch/shardings.py",
     ):
         assert mod in names, mod
     assert (PKG / "csrc" / "gym_kernels.cu").exists()
