@@ -169,14 +169,32 @@ an H100) and the CUDA toolkit.  In order it:
    rank its data slice).  Gates: every rank's loss and grad norm equal,
    and within the train phase's accumulation tolerances of the single
    process' step that rank 0 runs from the same state and batch with the
-   mesh's two data slices as its two microbatches, the updated parameters
-   too (the same step with one microbatch is printed beside it, a
-   control); each rank's resident bytes (its local shards)
+   mesh's two data slices as its two microbatches, its gated MLPs' products
+   split on the mesh's 4 model shards as the mesh splits them
+   (``split_products``), the updated parameters too (the single process'
+   step with one product a weight, and the same with one microbatch, a
+   control, are printed beside it); then the same step in f32, held with
+   the same tolerances to the single process with one product a weight;
+   each rank's resident bytes (its local shards)
    equal the dry run's per-device argument bytes for that mesh
    (``launch/dryrun.py::mesh_cells``); the checkpoint saved on ``(2, 4)``
    restores onto ``(8, 1)`` and, after the spawn, onto this process,
-   every leaf bit-equal.  It prints each rank's step wall and collective
-   seconds and shard bytes, and the checkpoint's save and load seconds;
+   every leaf bit-equal; each rank's ``torch.cuda.max_memory_allocated``
+   in the step, less what it held that is not the step's, within
+   ``DRYRUN_PEAK_RATIO`` of rank 0's per-device peak in the dry run's
+   fake-PG ``meta`` trace of the same cell (``launch/dryrun.py::mesh_trace``).
+   The step is the partitioned one: each layer gathers its data-axis
+   shards inside its (rematerialized) call and computes on its ``"model"``
+   shards where the split allows it (smollm-360m's 15 heads on 4 do not
+   split, so its attention computes replicated; its MLP splits).  Then
+   the same ranks serve (``lm_serve_rank``, ``serve/mesh.py::MeshServer``):
+   the same model in f32, the TP-only placement, its 5 K/V heads on
+   a ``"model"`` of 4 splitting the cache on the sequence; 2 x 256 prompt
+   tokens and 8 greedy tokens, which must equal rank 0's single-process
+   ``generate`` with logits within ``MESH_SERVE_LOGIT_REL`` of its
+   largest.  It prints each rank's step wall and collective
+   seconds and shard bytes, both entries' collective bytes by kind, and
+   the checkpoint's save and load seconds;
 12. (phase ``lm``) drives the port's LM serving path — ``generate`` over
    ``DecoderLM.prefill`` and ``decode_step`` — on gemma2-9b at full width
    and depth in bf16 with random weights from ``--seed``: a batch of two
@@ -2369,12 +2387,25 @@ MESH_ALLREDUCE_N = 2**26
 # 2e-5 / rtol 2e-4 on all but TRAIN_FEW, those within 2 lr), the grad norm
 # to rtol 1e-4.  Against one microbatch a bf16 step moved 1.09% of the
 # parameters 2 lr the other way (32 layers, the same card): the control
-# printed beside the gate
+# printed beside the gate.  The step computes its MLP on the "model"
+# shards, whose row-parallel products differ from the single process' one
+# product a weight in their order of sums (and cuBLAS's in their shapes):
+# in bf16 that alone moves some parameters 2 lr the other way, so the
+# single process the bf16 step is held to runs its MLP products on the
+# same shards (split_products), and the one-product step is printed beside
+# it; the same step then runs in f32, where the order of sums stays
+# inside the tolerances, held to the one-product single process
 MESH_LM_SHAPE = (2, 4)
 MESH_LM_BATCH, MESH_LM_SEQ, MESH_LM_LAYERS = 8, 256, 2
 MESH_LM_GNORM_RTOL = 1e-4
 # the checkpoint saved on MESH_LM_SHAPE restores onto this mesh
 MESH_LM_RESTORE = (8, 1)
+# the serving entry on the same ranks: f32, MESH_LM_LAYERS deep, prompts
+# MESH_SERVE_BATCH x MESH_LM_SEQ, MESH_SERVE_STEPS greedy tokens, a cache of
+# MESH_SERVE_CACHE positions (a multiple of the "model" axis' 4: split on
+# the sequence); logits within MESH_SERVE_LOGIT_REL of the largest
+MESH_SERVE_BATCH, MESH_SERVE_STEPS, MESH_SERVE_CACHE = 2, 8, 268
+MESH_SERVE_LOGIT_REL = 1e-4
 
 
 def mesh_lm_config():
@@ -2383,6 +2414,72 @@ def mesh_lm_config():
     from repro_torch.configs import get_config
 
     return dataclasses.replace(get_config(TRAIN_ARCH), n_layers=MESH_LM_LAYERS)
+
+
+@contextlib.contextmanager
+def split_products(m: int):
+    """The single process' gated MLPs on a ``"model"`` axis of ``m``
+    ranks' arithmetic, in one process (the mesh step's plain version):
+    ``models/mlp.py`` takes its split path, whose products
+    (``launch/shardings.py``'s ``col_product``, ``row_product``,
+    ``from_model``) run here on each rank's block of the whole weight in
+    turn, each of the shape the rank's shard has: ``wi``/``wg`` on column
+    blocks, ``wo`` on row blocks, the row blocks' f32 products and the
+    column products' f32 input gradients summed in f64 and rounded once
+    (``_model_sum``, whose sum is the same in any order)."""
+    import torch
+    from repro_torch.launch import shardings as SH
+    from repro_torch.models import mlp
+
+    def blocks(t, dim):
+        n = t.shape[dim] // m
+        return [t.narrow(dim, r * n, n).contiguous() for r in range(m)]
+
+    def rows(t):  # a (..., k) tensor as (tokens, k)
+        return t.reshape(-1, t.shape[-1])
+
+    class Cols(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, x, w):
+            ws = blocks(w, 1)
+            ctx.save_for_backward(x, *ws)
+            return torch.cat([x @ b for b in ws], dim=-1)
+
+        @staticmethod
+        def backward(ctx, dy):
+            x, *ws = ctx.saved_tensors
+            dys = blocks(dy, dy.dim() - 1)
+            dx = sum(SH._f32_product(d, b.transpose(-1, -2)).double() for d, b in zip(dys, ws))
+            dw = torch.cat([rows(x).transpose(0, 1) @ rows(d) for d in dys], dim=1)
+            return dx.to(x.dtype), dw
+
+    class Rows(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, a, w):
+            parts, ws = blocks(a, a.dim() - 1), blocks(w, 0)
+            ctx.save_for_backward(*parts, *ws)
+            return sum(SH._f32_product(x, b).double() for x, b in zip(parts, ws))
+
+        @staticmethod
+        def backward(ctx, dy):
+            saved = ctx.saved_tensors
+            parts, ws = saved[:m], saved[m:]
+            dy = dy.to(parts[0].dtype)
+            da = torch.cat([dy @ b.transpose(-1, -2) for b in ws], dim=-1)
+            dw = torch.cat([rows(x).transpose(0, 1) @ rows(dy) for x in parts], dim=0)
+            return da, dw
+
+    swapped = [(mlp, "_ff_split", lambda p: True), (SH, "col_product", Cols.apply),
+               (SH, "row_product", Rows.apply),
+               (SH, "from_model", lambda x, dtype=torch.float32: x.to(dtype))]
+    before = [(mod, name, getattr(mod, name)) for mod, name, _ in swapped]
+    try:
+        for mod, name, fn in swapped:
+            setattr(mod, name, fn)
+        yield
+    finally:
+        for mod, name, fn in before:
+            setattr(mod, name, fn)
 
 
 def leaf_digests(tree) -> dict:
@@ -2404,18 +2501,22 @@ def leaf_digests(tree) -> dict:
         return dict(zip(flat, pool.map(one, flat.values())))
 
 
-def lm_mesh_rank(seed: int, tmp: str, cfg=None, device_type: str = "cuda") -> dict:
+def lm_mesh_rank(seed: int, tmp: str, cfg=None, device_type: str = "cuda",
+                 save: bool = True) -> dict:
     """One rank of the LM mesh entry (the mesh phase's gloo world, whose
     size is the product of ``MESH_LM_SHAPE``): place smollm-360m's
     parameters and AdamW state on that mesh, take one step on this rank's
-    slice of a seeded global batch, save a checkpoint to ``tmp`` and
-    restore it onto ``MESH_LM_RESTORE``.  Every rank returns its step's
-    metrics, wall and collective seconds, and its resident bytes (the sum
-    of its local shards, and the dry run's per-device argument bytes for
-    the mesh).  Rank 0 also runs the single process' step from the same
-    state and batch, the mesh's data slices as its microbatches, and the
-    control with one microbatch, and returns the gaps, and the digests of
-    the state both meshes hold (each gathered to it)."""
+    slice of a seeded global batch and, with ``save``, save a checkpoint
+    to ``tmp`` and restore it onto ``MESH_LM_RESTORE``.  Every rank
+    returns its step's metrics, wall and collective seconds, and its
+    resident bytes (the sum of its local shards, and the dry run's
+    per-device argument bytes for the mesh).  Rank 0 also runs the single
+    process' step from the same state and batch, the mesh's data slices
+    as its microbatches, and the control with one microbatch, and returns
+    the gaps (``single``: the gate's, whose MLP products split as the
+    mesh's where ``cfg`` is narrower than f32, ``split_products``;
+    ``plain``, there, the one-product step), and with ``save`` the digests
+    of the state both meshes hold (each gathered to it)."""
     import torch
     import torch.distributed as dist
     from repro_torch.configs import get_model
@@ -2452,17 +2553,25 @@ def lm_mesh_rank(seed: int, tmp: str, cfg=None, device_type: str = "cuda") -> di
         cfg=cfg, batch=MESH_LM_BATCH, seq=MESH_LM_SEQ, tcfg=tcfg))[ms]["memory"]
     step = make_mesh_train_step(model, tcfg, mesh)
     spent = dict(collective_s=0.0)
+    resident = SH.resident_bytes(state) + SH.resident_bytes(placed)
     with mesh_timers(spent, [(SH, "_all_gather_bytes", "collective_s"),
                              (SH, "_reduce_scatter", "collective_s"),
-                             (SH, "all_reduce", "collective_s")], sync):
+                             (SH, "all_reduce", "collective_s")], sync), SH.counting() as coll:
         sync()
+        # what this rank holds that is not the step's arguments (the
+        # whole batch, the gym cases' leftovers), less from its peak
+        held = (torch.cuda.memory_allocated() - resident) if cuda else 0
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         m = step(state, placed)
         loss, gnorm = m["loss"].item(), m["grad_norm"].item()
         sync()
         step_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() if cuda else 0
     out = dict(loss=loss, gnorm=gnorm, step_s=step_s, collective_s=spent["collective_s"],
-               resident=SH.resident_bytes(state) + SH.resident_bytes(placed),
+               peak=peak, held=held, coll=coll.by_kind(),
+               resident=resident,
                shard_bytes=dict(params=SH.resident_bytes(state["params"]),
                                 opt=SH.resident_bytes(state["opt"]), batch=SH.resident_bytes(placed)),
                reckoned=reckoned["argument_size_in_bytes"],
@@ -2471,19 +2580,29 @@ def lm_mesh_rank(seed: int, tmp: str, cfg=None, device_type: str = "cuda") -> di
     if lead:
         tol = dict(atol=2e-5, rtol=2e-4)
         # accum: the mesh's data slices as microbatches (the gate), then one
-        # microbatch (the control, report only)
-        for key, accum, bound in (("single", MESH_LM_SHAPE[0], 2 * TRAIN_ACCUM_LR + 2e-5),
-                                  ("control", 1, float("inf"))):
+        # microbatch (the control, report only); in bf16 the gate's single
+        # process splits its MLP products as the mesh does, and the one with
+        # one product a weight is reported beside it
+        narrow = cfg.dtype != "float32"
+        refs = [("single", MESH_LM_SHAPE[0], 2 * TRAIN_ACCUM_LR + 2e-5, narrow),
+                ("control", 1, float("inf"), False)]
+        if narrow:
+            refs.insert(1, ("plain", MESH_LM_SHAPE[0], float("inf"), False))
+        for key, accum, bound, split in refs:
             single = fresh()
             stcfg = dataclasses.replace(tcfg, accum=accum)
             sopt = init_train_state(single, stcfg)
-            sm = make_train_step(single, stcfg)(sopt, batch)
+            with split_products(MESH_LM_SHAPE[1]) if split else contextlib.nullcontext():
+                sm = make_train_step(single, stcfg)(sopt, batch)
             mine = {k: whole[f"params/{k}"] for k, _ in single.named_parameters()}
             theirs = {k: p.detach() for k, p in single.named_parameters()}
             bad, total, worst = _mismatch(torch, mine, theirs, tol, bound)
             out[key] = dict(loss=sm["loss"].item(), gnorm=sm["grad_norm"].item(), bad=bad,
-                            total=total, worst=worst, accum=accum)
+                            total=total, worst=worst, accum=accum, split=split)
             del single, sopt, mine, theirs
+    if not save:
+        out["entry_s"] = time.perf_counter() - t_entry
+        return out
     # the checkpoint: saved on this mesh, restored onto MESH_LM_RESTORE
     t0 = time.perf_counter()
     ckpt.save(os.path.join(tmp, "lm-mesh"), 1, state, extra={"next_step": 1})
@@ -2506,51 +2625,76 @@ def lm_mesh_rank(seed: int, tmp: str, cfg=None, device_type: str = "cuda") -> di
     return out
 
 
-def lm_mesh_checks(torch, per: list, tmp: str) -> None:
-    """The LM mesh entry's figures and gates over every rank's
-    ``lm_mesh_rank`` (see the module doc), then the checkpoint restored
-    onto this process."""
+def lm_serve_rank(seed: int, device_type: str = "cuda") -> dict:
+    """One rank of the LM mesh's serving entry (see the module doc):
+    ``MeshServer`` over the ``MESH_LM_SHAPE`` mesh, greedy ``generate`` of
+    the whole batch on every rank.  Rank 0 also runs the single process'
+    ``generate`` on the same weights and prompts and returns the gaps."""
+    import torch
+    import torch.distributed as dist
     from repro_torch.configs import get_model
-    from repro_torch.train import OptConfig, TrainConfig, init_train_state
-    from repro_torch.train import checkpoint as ckpt
-    from repro_torch.train.step import state_tree
+    from repro_torch.kernels import ops as K
+    from repro_torch.launch import shardings as SH
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.serve import generate
+    from repro_torch.serve.mesh import MeshServer
 
-    name = f"mesh lm {TRAIN_ARCH} {MESH_LM_SHAPE}"
+    cuda = device_type == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    dev = torch.device("cuda", torch.cuda.current_device()) if cuda else torch.device("cpu")
+    cfg = dataclasses.replace(mesh_lm_config(), dtype="float32")
+    mesh = make_debug_mesh(*MESH_LM_SHAPE, device_type)
+
+    def fresh():
+        return get_model(cfg, dev, generator=torch.Generator(device=dev).manual_seed(seed))
+
+    gen = torch.Generator(device=dev).manual_seed(seed + 2)
+    prompt = torch.randint(0, cfg.vocab, (MESH_SERVE_BATCH, MESH_LM_SEQ), generator=gen, device=dev)
+    srv = MeshServer(fresh(), mesh)
+    K.reset_launch_counts()
+    with SH.counting() as coll:
+        sync()
+        t0 = time.perf_counter()
+        toks, logits = srv.generate(prompt, steps=MESH_SERVE_STEPS, s_cache=MESH_SERVE_CACHE,
+                                    return_logits=True)
+        sync()
+        wall = time.perf_counter() - t0
+    out = dict(wall_s=wall, coll=coll.by_kind(), kv=srv.kv, tp_only=srv.tp_only,
+               flash=K.launch_counts()["flash_attention"], tokens=toks.cpu())
+    if dist.get_rank() == 0:
+        want_t, want_l = generate(fresh(), prompt, steps=MESH_SERVE_STEPS, s_cache=MESH_SERVE_CACHE,
+                                  return_logits=True)
+        out["equal"] = torch.equal(toks, want_t)
+        out["rel"] = float((logits - want_l).abs().max() / want_l.abs().max())
+    return out
+
+
+def lm_mesh_parity(per: list, dtype: str) -> None:
+    """The LM mesh entry's figures and gates against rank 0's
+    single-process steps, over every rank's ``lm_mesh_rank`` in
+    ``dtype``."""
+    name = f"mesh lm {TRAIN_ARCH} {MESH_LM_SHAPE} {dtype}"
     x0 = per[0]
     s, c = x0["single"], x0["control"]
-    t_checks = time.perf_counter()
-    model = get_model(mesh_lm_config(), "cuda")
-    tcfg = TrainConfig(opt=OptConfig(lr=TRAIN_ACCUM_LR, warmup=1))
-    t0 = time.perf_counter()
-    tree, extra = ckpt.restore(os.path.join(tmp, "lm-mesh"), state_tree(model, init_train_state(model, tcfg)))
-    torch.cuda.synchronize()
-    load_s = time.perf_counter() - t0
-    one = extra == {"next_step": 1} and leaf_digests(tree) == x0["digests"]
-    checks_s = time.perf_counter() - t_checks
-    del model, tree
-    shutil.rmtree(os.path.join(tmp, "lm-mesh"), ignore_errors=True)
-    torch.cuda.empty_cache()
-    print(f"{name}: bf16, {MESH_LM_LAYERS} of 32 layers, one step on {MESH_LM_BATCH} x "
-          f"{MESH_LM_SEQ} tokens (cut from the train phase's {TRAIN_BATCH} x {TRAIN_SEQ}) over "
-          f"{len(per)} gloo ranks sharing the card: step "
-          f"wall_s per rank={[round(x['step_s'], 4) for x in per]} collective_s per rank="
-          f"{[round(x['collective_s'], 4) for x in per]}; loss={x0['loss']:.7f} "
-          f"grad_norm={x0['gnorm']:.7f}, the single process' at accum={s['accum']} "
-          f"{s['loss']:.7f} / {s['gnorm']:.7f} "
-          f"(rel {abs(x0['loss'] - s['loss']) / abs(s['loss']):.3g} / "
-          f"{abs(x0['gnorm'] - s['gnorm']) / s['gnorm']:.3g}, bounds 1e-05 / {MESH_LM_GNORM_RTOL}); "
-          f"parameters outside atol 2e-5 / rtol 2e-4 {s['bad']} of {s['total']} (max |d| "
-          f"{s['worst']:.3g}, bound {TRAIN_FEW} of them); the control at accum={c['accum']} "
-          f"(report only): loss {c['loss']:.7f}, grad_norm {c['gnorm']:.7f}, parameters outside "
-          f"{c['bad']} of {c['total']} ({c['bad'] / c['total']:.4%}, max |d| {c['worst']:.3g}); "
-          f"shard bytes per rank="
-          f"{[x['shard_bytes'] for x in per]} (resident {[x['resident'] for x in per]}, the dry "
-          f"run's per-device argument bytes {x0['reckoned']}); checkpoint save_s="
-          f"{max(x['save_s'] for x in per):.4f}, restore onto {MESH_LM_RESTORE} load_s="
-          f"{max(x['load_s'] for x in per):.4f} bit-equal: {x0['equal']}; onto this process "
-          f"load_s={load_s:.4f} bit-equal (sha256 a leaf): {one}; the entry's wall "
-          f"{max(x['entry_s'] for x in per):.2f} s on the ranks (slowest) and {checks_s:.2f} s in this "
-          f"process", flush=True)
+
+    def gaps(r):
+        return (f"loss {r['loss']:.7f}, grad_norm {r['gnorm']:.7f}, parameters outside atol 2e-5 / "
+                f"rtol 2e-4 {r['bad']} of {r['total']} ({r['bad'] / r['total']:.4%}, max |d| "
+                f"{r['worst']:.3g})")
+
+    how = "its MLP products split as the mesh's" if s["split"] else "one product a weight"
+    note = (f"; the one-product single process (report only): {gaps(x0['plain'])}"
+            if "plain" in x0 else "")
+    print(f"{name}: step wall_s per rank={[round(x['step_s'], 4) for x in per]} collective_s per "
+          f"rank={[round(x['collective_s'], 4) for x in per]}; loss={x0['loss']:.7f} "
+          f"grad_norm={x0['gnorm']:.7f}; the single process at accum={s['accum']}, {how}: "
+          f"{gaps(s)} (rel {abs(x0['loss'] - s['loss']) / abs(s['loss']):.3g} / "
+          f"{abs(x0['gnorm'] - s['gnorm']) / s['gnorm']:.3g}, bounds 1e-05 / {MESH_LM_GNORM_RTOL}; "
+          f"parameters: {TRAIN_FEW} of them, max |d| 2 lr + 2e-5){note}; the control at "
+          f"accum={c['accum']} (report only): {gaps(c)}; resident bytes per rank "
+          f"{[x['resident'] for x in per]} (the dry run's per-device argument bytes "
+          f"{x0['reckoned']}); the entry's wall {max(x['entry_s'] for x in per):.2f} s on the "
+            f"ranks (slowest)", flush=True)
     check(all(x["loss"] == x0["loss"] and x["gnorm"] == x0["gnorm"] for x in per),
           f"{name}: the ranks' metrics differ")
     check(abs(x0["loss"] - s["loss"]) <= 1e-5 * abs(s["loss"])
@@ -2563,9 +2707,78 @@ def lm_mesh_checks(torch, per: list, tmp: str) -> None:
         check(x["resident"] == x["reckoned"],
               f"{name}: rank {r} holds {x['resident']} bytes, the dry run reckons {x['reckoned']} "
               f"({x['shard_bytes']} vs {x['reckoned_parts']})")
+
+
+def lm_mesh_checks(torch, per: list, tmp: str, served=None, per32=None) -> None:
+    """The LM mesh entry's figures and gates over every rank's
+    ``lm_mesh_rank`` in bf16 (``per``) and f32 (``per32``) (see the module
+    doc), then the checkpoint restored onto this process."""
+    from repro_torch.configs import get_model
+    from repro_torch.launch.dryrun import mesh_trace
+    from repro_torch.launch.mesh import MeshShape
+    from repro_torch.train import OptConfig, TrainConfig, init_train_state
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train.step import state_tree
+
+    name = f"mesh lm {TRAIN_ARCH} {MESH_LM_SHAPE}"
+    x0 = per[0]
+    t_checks = time.perf_counter()
+    tcfg = TrainConfig(opt=OptConfig(lr=TRAIN_ACCUM_LR, warmup=1))
+    t0 = time.perf_counter()
+    traced = mesh_trace(TRAIN_ARCH, "train_4k", MeshShape(("data", "model"), MESH_LM_SHAPE),
+                        dict(cfg=mesh_lm_config(), batch=MESH_LM_BATCH, seq=MESH_LM_SEQ, tcfg=tcfg))
+    trace_s = time.perf_counter() - t0
+    ratios = [(x["peak"] - x["held"]) / traced["peak"] for x in per]
+    model = get_model(mesh_lm_config(), "cuda")
+    t0 = time.perf_counter()
+    tree, extra = ckpt.restore(os.path.join(tmp, "lm-mesh"), state_tree(model, init_train_state(model, tcfg)))
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    one = extra == {"next_step": 1} and leaf_digests(tree) == x0["digests"]
+    checks_s = time.perf_counter() - t_checks
+    del model, tree
+    shutil.rmtree(os.path.join(tmp, "lm-mesh"), ignore_errors=True)
+    torch.cuda.empty_cache()
+    print(f"{name}: {MESH_LM_LAYERS} of 32 layers, one step on {MESH_LM_BATCH} x {MESH_LM_SEQ} "
+          f"tokens (cut from the train phase's {TRAIN_BATCH} x {TRAIN_SEQ}) over {len(per)} gloo "
+          f"ranks sharing the card, in bf16 then in f32", flush=True)
+    lm_mesh_parity(per, "bf16")
+    if per32:
+        lm_mesh_parity(per32, "f32")
+    print(f"{name} bf16: shard bytes per rank={[x['shard_bytes'] for x in per]}; checkpoint save_s="
+          f"{max(x['save_s'] for x in per):.4f}, restore onto {MESH_LM_RESTORE} load_s="
+          f"{max(x['load_s'] for x in per):.4f} bit-equal: {x0['equal']}; onto this process "
+          f"load_s={load_s:.4f} bit-equal (sha256 a leaf): {one}; {checks_s:.2f} s in this "
+          f"process", flush=True)
+    print(f"{name} bf16: per-device peak measured (max_memory_allocated less what the rank held "
+          f"that is not the step's) per rank={[x['peak'] - x['held'] for x in per]} / the dry "
+          f"run's fake-PG trace of rank 0 {traced['peak']} = {[round(r, 4) for r in ratios]} "
+          f"(bounds {DRYRUN_PEAK_RATIO}; trace {trace_s:.2f} s); collective bytes by kind on rank 0 "
+          f"{x0['coll']} (the trace's {traced['coll'].by_kind()}: the step's own, without the "
+          f"global batch's gather); leaves gathered over 'model' {traced['model_gathered']}",
+          flush=True)
+    for r, ratio in enumerate(ratios):
+        check(DRYRUN_PEAK_RATIO[0] <= ratio <= DRYRUN_PEAK_RATIO[1],
+              f"{name}: rank {r} measured/traced peak {ratio:.4f} outside {DRYRUN_PEAK_RATIO}")
+    for r, x in enumerate(per):
         check(x["restored_on"] == [MESH_LM_RESTORE], f"{name}: rank {r} restored onto {x['restored_on']}")
     check(x0["equal"], f"{name}: the {MESH_LM_RESTORE} restore is not bit-equal to the state saved")
     check(one, f"{name}: the checkpoint restored onto one process is not bit-equal to the mesh state")
+    if served is None:
+        return
+    name = f"mesh serve {TRAIN_ARCH} {MESH_LM_SHAPE}"
+    v0 = served[0]
+    print(f"{name}: f32, {MESH_LM_LAYERS} layers, TP-only placement {v0['tp_only']}, KV cache split "
+          f"{v0['kv']}; {MESH_SERVE_BATCH} x {MESH_LM_SEQ} prompt tokens, {MESH_SERVE_STEPS} greedy "
+          f"tokens, cache {MESH_SERVE_CACHE}: wall_s per rank={[round(x['wall_s'], 4) for x in served]}, "
+          f"flash launches per rank={[x['flash'] for x in served]}; tokens equal rank 0's single "
+          f"process: {v0['equal']}, logits max |d| / max |logit| {v0['rel']:.3g} (bound "
+          f"{MESH_SERVE_LOGIT_REL}); collective bytes by kind on rank 0 {v0['coll']}", flush=True)
+    check(v0["kv"] == ("seq", MESH_SERVE_CACHE), f"{name}: the cache splits as {v0['kv']}, not on the sequence")
+    check(all(torch.equal(x["tokens"], v0["tokens"]) for x in served), f"{name}: the ranks' tokens differ")
+    check(v0["equal"], f"{name}: tokens differ from the single process'")
+    check(v0["rel"] <= MESH_SERVE_LOGIT_REL, f"{name}: logits {v0['rel']:.3g} from the single process'")
+    check(all(x["flash"] > 0 for x in served), f"{name}: a rank's prefill launched no flash kernel")
 
 
 def gym_result(rows, schema, led) -> dict:
@@ -2790,8 +3003,9 @@ def mesh_rank(mesh, seed: int, cases, real, entries=(), snaps=None, go=None, lm=
         return dict(ready=ready, cases=out)
     K.reset_launch_counts()
     res = lm_mesh_rank(seed, lm)
+    f32 = lm_mesh_rank(seed, lm, dataclasses.replace(mesh_lm_config(), dtype="float32"), save=False)
     res["launches"] = dict(K.launch_counts())
-    return dict(ready=ready, cases=out, lm=res)
+    return dict(ready=ready, cases=out, lm=res, lm_f32=f32, serve=lm_serve_rank(seed))
 
 
 def nccl_here(seed: int, cases, entries, snaps):
@@ -2957,7 +3171,10 @@ def mesh_phase(torch, seed: int, gym_summary=None, wire_summary=None, sizes=("be
             lm = [r["lm"] for r in runs[0][0]]
             check(all(sum(x["launches"].values()) == 0 for x in lm),
                   "mesh lm: a training step launched a kernel (it has none)")
-            lm_mesh_checks(torch, lm, lm_dir)
+            served = [r["serve"] for r in runs[0][0]]
+            lm_mesh_checks(torch, lm, lm_dir, served, [r["lm_f32"] for r in runs[0][0]])
+            # the serving ranks' flash launches are the mesh path's too
+            totals["flash_attention"] = sum(x["flash"] for x in served)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     for (backend, p, pcases), (res, total, spawn_s, prep_s) in zip(meshes, runs):

@@ -17,15 +17,27 @@ keyed ``arch|shape`` (``arch|shape|single`` on a mesh); an ``ok`` cell is
 skipped unless ``--force``.
 
 ``--mesh``: ``one`` (the default) is the one-card run below; ``single``
-and ``multi`` (``both``: the two) give each cell's **per-device**
-argument bytes on the ``(16, 16)`` or ``(2, 16, 16)`` production mesh
-: parameters, optimizer state, batch and caches, each leaf
-its shard under ``launch/shardings.py``'s placements (a prefill or decode
-cell's parameters TP-only when the model fits 8 GiB a ``"model"`` shard,
-as in the reference), and ``fits``, those bytes at most ``FIT_SHARE`` of
-``HBM_BYTES`` (``mesh_cells``).  That is arithmetic on shapes and the device-free mesh
-shape: no rank and no trace.  The per-device peak and the collective
-bytes of a sharded step are not reckoned.
+and ``multi`` (``both``: the two) run the reference's ``run_cell(arch,
+shape, mesh_kind)`` on the ``(16, 16)`` or ``(2, 16, 16)`` production
+mesh (``mesh_cell``):
+
+- each cell's **per-device** argument bytes: parameters, optimizer
+  state, batch and caches, each leaf its shard under
+  ``launch/shardings.py``'s placements (a prefill or decode cell's
+  parameters TP-only when the model fits 8 GiB a ``"model"`` shard, as in
+  the reference), and ``args_fit``, those bytes at most ``FIT_SHARE`` of
+  ``HBM_BYTES`` (``mesh_cells``: arithmetic on shapes, no rank);
+- a trace of **rank 0** of the partitioned step on ``meta`` under a fake
+  process group of 256 or 512 ranks (``launch/mesh.py::fake_mesh``):
+  train, ``make_mesh_train_step``'s ``on_slices``; prefill and decode,
+  ``serve/mesh.py::MeshServer`` on the serving placements, the KV caches
+  under ``cache_spec``.  It records the per-device reckoned peak
+  (``StepTracker``, as below) and ``fits`` on it, flops and bytes
+  accessed, the collective bytes by kind and mesh axis
+  (``shardings.counting``) and their global totals (x chips, as the
+  reference's ``dryrun.py:146-152``), the three roofline terms, and the
+  leaves gathered whole over ``"model"`` (a split that is not
+  head-aligned, or a block that computes replicated).
 
 What a cell runs (``run_cell``): train, ``make_train_step`` under
 ``TrainConfig(opt=_opt_for(arch), remat=True)`` on ``input_specs``'
@@ -78,7 +90,7 @@ from ..kernels import flash_attention as _fa
 from ..train import OptConfig, TrainConfig, init_train_state, make_train_step
 from . import roofline as rf
 from . import shardings as sh
-from .mesh import production_mesh_shape
+from .mesh import fake_mesh, production_mesh_shape
 
 RESULTS = os.path.join(os.path.dirname(__file__), "..", "..", "..", "dryrun_results_torch.json")
 #: the share of the card a cell's peak may take (the chip phases' rule,
@@ -288,8 +300,6 @@ def _max_batch(arch, shape, cfg, b, s, s_cache, tcfg, peak_b, limit) -> int:
 # ------------------------------------------------------- on a mesh
 #: ``--mesh`` kinds: the reference's production meshes
 MESHES = {"single": production_mesh_shape(), "multi": production_mesh_shape(multi_pod=True)}
-#: a serving model whose ``"model"`` shard fits this takes TP-only weights
-SERVE_TP_ONLY_BYTES = 8 << 30
 
 
 def shard_bytes(tree, specs, mesh) -> int:
@@ -315,6 +325,7 @@ def mesh_cells(arch: str, shape: str, mesh_kinds: Sequence,
     ``MeshShape``, all from one meta model; ``overrides`` as
     ``run_cell``'s.  The reference's decode cache length is an int32 on
     every device: 4 bytes beside the caches."""
+    from ..serve.mesh import serve_tp_only
     ov = dict(overrides or {})
     cfg = ov.pop("cfg", None) or get_config(arch)
     s, b, kind = SHAPES[shape]
@@ -335,7 +346,7 @@ def mesh_cells(arch: str, shape: str, mesh_kinds: Sequence,
                      "opt_state": (opt, sh.opt_state_specs(cfg, opt, ms)),
                      "batch": (specs["batch"], sh.batch_specs(specs["batch"], ms))}
         else:
-            tp_only = storage_bytes(params.values()) // ms.shape["model"] <= SERVE_TP_ONLY_BYTES
+            tp_only = serve_tp_only(params, ms)
             parts = {"params": (params, sh.param_specs(cfg, params, ms, serve_tp_only=tp_only))}
             if kind == "prefill":
                 parts["batch"] = (specs["batch"], sh.batch_specs(specs["batch"], ms))
@@ -356,6 +367,160 @@ def mesh_cells(arch: str, shape: str, mesh_kinds: Sequence,
             "fits": total <= FIT_SHARE * rf.HBM_BYTES,
         }
     return out
+
+
+def _placed(t: torch.Tensor, mesh, spec) -> Any:
+    """A ``meta`` DTensor on ``mesh`` holding a ``meta`` local shard of
+    ``t`` under ``spec``."""
+    from torch.distributed.tensor import DTensor
+
+    pl = sh.placements(spec, mesh)
+    mine = torch.empty(sh.shard_shape(t.shape, spec, mesh), dtype=t.dtype, device="meta")
+    return DTensor.from_local(mine, mesh, pl, run_check=False, shape=t.shape,
+                              stride=sh._contiguous_stride(t.shape))
+
+
+def _meta_slice(t: torch.Tensor, spec, mesh) -> torch.Tensor:
+    return torch.empty(sh.shard_shape(t.shape, spec, mesh), dtype=t.dtype, device="meta")
+
+
+def _local_caches(cfg, caches: Dict, ms, kv) -> Dict:
+    """A rank's ``meta`` decode caches: a decoder LM's KV caches under
+    their ``cache_spec`` where the serving path splits them (``kv``), its
+    batch slice elsewhere (recurrent states and an encoder-decoder's
+    caches stay whole over ``"model"``: their blocks compute replicated)."""
+    specs = sh.cache_specs(cfg, caches, ms)
+
+    def one(t, spec, keep_model):
+        if not keep_model:
+            spec = tuple(None if e == "model" else e for e in spec)
+        return _meta_slice(t, spec, ms)
+
+    if "layers" not in caches:
+        return {part: val if part == "len" else {k: one(t, specs[part][k], False) for k, t in val.items()}
+                for part, val in caches.items()}
+    return {"layers": [{k: one(t, sp[k], kv is not None and k in ("k", "v")) for k, t in layer.items()}
+                       for layer, sp in zip(caches["layers"], specs["layers"])],
+            "len": caches["len"]}
+
+
+def mesh_trace(arch: str, shape: str, mesh_kind, overrides: Optional[Dict] = None) -> Dict:
+    """Rank 0's trace of the cell's partitioned step on ``mesh_kind`` (a
+    kind of ``MESHES`` or a ``MeshShape``): the per-device peak, flops,
+    bytes accessed, collective bytes and the leaves gathered over
+    ``"model"`` (see the module doc).  ``overrides`` as ``run_cell``'s."""
+    from ..serve.mesh import MeshServer
+    from ..train import make_mesh_train_step
+    from ..train.step import release_params
+
+    ov = dict(overrides or {})
+    cfg = ov.pop("cfg", None) or get_config(arch)
+    s, b, kind = SHAPES[shape]
+    b, s = int(ov.pop("batch", b)), int(ov.pop("seq", s))
+    tcfg = ov.pop("tcfg", None) or TrainConfig(opt=_opt_for(arch), remat=True)
+    if ov:
+        raise ValueError(f"mesh_trace: unknown overrides {sorted(ov)}")
+    ms = MESHES[mesh_kind] if isinstance(mesh_kind, str) else mesh_kind
+    specs = input_specs(cfg, shape, batch=b, seq=s)
+    model = get_model(cfg, "meta", backend=None if kind == "train" else "cuda")
+    named = {k: p.detach() for k, p in model.named_parameters()}
+    n_act = rf.active_param_count(cfg, named)
+    with fake_mesh(ms) as mesh:
+        if kind == "train":
+            opt = init_train_state(model, tcfg)
+            done: Dict[int, Any] = {}
+
+            def place(t, spec):  # a tensor met twice (Adafactor's shared c) placed once
+                if id(t) not in done:
+                    done[id(t)] = _placed(t, mesh, spec)
+                return done[id(t)]
+
+            state = {"params": sh._map(place, named, sh.param_specs(cfg, named, ms)),
+                     "opt": sh._map(place, opt, sh.opt_state_specs(cfg, opt, ms))}
+            del opt
+            release_params(model)
+            step = make_mesh_train_step(model, tcfg, mesh)
+            batch = specs["batch"]
+            bspecs = sh.batch_specs(batch, ms)
+            mine = {k: _meta_slice(v, bspecs[k], ms) for k, v in batch.items()}
+            dims = sh.batch_dims(batch, ms)
+            args = leaf_tensors({k: [sh.local(t) for t in sh._leaves(v)] for k, v in state.items()})
+            run = lambda: step.on_slices(state, [mine], dims)  # noqa: E731
+            args += list(mine.values())
+            tokens = b * (s // cfg.dec_ratio if cfg.encdec else s)
+            mf = rf.model_flops_train(n_act, tokens)
+        else:
+            srv = MeshServer(model, mesh)
+            args = [p.detach() for p in model.parameters()]
+            if kind == "prefill":
+                batch = specs["batch"]
+                bspecs = sh.batch_specs(batch, ms)
+                mine = {k: _meta_slice(v, bspecs[k], ms) for k, v in batch.items()}
+                dims = sh.batch_dims(batch, ms)
+                run = lambda: srv.prefill_slice(mine, dims)  # noqa: E731
+                args += list(mine.values())
+                mf = rf.model_flops_decode(n_act, b * s)
+            else:
+                caches, tokens = specs["caches"], specs["tokens"]
+                srv.set_slice(sh.batch_dims({"tokens": tokens}, ms), s)
+                mine_c = _local_caches(cfg, caches, ms, srv.kv)
+                tok = _meta_slice(tokens, sh.batch_spec("t", tokens.shape, ms), ms)
+                run = lambda: srv.decode_step(mine_c, tok)  # noqa: E731
+                args += leaf_tensors(mine_c) + [tok]
+                mf = rf.model_flops_decode(n_act, b)
+        tracker = StepTracker()
+        gc_was = gc.isenabled()
+        gc.disable()
+        t0 = time.perf_counter()
+        try:
+            with FlopCounterMode(display=False) as flops, tracker, sh.counting() as coll:
+                arg_bytes = tracker.start(args)
+                del args
+                out = run()
+        finally:
+            if gc_was:
+                gc.enable()
+        trace_s = time.perf_counter() - t0
+        out_bytes = storage_bytes(leaf_tensors(out))
+        del out
+    names = {id(p): k for k, p in model.named_parameters()}
+    gathered = sorted({_layerless(names[i]) for i in coll.model_gathered if i in names})
+    return dict(trace_s=trace_s, arg_bytes=arg_bytes, out_bytes=out_bytes, peak=tracker.peak,
+                flops=float(flops.get_total_flops()), bytes_accessed=float(tracker.bytes_accessed),
+                coll=coll, model_gathered=gathered, model_flops=mf, n_active=n_act,
+                flash_calls=tracker.calls[FLASH_OP])
+
+
+def _layerless(name: str) -> str:
+    """A parameter name with its layer index as ``*`` (``layers.*.attn.wq``)."""
+    return ".".join("*" if part.isdigit() else part for part in name.split("."))
+
+
+def mesh_cell(arch: str, shape: str, mesh_kind, overrides: Optional[Dict] = None) -> Dict:
+    """The reference's ``run_cell(arch, shape, mesh_kind)``: ``mesh_cells``'
+    per-device argument bytes and ``mesh_trace``'s figures in one record
+    (see the module doc); ``fits`` on the traced peak, ``args_fit`` on the
+    argument bytes."""
+    rec = mesh_cells(arch, shape, [mesh_kind], overrides)[mesh_kind]
+    t = mesh_trace(arch, shape, mesh_kind, overrides)
+    chips = rec["chips"]
+    per_kind = t["coll"].by_kind()
+    coll_global = {k: v * chips for k, v in per_kind.items()}
+    rec["args_fit"] = rec.pop("fits")
+    rec["memory"].update(traced_argument_bytes=t["arg_bytes"], output_size_in_bytes=t["out_bytes"],
+                         peak_bytes_per_device=t["peak"])
+    rec.update(
+        trace_s=round(t["trace_s"], 3), n_active_params=int(t["n_active"]),
+        cost_per_device={"flops": t["flops"], "bytes accessed": t["bytes_accessed"]},
+        collective_bytes_per_device=t["coll"].by_axis(),
+        collective_bytes_global=coll_global,
+        roofline=rf.roofline_terms(t["flops"] * chips, t["bytes_accessed"] * chips,
+                                   float(sum(coll_global.values())), chips,
+                                   model_flops=t["model_flops"]),
+        model_gathered=t["model_gathered"], flash_calls=t["flash_calls"],
+        fits=t["peak"] <= FIT_SHARE * rf.HBM_BYTES,
+    )
+    return rec
 
 
 # --------------------------------------------------------------------- CLI
@@ -400,7 +565,7 @@ def main(argv=None) -> Dict:
                 continue
             print(f"[run ] {key}", flush=True)
             try:
-                res = run_cell(arch, shape) if m == "one" else mesh_cells(arch, shape, [m])[m]
+                res = run_cell(arch, shape) if m == "one" else mesh_cell(arch, shape, m)
             except Exception as e:  # noqa: BLE001 - the record keeps the error
                 res = {"arch": arch, "shape": shape, "mesh": m,
                        "chips": 1 if m == "one" else MESHES[m].size, "status": "error",
@@ -416,8 +581,12 @@ def main(argv=None) -> Dict:
                       f"fits={res['fits']} max_batch={res['max_batch']} dominant={r['dominant']} "
                       f"bound={r['bound_s']:.4g}s", flush=True)
             else:
-                print(f"[done] {key} chips={res['chips']} argument_bytes_per_device="
-                      f"{res['memory']['argument_size_in_bytes']} fits={res['fits']}", flush=True)
+                r = res["roofline"]
+                print(f"[done] {key} chips={res['chips']} trace={res['trace_s']}s "
+                      f"argument_bytes_per_device={res['memory']['argument_size_in_bytes']} "
+                      f"peak_per_device={res['memory']['peak_bytes_per_device']} fits={res['fits']} "
+                      f"collective_bytes_global={sum(res['collective_bytes_global'].values()):.4g} "
+                      f"dominant={r['dominant']} bound={r['bound_s']:.4g}s", flush=True)
     return db
 
 

@@ -35,6 +35,7 @@ cards; ``gloo`` runs any number of ranks, on the CPU or sharing one card.
 """
 from __future__ import annotations
 
+import contextlib
 import datetime
 import os
 import pickle
@@ -141,6 +142,27 @@ def make_debug_mesh(data: int = 1, model: int = 1, device_type: str = "cuda"):
     """A ``(data, model)`` ``("data", "model")`` ``DeviceMesh`` over the
     default process group of ``data * model`` ranks (``_world``)."""
     return _lm_mesh(MeshShape(("data", "model"), (int(data), int(model))), device_type)
+
+
+@contextlib.contextmanager
+def fake_mesh(ms: MeshShape):
+    """A ``DeviceMesh`` of ``ms``'s names and sizes in this one process, as
+    rank 0 of a fake process group of ``ms.size`` ranks (torch's testing
+    ``FakeStore``): the collectives of ``launch/shardings.py`` on ``meta``
+    tensors count their bytes and call no process group, so a traced step
+    (``launch/dryrun.py``) sees one rank of the whole mesh.  Refuses where
+    a process group exists already (trace in a process of its own)."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    if dist.is_initialized():
+        raise RuntimeError("fake_mesh: a process group exists; trace in a process of its own")
+    dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=ms.size)
+    try:
+        yield init_device_mesh("cpu", ms.sizes, mesh_dim_names=ms.axis_names)
+    finally:
+        dist.destroy_process_group()
 
 
 def dp_axes(mesh) -> tuple:

@@ -1,7 +1,7 @@
 """Roofline of one step on one H100 from the dry run's counts (no card
-needed): the counterpart of ``repro/launch/roofline.py`` for one card.
+needed): the counterpart of ``repro/launch/roofline.py``.
 
-Two terms per cell, in seconds:
+Two terms per cell on one card, in seconds:
 
     compute = flops / PEAK_FLOPS_BF16
     memory  = hbm_bytes / HBM_BW
@@ -15,10 +15,18 @@ not comparable with the reference's.  ``hbm_bytes`` is the eager
 program's traffic, every dispatched operator's inputs and outputs
 (``launch/dryrun.py``), which exceeds XLA's count over fused kernels.
 
-There is no collective term: the port runs on one card, and its
-simulated ``all_to_all`` is a device-local transpose whose bytes are HBM
-bytes.  So the reference's ``parse_collective_bytes`` (it reads HLO text)
-and ``ICI_BW`` have no counterpart.
+On a mesh (``launch/dryrun.py --mesh``) a third term reads the
+collective bytes that ``launch/shardings.py``'s counter gives for one
+rank of the traced step, each collective's result bytes as the
+reference's ``parse_collective_bytes`` counts them, times the chips:
+
+    collective = coll_bytes / (chips * LINK_BW)
+
+``LINK_BW`` is a data-sheet figure, not measured: H100 SXM NVLink 4,
+900 GB/s both ways, so 450e9 B/s each way, in the part of the reference's
+per-link ``ICI_BW``.  The port's one-card terms have ``collective_s`` 0:
+its simulated ``all_to_all`` is a device-local transpose whose bytes are
+HBM bytes.
 """
 from __future__ import annotations
 
@@ -30,6 +38,9 @@ import torch
 # HBM3 bandwidth
 PEAK_FLOPS_BF16 = 989e12
 HBM_BW = 3.35e12
+#: H100 SXM NVLink 4 (NVIDIA data sheet): 900 GB/s both ways, 450e9 B/s
+#: each way; the collective term's rate (the reference's ``ICI_BW``)
+LINK_BW = 450e9
 #: ``torch.cuda.get_device_properties(0).total_memory`` of an "NVIDIA H100
 #: 80GB HBM3" (power limit 700.00 W), read by ``chip_smoke.py``: what the
 #: dry run's ``fits`` divides by where no card is present
@@ -73,19 +84,22 @@ def model_flops_decode(n_active: int, tokens: int) -> float:
     return 2.0 * n_active * tokens  # forward only, one token per sequence
 
 
-def roofline_terms(flops: float, hbm_bytes: float, *,
+def roofline_terms(flops: float, hbm_bytes: float, coll_bytes: float = 0.0, chips: int = 1, *,
                    model_flops: Optional[float] = None) -> Dict[str, float]:
-    """``compute_s``, ``memory_s``, the ``dominant`` term and ``bound_s``
-    (the larger); with ``model_flops`` also ``useful_flops_frac`` (model
-    over counted flops) and ``roofline_frac`` (the model flops' time at the
-    peak over ``bound_s``)."""
-    compute = flops / PEAK_FLOPS_BF16
-    memory = hbm_bytes / HBM_BW
-    terms: Dict[str, float] = {"compute_s": compute, "memory_s": memory}
-    terms["dominant"] = "compute_s" if compute >= memory else "memory_s"
-    terms["bound_s"] = bound = max(compute, memory)
+    """``compute_s``, ``memory_s``, ``collective_s``, the ``dominant`` term
+    and ``bound_s`` (the largest); with ``model_flops`` also
+    ``useful_flops_frac`` (model over counted flops) and ``roofline_frac``
+    (the model flops' time at the peak over ``bound_s``).  ``flops``,
+    ``hbm_bytes`` and ``coll_bytes`` are global: one rank's times
+    ``chips``, as the reference scales them."""
+    compute = flops / (chips * PEAK_FLOPS_BF16)
+    memory = hbm_bytes / (chips * HBM_BW)
+    collective = coll_bytes / (chips * LINK_BW)
+    terms: Dict[str, float] = {"compute_s": compute, "memory_s": memory, "collective_s": collective}
+    terms["dominant"] = max(terms, key=terms.get)
+    terms["bound_s"] = bound = max(compute, memory, collective)
     if model_flops is not None and flops > 0:
         terms["model_flops"] = model_flops
         terms["useful_flops_frac"] = model_flops / flops
-        terms["roofline_frac"] = (model_flops / PEAK_FLOPS_BF16) / bound if bound > 0 else 0.0
+        terms["roofline_frac"] = (model_flops / (chips * PEAK_FLOPS_BF16)) / bound if bound > 0 else 0.0
     return terms

@@ -11,16 +11,28 @@ The MoE dispatch has two routes, selected by ``cfg.moe_route``:
   engines run on, with measured per-expert capacities and exact drop
   accounting.
 
+Under a partition (``launch.shardings.partitioned``) the layers compute
+on their ``"model"`` shards where the reference's rules split them: the
+gated MLP column-parallel on ``wi``/``wg`` and row-parallel on ``wo``,
+then the sum over ``"model"`` (Megatron's f and g, summed in f32 and
+rounded once, ``launch.shardings.col_product``, ``row_product``,
+``from_model``); the dense MoE
+dispatch with expert parallelism where ``"model"`` shards the experts
+(each model rank runs its experts' slots for every token its data slice
+holds) and a Megatron split of every expert's FF where it shards their
+hidden dim (grok-1's 8 experts on 16).  A layer the rules do not split
+so, and the calibrated route, gather their weights and compute
+replicated.
+
 The dense dispatch keeps the reference's four sharding hints
 (``_HINTS``, ``launch.shardings.constrain``, gated on expert parallelism
 as the reference gates them: ``moe_hints``).  They bind only on DTensor
-activations, and no path gives the dispatch those yet: the mesh train
-step runs the forward on plain tensors, so the hints wait for
-compute-side tensor parallelism.  When a mesh train step splits the
-batch over data ranks (``launch.shardings.batch_split``) each rank's
-capacity and arrival order are the whole batch's, as under the
-reference's ``jit``, so a rank keeps and drops exactly the pairs the
-single process does.
+activations, which no path gives the dispatch: the partitioned layers
+place their collectives by hand, in the layouts the hints ask for.  When
+a mesh train step splits the batch over data ranks
+(``launch.shardings.batch_split``) each rank's capacity and arrival
+order are the whole batch's, as under the reference's ``jit``, so a rank
+keeps and drops exactly the pairs the single process does.
 """
 from __future__ import annotations
 
@@ -30,6 +42,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..launch import shardings as SH
 from ..launch.shardings import constrain, current_split, is_placed
 from ..launch.mesh import mesh_shape
 from .common import ArchConfig, gen_device, init_norm, rms_norm, scaled_init
@@ -76,15 +89,36 @@ def init_mlp(gen: torch.Generator, cfg: ArchConfig, d_ff: int = 0) -> nn.Paramet
     })
 
 
-def _swiglu(p, xin: torch.Tensor) -> torch.Tensor:
+def _swiglu(p, xin: torch.Tensor, split: bool = False) -> torch.Tensor:
+    """The gated MLP's output; ``split``: this rank's part of it, on its
+    ``"model"`` columns of ``wi``/``wg`` and rows of ``wo``, in f32
+    (``launch.shardings.col_product``, ``row_product``)."""
+    mm = SH.col_product if split else torch.matmul
     # SiLU in f32, cast back before the product with xin @ wi
-    h = F.silu((xin @ p["wg"]).float()).to(xin.dtype) * (xin @ p["wi"])
-    return h @ p["wo"]
+    h = F.silu(mm(xin, p["wg"]).float()).to(xin.dtype) * mm(xin, p["wi"])
+    return SH.row_product(h, p["wo"]) if split else h @ p["wo"]
+
+
+#: ``fetch`` modes of a gated MLP split on its hidden dim
+_FF_LOCAL = {"wi": "local", "wg": "local", "wo": "local"}
+
+
+def _ff_split(p) -> bool:
+    """Whether the current partition's ``"model"`` splits this gated MLP's
+    hidden dim (``wi``/``wg`` on their columns, ``wo`` on its rows)."""
+    part = SH.current_partition()
+    return (part is not None and part.m > 1 and part.model_dim(p["wi"]) == 1
+            and part.model_dim(p["wg"]) == 1 and part.model_dim(p["wo"]) == 0)
 
 
 def mlp_forward(p, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
-    xin = rms_norm(x, p["ln"], cfg.norm_eps)
-    return x + _swiglu(p, xin).to(x.dtype)
+    if _ff_split(p):
+        P = SH.fetch(p, _FF_LOCAL)
+        xin = rms_norm(x, P["ln"], cfg.norm_eps)
+        return x + SH.from_model(_swiglu(P, xin, split=True), x.dtype)
+    P = SH.fetch(p)
+    xin = rms_norm(x, P["ln"], cfg.norm_eps)
+    return x + _swiglu(P, xin).to(x.dtype)
 
 
 # ------------------------------------------------------------------- MoE
@@ -108,9 +142,24 @@ def init_moe(gen: torch.Generator, cfg: ArchConfig) -> nn.ParameterDict:
     return p
 
 
-def _dense_dispatch(p, xf: torch.Tensor, cfg: ArchConfig) -> Tuple[torch.Tensor, Dict]:
+def _moe_layout(p) -> str:
+    """How the current partition's ``"model"`` splits a MoE layer's
+    experts: ``ep`` (expert parallelism: the expert dim), ``ff`` (each
+    expert's hidden dim) or ``""`` (not at all: replicated)."""
+    part = SH.current_partition()
+    if part is None or part.m == 1:
+        return ""
+    dims = tuple(part.model_dim(p[k]) for k in ("wi", "wg", "wo"))
+    return {(0, 0, 0): "ep", (2, 2, 1): "ff"}.get(dims, "")
+
+
+def _dense_dispatch(p, xf: torch.Tensor, cfg: ArchConfig, layout: str = ""
+                    ) -> Tuple[torch.Tensor, Dict]:
     """Switch-style capacity scatter.  Over-capacity pairs fall through to
     the residual; the drop is silent in the output but counted in stats.
+    Under ``layout`` ``ep`` a rank fills and runs its own experts' slots
+    only, and under ``ff`` its part of every expert's hidden dim: either
+    way the output is this rank's part of the sum over ``"model"``.
 
     Each pair's rank within its expert is its arrival order (token-major,
     ``cumsum(one_hot) - one_hot``).  Only the trash slot ``e*cap`` takes
@@ -135,18 +184,25 @@ def _dense_dispatch(p, xf: torch.Tensor, cfg: ArchConfig) -> Tuple[torch.Tensor,
 
     C = moe_hints(xf, e)
 
+    el = e
     slot = torch.where(keep, flat_e * cap + my_pos, e * cap)  # overflow -> trash
+    if layout == "ep":  # this rank's experts [e0, e0 + el); the others' pairs -> trash
+        m, i = SH.model_split()
+        el = e // m
+        e0 = i * el
+        mine = keep & (flat_e >= e0) & (flat_e < e0 + el)
+        slot = torch.where(mine, (flat_e - e0) * cap + my_pos, el * cap)
     src = C(xf[flat_tok], "src")
-    disp = torch.zeros((e * cap + 1, d), dtype=xf.dtype, device=xf.device).index_copy(0, slot, src)
-    disp = C(disp[:-1].reshape(e, cap, d), "disp")
+    disp = torch.zeros((el * cap + 1, d), dtype=xf.dtype, device=xf.device).index_copy(0, slot, src)
+    disp = C(disp[:-1].reshape(el, cap, d), "disp")
 
     # expert computation: one batched product per weight
     gi = torch.bmm(disp, p["wg"])
     hi = torch.bmm(disp, p["wi"])
     act = F.silu(gi.float()).to(hi.dtype) * hi
-    out_e = C(torch.bmm(act, p["wo"]), "out")  # (e, cap, d)
+    out_e = C(torch.bmm(act, p["wo"]), "out")  # (el, cap, d)
 
-    gathered = torch.cat([out_e.reshape(e * cap, d), out_e.new_zeros((1, d))], dim=0)
+    gathered = torch.cat([out_e.reshape(el * cap, d), out_e.new_zeros((1, d))], dim=0)
     per_pair = (gathered[slot] * flat_w[:, None].to(gathered.dtype)).to(xf.dtype)
     per_tok = per_pair.reshape(t, k, d)  # flat_tok is repeat(arange(t), k)
     combined = torch.zeros((t, d), dtype=xf.dtype, device=xf.device)
@@ -167,21 +223,39 @@ def moe_forward_stats(p, x: torch.Tensor, cfg: ArchConfig) -> Tuple[torch.Tensor
     ``router_pairs``, so comparing them isolates dispatch mechanics."""
     b, s, d = x.shape
     t = b * s
-    xin = rms_norm(x, p["ln"], cfg.norm_eps)
+    if cfg.moe_route not in ("dense", "calibrated"):
+        raise ValueError(f"moe_route {cfg.moe_route!r} not in ('dense', 'calibrated')")
+    layout = _moe_layout(p) if cfg.moe_route == "dense" else ""
+    if layout:  # the router, dispatch and experts in a "model" region
+        shared_split = "shared" in p and _ff_split(p["shared"])
+        modes = dict(_FF_LOCAL, router="partial")
+        if shared_split:
+            modes.update({f"shared.{k}": v for k, v in _FF_LOCAL.items()})
+        P = SH.fetch(p, modes)
+        xf = rms_norm(x, P["ln"], cfg.norm_eps).reshape(t, d)
+        xr = SH.to_model(xf)
+        combined, stats = _dense_dispatch(P, xr, cfg, layout)
+        part = combined.float()
+        if shared_split:
+            part = part + _swiglu(P["shared"], xf, split=True)
+        y = SH.from_model(part, x.dtype)
+        if "shared" in p and not shared_split:
+            y = y + _swiglu(P["shared"], xf).to(x.dtype)
+        return x + y.reshape(b, s, d), stats
+    P = SH.fetch(p)
+    xin = rms_norm(x, P["ln"], cfg.norm_eps)
     xf = xin.reshape(t, d)
     if cfg.moe_route == "calibrated":
         if current_split() is not None:
             raise NotImplementedError("the calibrated MoE route has no split-batch train step: "
                                       "its measured capacities are a rank's own")
-        combined, stats = calibrated_dispatch(p, xf, cfg)
-    elif cfg.moe_route == "dense":
-        combined, stats = _dense_dispatch(p, xf, cfg)
+        combined, stats = calibrated_dispatch(P, xf, cfg)
     else:
-        raise ValueError(f"moe_route {cfg.moe_route!r} not in ('dense', 'calibrated')")
+        combined, stats = _dense_dispatch(P, xf, cfg)
 
     y = combined.to(x.dtype)
-    if "shared" in p:
-        y = y + _swiglu(p["shared"], xf).to(x.dtype)
+    if "shared" in P:
+        y = y + _swiglu(P["shared"], xf).to(x.dtype)
     return x + y.reshape(b, s, d), stats
 
 

@@ -23,6 +23,14 @@ reaches the kernel, which refuses to be recorded.  The recurrent kinds
 run plain PyTorch on either backend (the reference has no kernel there).
 The device defaults to the CUDA card and raises without one; the CPU is
 used only when asked for.
+
+Under a partition (``launch.shardings.partitioned``: a train step,
+prefill or decode on a mesh) each layer takes its parameters through
+``fetch`` inside the layer's call, under remat too, so nothing gathered
+outlives its layer: attention and the MLP and MoE layers compute on
+their ``"model"`` shards where the split allows it (``models/attention.py``,
+``models/mlp.py``), the tables, norms and recurrent blocks replicated.
+Prefill keeps each rank's part of the KV caches (``Partition.kv``).
 """
 from __future__ import annotations
 
@@ -32,6 +40,7 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from ..launch import shardings as SH
 from ..relational.spmd import resolve_device
 from . import ssm, xlstm
 from .attention import attn_decode, attn_forward, attn_prefill, init_attn
@@ -102,7 +111,7 @@ class Block(nn.Module):
                 impl: Optional[str] = None):
         """(output, MoE stats ``{routed, dropped, heavy}`` or None)."""
         if self.kind in RECURRENT:
-            return RECURRENT[self.kind].prefill(getattr(self, self.kind), x, self.cfg)[0], None
+            return RECURRENT[self.kind].prefill(SH.fetch(getattr(self, self.kind)), x, self.cfg)[0], None
         x = attn_forward(
             self.attn, x, self.cfg, pos=pos, causal=True, window=self.window,
             use_cuda=use_cuda, impl=impl,
@@ -111,7 +120,7 @@ class Block(nn.Module):
 
     def prefill(self, x, pos, use_cuda: bool):
         if self.kind in RECURRENT:
-            return RECURRENT[self.kind].prefill(getattr(self, self.kind), x, self.cfg)
+            return RECURRENT[self.kind].prefill(SH.fetch(getattr(self, self.kind)), x, self.cfg)
         x, cache = attn_prefill(
             self.attn, x, self.cfg, pos=pos, causal=True, window=self.window,
             use_cuda=use_cuda,
@@ -120,7 +129,7 @@ class Block(nn.Module):
 
     def decode(self, x, cache, cache_len: int):
         if self.kind in RECURRENT:
-            return RECURRENT[self.kind].decode(getattr(self, self.kind), x, cache, self.cfg)
+            return RECURRENT[self.kind].decode(SH.fetch(getattr(self, self.kind)), x, cache, self.cfg)
         x, cache = attn_decode(self.attn, x, cache, cache_len, self.cfg, window=self.window)
         return self._ffn(x)[0], cache
 
@@ -259,9 +268,25 @@ class DecoderLM(ModelBase):
             pos = pos[None].expand(3, b, s)
         return pos
 
-    def _head(self, x: torch.Tensor) -> torch.Tensor:
-        x = rms_norm(x, self.final_ln, self.cfg.norm_eps)
-        return unembed(x, self._table(), self.cfg.logit_softcap)
+    def _head(self, x: torch.Tensor, table: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Final norm and unembedding; ``table``: the tied table the
+        embedding fetched (one gathered table, whose two gradients sum in
+        its dtype, as the single process' parameter's do).  Serving under
+        a partition whose ``"model"`` splits the vocabulary computes its
+        columns and gathers the logits (``launch.shardings.vocab_logits``)."""
+        x = rms_norm(x, SH.fetch_one(self.final_ln), self.cfg.norm_eps)
+        if table is None and SH.vocab_split(self._table()):
+            return SH.vocab_logits(x, self._table(), self.cfg.logit_softcap)
+        table = SH.fetch_one(self._table()) if table is None else table
+        return unembed(x, table, self.cfg.logit_softcap)
+
+    def _embed(self, tokens: torch.Tensor) -> torch.Tensor:
+        """The embedding lookup (vocab-parallel when serving under a
+        partition that splits the vocabulary)."""
+        table = self.embed["table"]
+        if SH.vocab_split(table):
+            return SH.vocab_embed(tokens, table)
+        return embed(tokens, SH.fetch_one(table))
 
     # ------------------------------------------------------------- forward
     def _forward(self, tokens: torch.Tensor, pos: Optional[torch.Tensor],
@@ -274,7 +299,8 @@ class DecoderLM(ModelBase):
         recomputes the rest."""
         b, s = tokens.shape
         pos = self._pos(pos, b, s)
-        x = embed(tokens.to(self.device), self.embed["table"])
+        table = SH.fetch_one(self.embed["table"])
+        x = embed(tokens.to(self.device), table)
         totals = {k: torch.zeros((), dtype=torch.int32, device=self.device) for k in MOE_STATS}
         for layer in self.layers:
             if remat:
@@ -283,7 +309,7 @@ class DecoderLM(ModelBase):
                 x, stats = layer(x, pos, use_cuda, impl)
             if stats is not None:
                 totals = {k: totals[k] + stats[k] for k in MOE_STATS}
-        return self._head(x), totals
+        return self._head(x, table if self.cfg.tie_embeddings else None), totals
 
     @torch.no_grad()
     def logits(self, tokens: torch.Tensor, pos: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -351,12 +377,12 @@ class DecoderLM(ModelBase):
             raise ValueError(f"s_cache {s_cache} < prompt length {s}")
         pos = self._pos(batch.get("pos"), b, s)
         use_cuda = self.use_cuda
-        x = embed(tokens, self.embed["table"])
+        x = self._embed(tokens)
         caches: List[Dict[str, torch.Tensor]] = []
         for layer in self.layers:
             x, c = layer.prefill(x, pos, use_cuda)
             if layer.kind in ATTN_KINDS:
-                c = {k: _pad_seq(t, s_cache) for k, t in c.items()}
+                c = {k: _kv_part(_pad_seq(t, s_cache)) for k, t in c.items()}
             caches.append(c)
         logits = self._head(x[:, -1:])
         return logits[:, 0], {"layers": caches, "len": s}
@@ -376,15 +402,29 @@ class DecoderLM(ModelBase):
         clen = int(caches["len"])
         kv = [c["k"].shape[2] for layer, c in zip(self.layers, caches["layers"])
               if layer.kind in ATTN_KINDS]
+        part = SH.current_partition()
+        if kv and part is not None and part.m > 1 and isinstance(part.kv, tuple):
+            kv = [part.kv[1]]  # ("seq", s_cache): a rank holds a chunk of the positions
         if kv and clen >= kv[0]:
             raise ValueError(f"cache full: len {clen} of {kv[0]}")
-        x = embed(tokens.to(self.device)[:, None], self.embed["table"])
+        x = self._embed(tokens.to(self.device)[:, None])
         new: List[Dict[str, torch.Tensor]] = []
         for layer, cache in zip(self.layers, caches["layers"]):
             x, c = layer.decode(x, cache, clen)
             new.append(c)
         logits = self._head(x)[:, 0]
         return logits, {"layers": new, "len": clen + 1}
+
+
+def _kv_part(t: torch.Tensor) -> torch.Tensor:
+    """This rank's part of a whole (B, KV, s_cache, hd) cache, where the
+    current partition splits caches on the sequence (a copy); ``t`` as it
+    is otherwise (a cache split on heads is computed split)."""
+    part = SH.current_partition()
+    if part is None or part.m == 1 or not isinstance(part.kv, tuple):
+        return t
+    n = t.shape[2] // part.m
+    return t.narrow(2, part.rank_in_model * n, n).clone()
 
 
 def _pad_seq(t: torch.Tensor, s_cache: int) -> torch.Tensor:

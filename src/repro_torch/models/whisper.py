@@ -37,6 +37,7 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from ..launch import shardings as SH
 from .attention import (
     attn_decode, attn_forward, cross_attn_forward, cross_kv, init_attn, init_cross_attn,
 )
@@ -130,8 +131,8 @@ class WhisperModel(ModelBase):
         self.final_ln = init_norm(cfg.d_model, dt, dev)
 
     def _head(self, x: torch.Tensor) -> torch.Tensor:
-        x = rms_norm(x, self.final_ln, self.cfg.norm_eps)
-        return unembed(x, self.embed["table"])
+        x = rms_norm(x, SH.fetch_one(self.final_ln), self.cfg.norm_eps)
+        return unembed(x, SH.fetch_one(self.embed["table"]))
 
     # ----------------------------------------------------------------- encoder
     def encode(self, frames: torch.Tensor, use_cuda: Optional[bool],
@@ -146,7 +147,7 @@ class WhisperModel(ModelBase):
                 x = checkpoint(layer, x, use_cuda, impl, use_reentrant=False)
             else:
                 x = layer(x, use_cuda, impl)
-        return rms_norm(x, self.enc_ln, self.cfg.norm_eps)
+        return rms_norm(x, SH.fetch_one(self.enc_ln), self.cfg.norm_eps)
 
     # ----------------------------------------------------------------- decoder
     def _decode_stack(self, tokens: torch.Tensor, mem: torch.Tensor, use_cuda: Optional[bool],
@@ -154,14 +155,14 @@ class WhisperModel(ModelBase):
         """Teacher-forced decoder over tokens (B, S) against ``mem``: the
         final-normed stream (B, S, D)."""
         b, s = tokens.shape
-        x = embed(tokens.to(self.device), self.embed["table"])
+        x = embed(tokens.to(self.device), SH.fetch_one(self.embed["table"]))
         x = x + sinusoid(s, self.cfg.d_model, x.dtype, self.device)[None]
         for layer in self.dec:
             if remat:
                 x = checkpoint(layer, x, mem, use_cuda, impl, use_reentrant=False)
             else:
                 x = layer(x, mem, use_cuda, impl)
-        return rms_norm(x, self.final_ln, self.cfg.norm_eps)
+        return rms_norm(x, SH.fetch_one(self.final_ln), self.cfg.norm_eps)
 
     @torch.no_grad()
     def logits(self, frames: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
@@ -169,7 +170,7 @@ class WhisperModel(ModelBase):
         teacher-forced against ``frames``."""
         use_cuda = self.use_cuda
         x = self._decode_stack(tokens, self.encode(frames, use_cuda), use_cuda)
-        return unembed(x, self.embed["table"])
+        return unembed(x, SH.fetch_one(self.embed["table"]))
 
     # ------------------------------------------------------------------- train
     def loss(self, batch: Dict[str, torch.Tensor], remat: bool = True,
@@ -180,7 +181,7 @@ class WhisperModel(ModelBase):
         use_cuda = self._train_use_cuda()
         mem = self.encode(batch["frames"], use_cuda, impl, remat)
         x = self._decode_stack(batch["tokens"], mem, use_cuda, impl, remat)
-        logits = unembed(x, self.embed["table"])
+        logits = unembed(x, SH.fetch_one(self.embed["table"]))
         return softmax_xent(logits, batch["targets"].to(self.device))
 
     def param_leaves(self) -> List[Tuple[Tuple[str, ...], bool]]:
@@ -245,7 +246,7 @@ class WhisperModel(ModelBase):
         s_total = sk.shape[3]
         if clen >= s_total:
             raise ValueError(f"decode_step: cache full, len {clen} of {s_total} positions")
-        x = embed(tokens.to(self.device)[:, None], self.embed["table"])
+        x = embed(tokens.to(self.device)[:, None], SH.fetch_one(self.embed["table"]))
         x = x + sinusoid(s_total, self.cfg.d_model, x.dtype, self.device)[clen]
         use_cuda = self.use_cuda
         ck, cv = caches["cross"]["k"], caches["cross"]["v"]

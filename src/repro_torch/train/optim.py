@@ -24,7 +24,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Callable, Dict, List, Optional, Sequence, Tuple
+from typing import Callable, Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -140,9 +140,32 @@ def adafactor_init(cfg: OptConfig, params: Tensors, leaves: Optional[Leaves] = N
     return {"f": f, "step": torch.zeros((), dtype=torch.int32, device=dev)}
 
 
+class Shard(NamedTuple):
+    """Where a rank's shard of a parameter lies (a mesh train step): the
+    whole tensor's ``shape``, the shard's ``region`` (slices of it), and
+    ``total``, the sum of a tensor over the ranks that hold the other
+    shards."""
+
+    shape: Tuple[int, ...]
+    region: Tuple[slice, ...]
+    total: Callable[[torch.Tensor], torch.Tensor]
+
+
+def _placed(t: torch.Tensor, shape, region) -> torch.Tensor:
+    """``t`` at ``region`` of zeros of ``shape``."""
+    out = torch.zeros(shape, dtype=t.dtype, device=t.device)
+    out[region] = t
+    return out
+
+
 @torch.no_grad()
 def adafactor_update(cfg: OptConfig, grads: Tensors, state: Dict, params: Tensors,
-                     leaves: Optional[Leaves] = None) -> None:
+                     leaves: Optional[Leaves] = None,
+                     shards: Optional[Callable[[str], Shard]] = None) -> None:
+    """``shards`` (a mesh train step): each parameter's ``Shard``, where
+    ``params`` and ``grads`` are this rank's shards and the factored state
+    is whole: the row and column means and the update's RMS are summed
+    over the ranks that hold the other shards."""
     step = state["step"] + 1
     lr = schedule(cfg, step)
     beta = 1.0 - (step.float() + 1.0) ** -0.8
@@ -157,14 +180,26 @@ def adafactor_update(cfg: OptConfig, grads: Tensors, state: Dict, params: Tensor
             g32, p32 = grads[names[0]].float(), ps[0].float()
         g2 = g32 * g32 + 1e-30
         fs = [f[k] for k in names]
+        sh = shards(names[0]) if shards is not None else None
+        if sh is not None:  # the whole leaf's shape and this rank's region of it
+            whole = ((len(names),) if stacked else ()) + tuple(sh.shape)
+            reg = ((slice(None),) if stacked else ()) + tuple(sh.region)
         if "r" in fs[0]:
             r0 = torch.stack([x["r"] for x in fs]) if stacked else fs[0]["r"]
             # a stacked vector's c spans the layers: every layer holds it
             per_layer_c = stacked and ps[0].dim() >= 2
             c0 = torch.stack([x["c"] for x in fs]) if per_layer_c else fs[0]["c"]
-            r = beta * r0 + (1 - beta) * g2.mean(-1)
-            c = beta * c0 + (1 - beta) * g2.mean(-2)
-            denom = r[..., None] * c[..., None, :] / (r.mean(-1)[..., None, None] + 1e-30)
+            if sh is None:
+                rm, cm = g2.mean(-1), g2.mean(-2)
+            else:
+                rm = sh.total(_placed(g2.sum(-1), whole[:-1], reg[:-1])) / whole[-1]
+                cm = sh.total(_placed(g2.sum(-2), whole[:-2] + whole[-1:], reg[:-2] + reg[-1:])) / whole[-2]
+            r = beta * r0 + (1 - beta) * rm
+            c = beta * c0 + (1 - beta) * cm
+            rl, cl, rmean = r, c, r.mean(-1)
+            if sh is not None:
+                rl, cl, rmean = r[reg[:-1]], c[reg[:-2] + reg[-1:]], rmean[reg[:-2]]
+            denom = rl[..., None] * cl[..., None, :] / (rmean[..., None, None] + 1e-30)
             u = g32 / (torch.sqrt(denom) + 1e-30)
             for i, x in enumerate(fs):
                 x["r"] = r[i] if stacked else r
@@ -176,7 +211,13 @@ def adafactor_update(cfg: OptConfig, grads: Tensors, state: Dict, params: Tensor
             for i, x in enumerate(fs):
                 x["v"] = v[i] if stacked else v
         # update clipping (Adafactor's d=1.0 RMS rule)
-        rms = torch.sqrt(torch.mean(u * u) + 1e-30)
+        if sh is None:
+            rms = torch.sqrt(torch.mean(u * u) + 1e-30)
+        else:
+            n = 1
+            for d in whole:
+                n *= d
+            rms = torch.sqrt(sh.total(torch.sum(u * u)) / n + 1e-30)
         u = u / torch.clamp(rms, min=1.0)
         if p32.dim() >= 2:
             u = u + cfg.weight_decay * p32
@@ -196,11 +237,13 @@ def opt_init(cfg: OptConfig, params: Tensors, leaves: Optional[Leaves] = None) -
 
 
 def opt_update(cfg: OptConfig, grads: Tensors, state: Dict, params: Tensors,
-               leaves: Optional[Leaves] = None) -> None:
-    """One update of ``params`` (in place) and ``state`` (in place)."""
+               leaves: Optional[Leaves] = None,
+               shards: Optional[Callable[[str], Shard]] = None) -> None:
+    """One update of ``params`` (in place) and ``state`` (in place);
+    ``shards`` as ``adafactor_update``'s (AdamW is elementwise)."""
     if cfg.kind == "adamw":
         adamw_update(cfg, grads, state, params, leaves)
     elif cfg.kind == "adafactor":
-        adafactor_update(cfg, grads, state, params, leaves)
+        adafactor_update(cfg, grads, state, params, leaves, shards)
     else:
         raise ValueError(f"unknown optimizer kind {cfg.kind!r} (adamw | adafactor)")

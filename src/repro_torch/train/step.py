@@ -14,29 +14,35 @@ parameters and the optimizer state by the reference's rules
 (``launch/shardings.py``), and ``make_mesh_train_step(model, tcfg, mesh)``
 returns ``train_step(state, batch)`` over that placed state.  Between
 steps a rank holds only its shards: the model's own parameters are empty.
-A step gathers the parameters whole into the model, runs forward and
-backward on the rank's slice of each microbatch of the global ``batch``
-(``batch_specs``; a MoE layer's capacity and arrival order stay the whole
-batch's), and averages the gradients over the data ranks, in f32,
-straight into each rank's shards (a reduce-scatter where the data axes
-shard a parameter): for a dense model a data split of ``n`` slices is
-``make_train_step`` with ``n * accum`` microbatches, those slices.  Then
-the single process' codec, clipping and optimizer run on the shards, the
-codec's scales and the global norm reduced over the mesh: AdamW is
-elementwise; Adafactor, whose factored state replicates, updates the
-whole leaves (the gradients gathered), each rank keeping its shards of
-the result.  The forward stays on plain tensors, so no operator of the
-model meets a DTensor.
+A step points the model's parameters at this rank's shards and runs
+forward and backward on the rank's slice of each microbatch of the
+global ``batch`` (``batch_specs``; a MoE layer's capacity and arrival
+order stay the whole batch's) under a ``launch.shardings.Partition``:
+each layer gathers its parameters inside its own (rematerialized) call
+and computes on its ``"model"`` shards where the split allows it
+(``models/``), so no rank holds a whole parameter outside the layer that
+uses it.  The gradients arrive in f32 in each rank's shards through the
+gathers' backward (a reduce-scatter over the data ranks); the leaves the
+data axes replicate are all-reduced; all are averaged over the data
+slices: for a dense model a data split of ``n`` slices is
+``make_train_step`` with ``n * accum`` microbatches, those slices, up to
+the order of the sums.  Then the single process' codec, clipping and
+optimizer run on the shards, the codec's scales and the global norm
+reduced over the mesh: AdamW is elementwise; Adafactor, whose factored
+state replicates, sums its row and column statistics and its update's
+RMS over the ranks that hold a leaf's other shards (``optim.Shard``).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
+from ..launch import shardings as SH
+from ..launch.shardings import batch_dims, batch_slices, split_batch
 from . import compression
-from .optim import OptConfig, clip_by_global_norm, global_norm, opt_init, opt_update
+from .optim import OptConfig, Shard, clip_by_global_norm, global_norm, opt_init, opt_update
 
 _MOE_KEYS = ("routed", "dropped", "heavy")
 
@@ -50,56 +56,53 @@ class TrainConfig:
     moe_metrics: bool = False  # surface MoE routing stats (moe_* metrics)
 
 
-def split_batch(batch: Dict[str, torch.Tensor], accum: int):
-    """``accum`` microbatches of ``batch``: every entry split on its batch
-    axis, which is axis 1 of a ``(3, B, S)`` M-RoPE ``pos`` and axis 0
-    otherwise."""
-    out = [dict() for _ in range(accum)]
-    for k, v in batch.items():
-        axis = 1 if k == "pos" and v.dim() == 3 else 0
-        if v.shape[axis] % accum:
-            raise ValueError(f"batch {k} {tuple(v.shape)}: axis {axis} not divisible by {accum}")
-        for mb, part in zip(out, torch.chunk(v, accum, dim=axis)):
-            mb[k] = part
-    return out
-
-
 #: the one parameter the loss never reaches, a shared expert's norm gain
 #: (the MoE layer normalizes once): its gradient is zero, as in JAX; any
 #: other parameter without a gradient is a fault
 UNREACHED = ".moe.shared.ln"
 
 
+def _loss_and_grads(model, tcfg: TrainConfig, params: Dict, mb, sink: Callable,
+                    zeros: Callable):
+    """``(loss, MoE stats or None, {name: gradient})`` of the microbatch
+    ``mb``: the forward (layers rematerialized), then ``sink(loss)``, which
+    runs the backward and returns each parameter's gradient, None where
+    the loss does not reach it.  Only ``UNREACHED`` may go unreached (its
+    gradient is then ``zeros(parameter)``); any other raises."""
+    if tcfg.moe_metrics:
+        loss, aux = model.loss_and_stats(mb, remat=tcfg.remat)
+    else:
+        loss, aux = model.loss(mb, remat=tcfg.remat), None
+    grads = sink(loss)
+    cut = [k for k, g in grads.items() if g is None and not k.endswith(UNREACHED)]
+    if cut:
+        raise RuntimeError(f"the loss does not reach {cut}: a gradient stop on its path")
+    return loss.detach(), aux, {k: zeros(params[k]) if g is None else g for k, g in grads.items()}
+
+
 def _grad_fn(model, tcfg: TrainConfig, params: Dict) -> Callable:
     """``run_grad(mb) -> (loss, MoE stats or None, {name: gradient})``."""
     names = list(params)
 
-    def run_grad(mb):
-        if tcfg.moe_metrics:
-            loss, aux = model.loss_and_stats(mb, remat=tcfg.remat)
-        else:
-            loss, aux = model.loss(mb, remat=tcfg.remat), None
+    def sink(loss):
         grads = torch.autograd.grad(loss, [params[k] for k in names], allow_unused=True)
-        cut = [k for k, g in zip(names, grads) if g is None and not k.endswith(UNREACHED)]
-        if cut:
-            raise RuntimeError(f"the loss does not reach {cut}: a gradient stop on its path")
-        grads = [torch.zeros_like(params[k]) if g is None else g for k, g in zip(names, grads)]
-        return loss.detach(), aux, dict(zip(names, grads))
+        return dict(zip(names, grads))
 
-    return run_grad
+    return lambda mb: _loss_and_grads(model, tcfg, params, mb, sink, torch.zeros_like)
 
 
-def _gradients(tcfg: TrainConfig, run: Callable, batch: Dict, leaves,
+def _gradients(tcfg: TrainConfig, run: Callable, mbs: List, leaves,
                norm_of: Callable = global_norm, amax_over: Optional[Callable] = None):
-    """``(loss, MoE stats, gradients, grad_norm)`` of ``batch``: ``run`` over
-    ``accum`` microbatches (their gradients summed in f32), the codec and
-    global-norm clipping (``norm_of`` and ``amax_over``: the whole
-    tensors' norm and largest magnitudes, for a mesh rank's shards)."""
-    if tcfg.accum == 1:
-        loss, moe, grads = run(batch)
+    """``(loss, MoE stats, gradients, grad_norm)`` of the microbatches
+    ``mbs``: ``run`` over each (their gradients summed in f32, then
+    averaged), the codec and global-norm clipping (``norm_of`` and
+    ``amax_over``: the whole tensors' norm and largest magnitudes, for a
+    mesh rank's shards)."""
+    if len(mbs) == 1:
+        loss, moe, grads = run(mbs[0])
     else:
         grads, loss, moe = None, 0.0, None
-        for mb in split_batch(batch, tcfg.accum):
+        for mb in mbs:
             l, aux, g = run(mb)
             if grads is None:
                 grads = {k: t.float() for k, t in g.items()}
@@ -110,8 +113,8 @@ def _gradients(tcfg: TrainConfig, run: Callable, batch: Dict, leaves,
             loss = loss + l
             if aux is not None:
                 moe = aux if moe is None else {k: moe[k] + aux[k] for k in _MOE_KEYS}
-        grads = {k: g / tcfg.accum for k, g in grads.items()}
-        loss = loss / tcfg.accum
+        grads = {k: g / len(mbs) for k, g in grads.items()}
+        loss = loss / len(mbs)
     if tcfg.compress_grads:
         grads = compression.codec_roundtrip(grads, leaves=leaves, amax_over=amax_over)
     grads, gnorm = clip_by_global_norm(grads, tcfg.opt.grad_clip, norm_of)
@@ -137,7 +140,8 @@ def make_train_step(model, tcfg: TrainConfig) -> Callable:
     run_grad = _grad_fn(model, tcfg, params)
 
     def train_step(opt_state: Dict, batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
-        loss, moe, grads, gnorm = _gradients(tcfg, run_grad, batch, leaves)
+        mbs = split_batch(batch, tcfg.accum) if tcfg.accum > 1 else [batch]
+        loss, moe, grads, gnorm = _gradients(tcfg, run_grad, mbs, leaves)
         opt_update(tcfg.opt, grads, opt_state, params, leaves)
         return _metrics(tcfg, loss, moe, gnorm, opt_state["step"])
 
@@ -156,8 +160,6 @@ def train_state_shardings(cfg, tree: Dict, mesh) -> Dict:
     ``state_tree`` of a ``cfg`` model goes on ``mesh`` (the reference's
     ``param_specs`` and ``opt_state_specs``).  ``tree``'s leaves may be
     placed already: only their whole shapes are read."""
-    from ..launch import shardings as SH
-
     specs = {"params": SH.param_specs(cfg, tree["params"], mesh),
              "opt": SH.opt_state_specs(cfg, tree["opt"], mesh)}
     return SH.named(mesh, specs)
@@ -168,8 +170,6 @@ def place_train_state(model, opt_state: Dict, mesh) -> Dict:
     rank its shards), after which the model's own parameters are empty;
     every rank must hold the same whole state.  The caller drops its
     ``opt_state``."""
-    from ..launch import shardings as SH
-
     tree = state_tree(model, opt_state)
     state = SH.place(tree, train_state_shardings(model.cfg, tree, mesh))
     release_params(model)
@@ -178,8 +178,6 @@ def place_train_state(model, opt_state: Dict, mesh) -> Dict:
 
 def _locals(tree):
     """``tree`` with each DTensor as its local shard itself."""
-    from ..launch import shardings as SH
-
     if isinstance(tree, dict):
         return {k: _locals(v) for k, v in tree.items()}
     return SH.local(tree)
@@ -189,8 +187,6 @@ def _rewrap(placed, locals_, memo=None):
     """``locals_`` (``_locals(placed)`` after an update that replaced some
     leaves) placed again as ``placed``'s leaves are."""
     from torch.distributed.tensor import DTensor
-
-    from ..launch import shardings as SH
 
     memo = {} if memo is None else memo
     if isinstance(placed, dict):
@@ -209,36 +205,46 @@ def make_mesh_train_step(model, tcfg: TrainConfig, mesh) -> Callable:
     doc): ``state`` is ``place_train_state``'s, updated in place; ``batch``
     the global batch, plain tensors that every rank holds or DTensors.
     The metrics are the single process' (``make_train_step``), the same
-    on every rank."""
-    from ..launch import shardings as SH
-
+    on every rank.  ``train_step.on_slices(state, slices, dims)`` takes
+    this rank's slices of the microbatches instead (``batch_slices``),
+    the batch split over the mesh dims ``dims`` (``batch_dims``)."""
     model.requires_grad_(True)
     params = dict(model.named_parameters())
     leaves = model.param_leaves()
-    run_grad = _grad_fn(model, tcfg, params)
-    names = SH.mesh_shape(mesh).axis_names
-    every = tuple(range(len(names)))
+    every = tuple(i for i in range(mesh.ndim) if mesh.size(i) > 1)
     where: Dict = {}  # each parameter's placements, read from the state a step takes
 
-    def run(mb):
-        """One microbatch: this rank's slice, its gradients averaged over
-        the ranks that split the batch, straight into this rank's shards."""
-        specs = SH.batch_specs(mb, mesh)
-        part = {k: SH.shard_of(v, mesh, SH.placements(specs[k], mesh)) for k, v in mb.items()}
-        lead = specs["tokens"][0]
-        axes = (lead,) if isinstance(lead, str) else tuple(lead or ())
-        dims = tuple(names.index(a) for a in axes)
+    def run(mb, dims):
+        """One microbatch: this rank's slice ``mb``, its gradients averaged
+        over the ranks that split the batch, in this rank's shards."""
         split = SH.BatchSplit(mesh, dims) if dims else None
-        with SH.batch_split(split):
-            loss, aux, grads = run_grad(part)
+        sink: Dict[int, torch.Tensor] = {}
+        part = SH.Partition(mesh, {id(p): where[k] for k, p in params.items()}, dims, sink)
+
+        def backward(loss):  # the gradients arrive in ``sink`` (``fetch``)
+            torch.autograd.backward(loss)
+            return {k: sink.get(id(p)) for k, p in params.items()}
+
+        with SH.batch_split(split), SH.partitioned(part):
+            # kept in f32, as ``make_train_step`` keeps a sum of microbatches
+            loss, aux, grads = _loss_and_grads(
+                model, tcfg, params, mb, backward,
+                lambda p: torch.zeros(p.shape, device=p.device))
         n = split.parts if split else 1
-        # kept in f32, as ``make_train_step`` keeps a sum of microbatches
-        grads = {k: SH.reduce_to(g.float(), where[k], mesh, dims) / n for k, g in grads.items()}
+        grads = {k: g / n for k, g in SH.reduce_replicated(grads, where, mesh, dims).items()}
         if split is not None:
             loss = SH.all_reduce(loss, mesh, dims) / n
             if aux is not None:
                 aux = {k: SH.all_reduce(v, mesh, dims) for k, v in aux.items()}
         return loss, aux, grads
+
+    coord = mesh.get_coordinate()
+
+    def shard(t) -> Shard:
+        """A placed parameter's ``optim.Shard`` on this rank."""
+        dims = [i for i, p in enumerate(t.placements) if p.is_shard() and mesh.size(i) > 1]
+        return Shard(tuple(t.shape), SH._region(t.shape, t.placements, mesh, coord),
+                     lambda x: SH.all_reduce(x, mesh, dims) if dims else x)
 
     def norm_of(grads):
         """The global norm of the whole gradients, from this rank's shards
@@ -247,27 +253,24 @@ def make_mesh_train_step(model, tcfg: TrainConfig, mesh) -> Callable:
                    for k, g in grads.items())
         return torch.sqrt(SH.all_reduce(part, mesh, every))
 
-    def train_step(state: Dict, batch: Dict) -> Dict[str, torch.Tensor]:
+    def on_slices(state: Dict, slices: Sequence[Dict], dims: Tuple[int, ...]
+                  ) -> Dict[str, torch.Tensor]:
         where.update({k: t.placements for k, t in state["params"].items()})
-        full = SH.whole_tree({k: SH.local(t) for k, t in state["params"].items()}, where, mesh)
+        mine = {k: SH.local(t) for k, t in state["params"].items()}
         with torch.no_grad():
             for k, p in params.items():
-                p.data = full[k]
-        del full
+                p.data = mine[k]
         try:
-            whole = {k: SH.gather_full(v) for k, v in batch.items()}
             loss, moe, grads, gnorm = _gradients(
-                tcfg, run, whole, leaves, norm_of, lambda v: SH.all_reduce(v, mesh, every, "max"))
+                tcfg, lambda mb: run(mb, dims), list(slices), leaves, norm_of,
+                lambda v: SH.all_reduce(v, mesh, every, "max"))
             opt = _locals(state["opt"])
-            mine = {k: SH.local(t) for k, t in state["params"].items()}
             if tcfg.opt.kind == "adafactor":
-                # the factored state replicates: update whole leaves, keep the shards
+                # the factored state replicates: its statistics are summed
+                # over the shards (``optim.Shard``)
                 if any(p.is_shard() for t in SH._leaves(state["opt"]) for p in t.placements):
-                    raise ValueError("a sharded Adafactor state: its update reads whole leaves")
-                grads = SH.whole_tree(grads, where, mesh)
-                opt_update(tcfg.opt, grads, opt, params, leaves)
-                for k, t in mine.items():
-                    t.copy_(SH.shard_of(params[k].detach(), mesh, where[k]))
+                    raise ValueError("a sharded Adafactor state: its statistics are whole")
+                opt_update(tcfg.opt, grads, opt, mine, leaves, lambda k: shard(state["params"][k]))
             else:  # elementwise: each rank its shards
                 opt_update(tcfg.opt, grads, opt, mine, leaves)
             state["opt"] = _rewrap(state["opt"], opt)
@@ -275,6 +278,11 @@ def make_mesh_train_step(model, tcfg: TrainConfig, mesh) -> Callable:
             release_params(model)
         return _metrics(tcfg, loss, moe, gnorm, SH.local(state["opt"]["step"]))
 
+    def train_step(state: Dict, batch: Dict) -> Dict[str, torch.Tensor]:
+        whole = {k: SH.gather_full(v) for k, v in batch.items()}
+        return on_slices(state, batch_slices(whole, tcfg.accum, mesh), batch_dims(whole, mesh))
+
+    train_step.on_slices = on_slices
     return train_step
 
 

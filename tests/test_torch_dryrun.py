@@ -320,3 +320,15 @@ def test_roofline_terms():
     assert t["dominant"] == "compute_s" and t["bound_s"] == pytest.approx(1.0)
     assert t["useful_flops_frac"] == pytest.approx(0.5) and t["roofline_frac"] == pytest.approx(0.5)
     assert rf.model_flops_train(10, 3) == 180.0 and rf.model_flops_decode(10, 3) == 60.0
+
+
+def test_roofline_collective_term():
+    """On a mesh the flops, bytes and collective bytes are global (one
+    rank's times ``chips``), each term over ``chips`` times its rate; the
+    collective term's rate is ``LINK_BW``."""
+    chips = 4
+    t = rf.roofline_terms(989e12 * chips, 3.35e12 * chips * 0.5, rf.LINK_BW * chips * 2.0, chips)
+    assert t["compute_s"] == pytest.approx(1.0) and t["memory_s"] == pytest.approx(0.5)
+    assert t["collective_s"] == pytest.approx(2.0)
+    assert t["dominant"] == "collective_s" and t["bound_s"] == pytest.approx(2.0)
+    assert rf.roofline_terms(989e12, 0.0)["collective_s"] == 0.0
